@@ -15,9 +15,11 @@ Layering:
   core/      delta quantization, model compression, safetensors artifacts
   models/    the Llama/Mistral decoder (forward / decode_step)
   serving/   tenant stacking, sampling, the engine and the HTTP server
+  train/     calibration data and scale distillation (``distill_scales``)
 
-Entry points (``Engine``, ``stack_tenants``, ``init_params``, the
-converters) run on the card unless the caller passes ``device="cpu"``.
+Entry points (``Engine``, ``stack_tenants``, ``init_params``,
+``load_delta``, the converters) run on the card unless the caller passes
+``device="cpu"``; ``distill_scales`` runs where its params lie.
 """
 
 __version__ = "0.1.0"

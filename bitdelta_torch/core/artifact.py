@@ -28,6 +28,7 @@ import torch
 
 from .compress import CompressedModel
 from .delta import BinaryDelta
+from ..device import resolve_device
 from ..models.config import ModelConfig
 
 FORMAT_VERSION = 1
@@ -106,9 +107,10 @@ def save_delta(path: str, compressed: CompressedModel,
     write_safetensors(path, tensors, meta)
 
 
-def load_delta(path: str, device="cpu"):
+def load_delta(path: str, device="cuda"):
     """Returns ``(CompressedModel, ModelConfig | None)`` with tensors on
-    ``device``."""
+    ``device`` (the card unless the caller passes ``"cpu"``)."""
+    device = resolve_device(device)
     raw, meta = read_safetensors(path)
     if int(meta.get("format_version", "1")) > FORMAT_VERSION:
         raise ValueError("artifact written by a newer format version")

@@ -67,3 +67,38 @@ def compress_model(base_params: Params, finetuned_params: Params, *,
         extras["lm_head"] = finetuned_params["lm_head"]
     return CompressedModel(deltas=deltas, extras=extras)
 
+
+def student_params(base_params: Params, compressed: CompressedModel
+                   ) -> Params:
+    """Params for the compressed model's forward: the base projection
+    weights (the deltas ride on top through ``forward(deltas=...)``) with
+    the fine-tuned extras overlaid. Tensors are shared, not copied."""
+    params = dict(base_params)
+    params["layers"] = dict(base_params["layers"])
+    ex = compressed.extras
+    params["final_norm"] = ex["final_norm"]
+    for name in LAYER_EXTRA_NAMES:
+        if name in ex:
+            params["layers"][name] = ex[name]
+    if "embed" in ex:
+        params["embed"] = ex["embed"]
+        if "lm_head" in ex:
+            params["lm_head"] = ex["lm_head"]
+        elif "lm_head" in params:
+            del params["lm_head"]
+    return params
+
+
+def with_scales(compressed: CompressedModel,
+                scales: Dict[str, torch.Tensor]) -> CompressedModel:
+    """Rebuild with distilled scales (proj name -> ``(L,)``), detached and
+    in fp32."""
+    deltas = {name: BinaryDelta(packed=compressed.deltas[name].packed,
+                                scale=scales[name].detach().to(
+                                    torch.float32))
+              for name in compressed.deltas}
+    return CompressedModel(deltas=deltas, extras=compressed.extras)
+
+
+def get_scales(compressed: CompressedModel) -> Dict[str, torch.Tensor]:
+    return {name: d.scale for name, d in compressed.deltas.items()}

@@ -1,10 +1,12 @@
 // Hand-written Hopper kernels for the 1-bit delta GEMMs of the serving
-// path (plain C interface, loaded with ctypes by ops/binary_gemm.py).
+// and training paths (plain C interface, loaded with ctypes by
+// ops/binary_gemm.py).
 //
 //   bd_pair_delta      <- bitdelta_tpu/ops/pallas_binary_gemm.py
 //                         ::tenant_delta_matmul_pair_pallas
 //   bd_tenant_dense    <- ::tenant_dense_matmul_pallas
 //   bd_binary_matmul   <- ::binary_matmul_pallas
+//   bd_binary_matmul_t <- ::binary_matmul_t_pallas
 //
 // Every entry launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -350,5 +352,110 @@ extern "C" int bd_binary_matmul(const void* x, const void* packed,
     binary_matmul_kernel<float><<<grid, 256, 0, s>>>(
         (const float*)x, (const uint32_t*)packed, (const float*)scale,
         (float*)out, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 6. Transposed binary matmul (the activation gradient of the trainable
+//    binary matmul in scale distillation):
+//    Y = scale * (g @ sign(P)^T),  g (M, N), P (K/32, N) int32 LSB-first
+//    along K, Y (M, K).
+//
+// Bound at the training shapes (M = batch * length = 512): operations,
+// 2*M*N*K against the bf16 tensor rate, as for kernel 5. Output column k
+// reads bit k % 32 of the words P[k / 32, :], so a block owns two word
+// rows (64 output columns) and a 64-row tile of g, and walks N in tiles
+// of 32: the words P[kw, n0:n0+32] are contiguous and load coalesced, the
+// g tile is staged in shared memory as fp32 (transposed, padded so the
+// staging stores hit distinct banks). Each thread keeps 4x4 outputs in
+// registers; each bit flips the sign of g[m, n] (bit 1 -> +g, bit 0 ->
+// -g) before an fp32 add, so the sum is the exact ±1 product accumulated
+// in fp32, sequential in N. The scale is applied once in the epilogue.
+// This first version runs on the CUDA cores, like kernel 5.
+// ---------------------------------------------------------------------------
+
+constexpr int BT_M = 64;       // g rows per block
+constexpr int BT_WORDS = 2;    // word rows per block (64 output columns)
+constexpr int BT_N = 32;       // N per shared-memory tile
+
+template <typename T>
+__global__ void binary_matmul_t_kernel(const T* __restrict__ g,
+                                       const uint32_t* __restrict__ packed,
+                                       const float* __restrict__ scale,
+                                       float* __restrict__ out,
+                                       int m, int k32, int n) {
+  __shared__ float gs[BT_N][BT_M + 1];
+  __shared__ uint32_t ws[BT_WORDS][BT_N];
+
+  // Thread (tx, ty) owns rows m0 + 4*ty + i and columns
+  // 32*(kw0 + j/2) + tx + 16*(j%2), i.e. bit tx or tx + 16 of each word.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * BT_M, kw0 = blockIdx.x * BT_WORDS;
+  const int k = k32 * 32;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int n0 = 0; n0 < n; n0 += BT_N) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < BT_M * BT_N; i += 256) {
+      const int r = i / BT_N, c = i % BT_N;
+      gs[c][r] = (m0 + r < m && n0 + c < n)
+                     ? to_f32(g[(size_t)(m0 + r) * n + n0 + c]) : 0.0f;
+    }
+    if (threadIdx.x < BT_WORDS * BT_N) {
+      const int w = threadIdx.x / BT_N, c = threadIdx.x % BT_N;
+      ws[w][c] = (kw0 + w < k32 && n0 + c < n)
+                     ? packed[(size_t)(kw0 + w) * n + n0 + c] : 0u;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < BT_N; ++c) {
+      float gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv[i] = gs[c][ty * 4 + i];
+      const uint32_t neg0 = ~ws[0][c], neg1 = ~ws[1][c];
+      // Bit s of a word moved to bit 31: the sign to XOR into g.
+      uint32_t sgn[4];
+      sgn[0] = (neg0 << (31 - tx)) & 0x80000000u;
+      sgn[1] = (neg0 << (15 - tx)) & 0x80000000u;
+      sgn[2] = (neg1 << (31 - tx)) & 0x80000000u;
+      sgn[3] = (neg1 << (15 - tx)) & 0x80000000u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[i][j] += __uint_as_float(__float_as_uint(gv[i]) ^ sgn[j]);
+    }
+  }
+  const float sc = scale[0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * (kw0 + j / 2) + tx + 16 * (j % 2);
+      if (col < k) out[(size_t)row * k + col] = acc[i][j] * sc;
+    }
+  }
+}
+
+extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
+                                  const void* scale, void* out, int m,
+                                  int k32, int n, int is_bf16,
+                                  void* stream) {
+  dim3 grid((k32 + BT_WORDS - 1) / BT_WORDS, (m + BT_M - 1) / BT_M);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    binary_matmul_t_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        (const __nv_bfloat16*)g, (const uint32_t*)packed,
+        (const float*)scale, (float*)out, m, k32, n);
+  else
+    binary_matmul_t_kernel<float><<<grid, 256, 0, s>>>(
+        (const float*)g, (const uint32_t*)packed, (const float*)scale,
+        (float*)out, m, k32, n);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,11 @@ tenant-routed ``(L, T, ...)`` stacks selected per batch row by
 (``"pallas"``), ``"torch"`` the plain paths JAX leaves to XLA (``"xla"``).
 Each kernel wrapper then runs its CUDA kernel on a CUDA tensor and its
 plain version on a CPU tensor, so the CPU tests walk the same branches
-the card runs.
+the card runs. For a forward with no tenant ids and no cache (the
+distillation student) JAX's ``"pallas"`` and ``"pallas_train"`` take the
+same branches, and so does ``"cuda"`` here: the binary matmul and flash
+prefill go through autograd Functions, so ``forward`` is differentiable
+in the delta scales on either device.
 
 bf16 rounding follows JAX: ``rms_norm`` casts to the input dtype before
 the weight multiply, RoPE and silu run in fp32 and cast once, and every
@@ -162,10 +166,15 @@ def _proj(x: torch.Tensor, w: torch.Tensor, delta, tenant_ids,
 
     y = matmul_f32(x.to(compute_dtype), w.to(compute_dtype))
     if delta is not None:
-        # Without tenant ids JAX's "pallas" takes binary_matmul_trainable
-        # (kernel table row 6, the training slice); the plain binary
-        # matmul computes the same forward.
-        if tenant_ids is None:
+        if tenant_ids is None and kernel == "cuda":
+            # Training shapes (M = B*S): the binary matmul kernel behind
+            # its autograd Function; gradients flow to x (the transposed
+            # kernel) and to the scale.
+            b, s, kdim = x.shape
+            yd = binary_gemm.binary_matmul_trainable(
+                x.reshape(b * s, kdim).to(compute_dtype), delta.packed,
+                delta.scale).reshape(b, s, -1)
+        elif tenant_ids is None:
             yd = binary_matmul(x, delta.packed, delta.scale,
                                compute_dtype=compute_dtype)
         else:

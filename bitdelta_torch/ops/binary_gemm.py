@@ -1,13 +1,18 @@
-"""1-bit delta GEMM kernels for the serving path, each beside its plain
-PyTorch version (port of three kernels of
+"""1-bit delta GEMM kernels for the serving and training paths, each
+beside its plain PyTorch version (port of four kernels of
 ``bitdelta_tpu/ops/pallas_binary_gemm.py``):
 
 * :func:`tenant_delta_matmul_pair` — decode, every projection's delta
   (``tenant_delta_matmul_pair_pallas``);
 * :func:`tenant_dense_matmul` — decode, the per-tenant lm_head
   (``tenant_dense_matmul_pallas``);
-* :func:`binary_matmul` — the single-request prefill delta
-  (``binary_matmul_pallas``).
+* :func:`binary_matmul` — the single-request prefill delta, and the
+  forward of the trainable matmul (``binary_matmul_pallas``);
+* :func:`binary_matmul_t` — its transpose, the activation gradient of
+  the trainable matmul (``binary_matmul_t_pallas``).
+
+:func:`binary_matmul_trainable` is the differentiable delta matmul of
+scale distillation, an autograd Function over the last two.
 
 Each wrapper picks by the device of its input: a CPU tensor takes the
 plain version (``*_plain``); a CUDA tensor launches the hand-written
@@ -227,3 +232,83 @@ def binary_matmul(x: torch.Tensor, packed: torch.Tensor,
 
 
 binary_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Transposed binary matmul and the trainable binary matmul (training path)
+# ---------------------------------------------------------------------------
+
+def binary_matmul_t_plain(g, packed, scale):
+    """Plain version (fp32 out): unpack to ±1 in fp32 and multiply by the
+    transpose."""
+    from .packing import unpack_to_pm1
+
+    signs = unpack_to_pm1(packed, torch.float32)                # (K, N)
+    y = torch.matmul(g.to(torch.float32), signs.transpose(0, 1))
+    return torch.as_tensor(scale, dtype=torch.float32, device=y.device) * y
+
+
+def binary_matmul_t(g: torch.Tensor, packed: torch.Tensor,
+                    scale: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """``scale * (g @ sign(packed).T)``: g ``(M, N)``, packed
+    ``(K//32, N)``, scale a 0-d or 1-element fp32 tensor (read on the
+    device). Returns ``(M, K)`` in ``out_dtype`` (default g.dtype)."""
+    out_dtype = out_dtype or g.dtype
+    m, n = g.shape
+    k32, n_p = packed.shape
+    _require(n_p == n, f"g {tuple(g.shape)} vs packed {tuple(packed.shape)}")
+    if not g.is_cuda:
+        return binary_matmul_t_plain(g, packed, scale).to(out_dtype)
+    flag = _cuda_dtype_flag(g)
+    gc = g.contiguous()
+    pc = packed.contiguous()
+    sc = torch.as_tensor(scale, dtype=torch.float32,
+                         device=g.device).reshape(1).contiguous()
+    out = torch.empty((m, k32 * 32), dtype=torch.float32, device=g.device)
+    _build.launch(_LIB, "bd_binary_matmul_t", [P, P, P, P, I, I, I, I, P],
+                  _build.ptr(gc), _build.ptr(pc), _build.ptr(sc),
+                  _build.ptr(out), m, k32, n, flag, _build.stream(g.device))
+    binary_matmul_t.launches += 1
+    return out.to(out_dtype)
+
+
+binary_matmul_t.launches = 0
+
+
+class _BinaryMatmulTrainable(torch.autograd.Function):
+    """The custom VJP of ``binary_matmul_trainable`` in
+    ``bitdelta_tpu/ops/pallas_binary_gemm.py`` with its roundings: the
+    forward in x's dtype; the backward recomputes ``u = x @ sign`` in fp32
+    (not saved), ``d_scale = sum(g * u)`` in fp32 and
+    ``d_x = scale * (g @ sign.T)`` in x's dtype. The packed bits get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scale):
+        ctx.save_for_backward(x, packed, scale)
+        return binary_matmul(x, packed, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, packed, scale = ctx.saved_tensors
+        d_x = d_scale = None
+        if ctx.needs_input_grad[2]:
+            u = binary_matmul(x, packed, torch.ones_like(scale),
+                              out_dtype=torch.float32)
+            d_scale = (g.to(torch.float32) * u).sum().to(
+                scale.dtype).reshape(scale.shape)
+        if ctx.needs_input_grad[0]:
+            d_x = binary_matmul_t(g.to(x.dtype), packed, scale,
+                                  out_dtype=x.dtype)
+        return d_x, None, d_scale
+
+
+def binary_matmul_trainable(x: torch.Tensor, packed: torch.Tensor,
+                            scale: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``scale * (x @ sign(packed))`` in x's dtype: x
+    ``(M, K)``, packed ``(K//32, N)``, scale a 0-d fp32 tensor. Gradients
+    flow to x (through :func:`binary_matmul_t`) and to scale; without a
+    gradient to take it is :func:`binary_matmul` alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _BinaryMatmulTrainable.apply(x, packed, scale)
+    return binary_matmul(x, packed, scale)

@@ -1,0 +1,186 @@
+"""Scale distillation (port of ``bitdelta_tpu/train/distill.py``): refine
+the per-matrix delta scales against the fine-tuned teacher's logits.
+
+* teacher = the fine-tune (frozen, plain path, no gradient); student =
+  base weights + 1-bit deltas whose scales are the only leaves with
+  ``requires_grad``;
+* loss = mean squared error over the full fp32 logits;
+* AdamW (betas 0.9/0.999, eps 1e-8, weight decay 0.01: ``optax.adamw``'s
+  defaults) with optax's cosine decay of the learning rate over
+  ``num_steps`` (0 past the end, unlike ``CosineAnnealingLR``).
+
+``kernel="cuda"`` runs the student through the CUDA kernels' autograd
+Functions (the binary matmul forward and its transposed kernel backward,
+flash prefill with its blockwise backward), the counterpart of JAX's
+``"pallas_train"``; ``"torch"`` runs the plain path, JAX's ``"xla"``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.artifact import read_safetensors, write_safetensors
+from ..core.compress import (CompressedModel, get_scales, student_params,
+                             with_scales)
+from ..core.delta import BinaryDelta
+from ..device import torch_dtype
+from ..models import llama
+from ..models.config import ModelConfig
+
+KERNELS = ("auto", "cuda", "torch")
+
+
+class DistillConfig(NamedTuple):
+    lr: float = 1e-4
+    num_steps: int = 100
+    weight_decay: float = 0.01
+    compute_dtype: str = "bfloat16"
+    kernel: str = "auto"      # "auto": "cuda" for params on the card
+
+
+def cosine_lr(lr: float, num_steps: int, step: int) -> float:
+    """``optax.cosine_decay_schedule(lr, num_steps)`` at ``step`` (counted
+    from 0): ``lr * (1 + cos(pi * min(step, T) / T)) / 2``."""
+    t = min(step, num_steps)
+    return lr * 0.5 * (1.0 + math.cos(math.pi * t / num_steps))
+
+
+def resolve_kernel(kernel: str, device: torch.device) -> str:
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    if kernel == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    return kernel
+
+
+def make_optimizer(scales: Dict[str, torch.Tensor], dcfg: DistillConfig
+                   ) -> torch.optim.AdamW:
+    return torch.optim.AdamW(list(scales.values()), lr=dcfg.lr,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=dcfg.weight_decay)
+
+
+def _adam_step(optimizer: torch.optim.Optimizer) -> int:
+    """Updates taken so far (the schedule's count, as optax keeps it in
+    the optimizer state)."""
+    state = optimizer.state.get(optimizer.param_groups[0]["params"][0])
+    return int(state["step"]) if state else 0
+
+
+def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
+                      finetuned_params, compressed: CompressedModel,
+                      scales: Dict[str, torch.Tensor],
+                      optimizer: torch.optim.Optimizer):
+    """The step ``batch (B, S) int64 -> loss`` (a detached 0-d fp32
+    tensor). It updates ``scales`` in place through ``optimizer`` and
+    leaves this step's gradients in ``scales[name].grad``."""
+    compute_dtype = torch_dtype(dcfg.compute_dtype)
+    s_params = student_params(base_params, compressed)
+    packed = {name: d.packed for name, d in compressed.deltas.items()}
+    kernel = resolve_kernel(dcfg.kernel, base_params["embed"].device)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        lr = cosine_lr(dcfg.lr, dcfg.num_steps, _adam_step(optimizer))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        with torch.no_grad():
+            teacher = llama.forward(cfg, finetuned_params, batch,
+                                    compute_dtype=compute_dtype,
+                                    kernel="torch")
+        deltas = {name: BinaryDelta(packed=packed[name], scale=scales[name])
+                  for name in packed}
+        student = llama.forward(cfg, s_params, batch, deltas=deltas,
+                                compute_dtype=compute_dtype, kernel=kernel)
+        diff = (teacher - student).to(torch.float32)
+        loss = torch.mean(diff * diff)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def save_distill_checkpoint(path: str, step: int,
+                            scales: Dict[str, torch.Tensor],
+                            optimizer: torch.optim.Optimizer) -> None:
+    """Training state (scales, AdamW moments, step) as a safetensors file,
+    written to a temporary name and moved into place."""
+    state = optimizer.state_dict()["state"]
+    tensors = {}
+    for i, (name, s) in enumerate(scales.items()):
+        tensors[f"scales.{name}"] = s.detach().cpu().numpy()
+        tensors[f"exp_avg.{name}"] = state[i]["exp_avg"].cpu().numpy()
+        tensors[f"exp_avg_sq.{name}"] = state[i]["exp_avg_sq"].cpu().numpy()
+    tmp = f"{path}.tmp"
+    write_safetensors(tmp, tensors, {"step": str(step)})
+    os.replace(tmp, path)
+
+
+def load_distill_checkpoint(path: str, scales: Dict[str, torch.Tensor],
+                            optimizer: torch.optim.Optimizer) -> int:
+    """Restore what :func:`save_distill_checkpoint` wrote into ``scales``
+    (in place) and ``optimizer``; returns the step to resume at."""
+    raw, meta = read_safetensors(path)
+    step = int(meta["step"])
+    state = {}
+    with torch.no_grad():
+        for i, (name, s) in enumerate(scales.items()):
+            s.copy_(torch.from_numpy(raw[f"scales.{name}"]))
+            state[i] = {"step": torch.tensor(float(step)),
+                        "exp_avg": torch.from_numpy(raw[f"exp_avg.{name}"]),
+                        "exp_avg_sq": torch.from_numpy(
+                            raw[f"exp_avg_sq.{name}"])}
+    sd = optimizer.state_dict()
+    sd["state"] = state
+    optimizer.load_state_dict(sd)
+    return step
+
+
+def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
+                   compressed: CompressedModel, batches,
+                   dcfg: DistillConfig = DistillConfig(), *,
+                   progress: bool = False,
+                   checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 0
+                   ) -> Tuple[CompressedModel, List[float]]:
+    """Run scale distillation; returns (calibrated model, loss history).
+
+    ``batches``: ``(B, S)`` token batches (an array or an iterable); the
+    schedule spans ``dcfg.num_steps`` however many are given. The
+    caller's ``compressed`` is untouched: training works on copies of
+    its scales. With ``checkpoint_path`` and ``checkpoint_every`` the
+    state is saved every ``checkpoint_every`` steps; when the file
+    exists, the run resumes from it and, given the same batches, lands
+    on the trajectory of a run without a break.
+    """
+    device = base_params["embed"].device
+    scales = {name: s.detach().to(torch.float32).clone().requires_grad_()
+              for name, s in get_scales(compressed).items()}
+    optimizer = make_optimizer(scales, dcfg)
+    start = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        start = load_distill_checkpoint(checkpoint_path, scales, optimizer)
+        if progress:
+            print(f"[distill] resuming from {checkpoint_path} at step "
+                  f"{start}", flush=True)
+    step = make_distill_step(cfg, dcfg, base_params, finetuned_params,
+                             compressed, scales, optimizer)
+    losses: List[float] = []
+    for i, batch in enumerate(batches):
+        if i < start:
+            continue
+        tokens = torch.as_tensor(np.asarray(batch), device=device).long()
+        losses.append(float(step(tokens)))
+        if progress and i % 10 == 0:
+            print(f"[distill] step {i}: loss {losses[-1]:.6f}", flush=True)
+        if (checkpoint_path and checkpoint_every
+                and (i + 1) % checkpoint_every == 0):
+            save_distill_checkpoint(checkpoint_path, i + 1, scales,
+                                    optimizer)
+    return with_scales(compressed, scales), losses

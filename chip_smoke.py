@@ -11,18 +11,27 @@ Phases (any failure exits non-zero; no phase is skipped on error):
 2. build: compile every kernel of ``bitdelta_torch/csrc`` with nvcc
    (one process per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the
-   card at the serving path's Mistral-7B shapes, and time the kernel's
-   wrapper, the plain version and (where one exists) a single PyTorch
-   library call from torch.profiler device time, beside the least time
-   the card could take (bound);
+   card at the Mistral-7B shapes of the path that runs it, and time the
+   kernel's wrapper, the plain version and (where one exists) a single
+   PyTorch library call from torch.profiler device time, beside the
+   least time the card could take (bound); then hold the gradients of
+   the two autograd Functions of the training path (the trainable binary
+   matmul, flash prefill) against autograd of their plain versions;
 4. serving: a Mistral-7B base at its full width and 32 layers (random
    bf16 weights from a seeded generator) with three synthetic fine-tunes
    compressed by the port, one written and read back through the
    artifact I/O, stacked, and served by ``Engine`` behind the HTTP
-   server; every kernel's launch counter must be > 0 afterwards;
+   server; every serving kernel's launch counter must be > 0 afterwards;
 5. parity: a 2-layer full-width model's prefill and decode logits with
    the kernels on the card against the same model on the CPU with the
-   plain versions.
+   plain versions;
+6. train: a 32-layer full-width Mistral-7B fine-tune (bf16) compressed,
+   written as ``diff_untrained.safetensors``, scale-distilled for 3
+   steps by ``distill_scales`` (batch 4, length 128, lr 1e-4) through the
+   kernels, written as ``diff.safetensors`` and read back bit-exact;
+   every training kernel's launch counter must be > 0 afterwards;
+7. train parity: one distillation step of a 2-layer full-width fp32
+   model through the kernels against the same step on the plain path.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -32,6 +41,7 @@ Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -67,6 +77,16 @@ KERNELS = {
     "binary_matmul": (
         "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
         "bitdelta_tpu/ops/pallas_binary_gemm.py:95"),
+    "binary_matmul_t": (
+        "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
+        "bitdelta_tpu/ops/pallas_binary_gemm.py:721"),
+}
+# The kernels each main path must launch.
+PATHS = {
+    "serving": ("tenant_delta_matmul_pair", "flash_decode_attention",
+                "tenant_dense_matmul", "flash_prefill_attention",
+                "binary_matmul"),
+    "train": ("flash_prefill_attention", "binary_matmul", "binary_matmul_t"),
 }
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
@@ -534,11 +554,191 @@ def check_binary(dev, gen, results):
         library="torch.matmul(x, unpacked ±1 bf16 matrix)", detail=shapes)
 
 
+def check_binary_t(dev, gen, results):
+    from bitdelta_torch.ops import binary_gemm as bg
+    from bitdelta_torch.ops.packing import unpack_to_pm1
+
+    m = 512
+    tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                         "library_ms", "bound_ms"), 0.0)
+    err, err32, shapes, by = 0.0, 0.0, [], set()
+    for name, k, n in PROJ_SHAPES:
+        # The activation gradient of projection (K -> N): g (M, N) in,
+        # (M, K) out.
+        g = torch.randn((m, n), generator=gen, device=dev).to(torch.bfloat16)
+        packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n),
+                               generator=gen, device=dev, dtype=torch.int32)
+        scale = torch.tensor(0.003, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            gd = g.to(dtype)
+            got = bg.binary_matmul_t(gd, packed, scale,
+                                     out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            want = bg.binary_matmul_t_plain(gd, packed, scale)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            require(e <= tol, f"binary matmul t {name} {dtype}: max|err| "
+                              f"{e} > {tol}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            else:
+                err32 = max(err32, e)
+        del got, want
+        pm1 = unpack_to_pm1(packed, torch.bfloat16)               # (K, N)
+        # As the trainable matmul's backward calls it: bf16 in and out.
+        row = time_wrapper(
+            f"binary matmul t {name}",
+            lambda i: bg.binary_matmul_t(g, packed, scale),
+            1, ("binary_matmul_t_kernel",),
+            plain=lambda i: bg.binary_matmul_t_plain(g, packed, scale),
+            library=lambda i: torch.matmul(g, pm1.T), iters=5)
+        del pm1
+        nbytes = m * n * 2 + (k // 32) * n * 4 + m * k * 2
+        row["bound_ms"], b_by = bound(nbytes, 2 * m * k * n)
+        by.add(b_by)
+        for key in tot:
+            tot[key] += row[key]
+        shapes.append({"proj": name, "k": k, "n": n, **row})
+    results["binary_matmul_t"] = dict(
+        tot, max_abs_err=err, fp32_max_abs_err=err32,
+        bound_by="+".join(sorted(by)),
+        tolerance="1e-4 * max|ref| (fp32 sums in another order), bf16 and "
+                  "fp32 g",
+        shape="M=512, per training layer: the 7 projections' activation "
+              "gradients, bf16 in and out", timing=TIMING,
+        bound_basis="ops: 2*M*K*N at the bf16 rate (±1 is exact in bf16); "
+                    "bytes: g bf16 + K/32*N words + bf16 out",
+        library="torch.matmul(g, unpacked ±1 bf16 matrix .T)",
+        detail=shapes)
+
+
+def grad_error(got, want, row):
+    """Max |got - want| of a gradient, and the count of rows of ``row``
+    values off by more than 2^-7 of their own max |want| (one bf16 ulp
+    of the row's largest value: both sides compute in fp32 and round
+    once)."""
+    diff = (got.float() - want.float()).reshape(-1, row).abs()
+    tol = 2 ** -7 * want.float().reshape(-1, row).abs().amax(-1)
+    return diff.max().item(), int((diff.amax(-1) > tol).sum())
+
+
+def check_grads(dev, gen, results):
+    """The training path's autograd Functions on the card against
+    autograd of their plain versions, at the training shapes."""
+    import torch.nn.functional as F
+
+    from bitdelta_torch.ops import binary_gemm as bg
+    from bitdelta_torch.ops import flash_prefill as fp
+
+    m = 512
+    out = {"binary_matmul_trainable": [], "flash_prefill_attention": []}
+    for name, k, n in PROJ_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n),
+                               generator=gen, device=dev, dtype=torch.int32)
+        gy = torch.randn((m, n), generator=gen, device=dev).to(
+            torch.bfloat16)
+        s0 = torch.tensor(0.003, device=dev)
+        x1, s1 = x.clone().requires_grad_(), s0.clone().requires_grad_()
+        x2, s2 = x.clone().requires_grad_(), s0.clone().requires_grad_()
+        bg.binary_matmul_trainable(x1, packed, s1).backward(gy)
+        bg.binary_matmul_plain(x2, packed, s2).to(x.dtype).backward(gy)
+        torch.cuda.synchronize()
+        dx_err, bad = grad_error(x1.grad, x2.grad, k)
+        require(not bad, f"trainable {name}: {bad} rows of d_x off by more "
+                         f"than 2^-7 of their max (max|err| {dx_err})")
+        u = bg.binary_matmul_plain(x, packed, torch.ones_like(s0))
+        mag = (gy.float() * u).abs().sum().item()
+        ds_err = abs(s1.grad.item() - s2.grad.item())
+        require(ds_err <= 1e-5 * mag, f"trainable {name}: d_scale off by "
+                                      f"{ds_err} > 1e-5 * {mag}")
+        out["binary_matmul_trainable"].append(
+            {"proj": name, "d_x_max_abs_err": dx_err,
+             "d_scale_abs_err": ds_err, "d_scale": s2.grad.item(),
+             "d_scale_tol": 1e-5 * mag})
+        del x, x1, x2, u, gy, packed
+    bsz, s, h, kvh, hd, window = 4, 128, 32, 8, 128, 4096
+    lengths = torch.tensor([128, 128, 128, 77], device=dev,
+                           dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((bsz, s, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).to(
+            dtype)
+        v = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).to(
+            dtype)
+        go = torch.randn((bsz, s, h * hd), generator=gen, device=dev).to(
+            dtype)
+        ins1 = [t.clone().requires_grad_() for t in (q, k, v)]
+        ins2 = [t.clone().requires_grad_() for t in (q, k, v)]
+        o1 = fp.flash_prefill_attention(*ins1, lengths, window=window)
+        o2 = fp.flash_prefill_attention_plain(*ins2, lengths, window=window)
+        o1.backward(go)
+        o2.backward(go)
+        torch.cuda.synchronize()
+        rec = {"dtype": str(dtype).replace("torch.", "")}
+        if dtype == torch.bfloat16:
+            e, bad = attention_error(o1.detach(), o2.detach(), hd)
+            require(not bad, f"flash prefill at the training shape: {bad} "
+                             f"(row, head) outputs off by more than 2^-7 of "
+                             f"their max (max|err| {e})")
+        else:
+            e = (o1 - o2).abs().max().item()
+            require(e <= 1e-4, f"flash prefill fp32 at the training shape: "
+                               f"max|err| {e} > 1e-4")
+        rec["out_max_abs_err"] = e
+        for label, a, b in zip(("dq", "dk", "dv"), ins1, ins2):
+            require(not a.grad[3, 77:].any().item(),
+                    f"flash prefill {label}: padding rows not zero")
+            if dtype == torch.bfloat16:
+                e, bad = grad_error(a.grad, b.grad, hd)
+                require(not bad, f"flash prefill {label}: {bad} (row, head) "
+                                 f"gradients off by more than 2^-7 of "
+                                 f"their max (max|err| {e})")
+            else:
+                e = (a.grad - b.grad).abs().max().item()
+                tol = 1e-4 * b.grad.abs().max().item()
+                require(e <= tol, f"flash prefill {label} fp32: max|err| "
+                                  f"{e} > {tol}")
+            rec[f"{label}_max_abs_err"] = e
+        out["flash_prefill_attention"].append(rec)
+        if dtype == torch.bfloat16:
+            # The forward at the training shape (full lengths), timed.
+            full = torch.full((bsz,), s, device=dev, dtype=torch.int32)
+            mask = fp.prefill_mask(s, s, full, window)
+            kk, vv, m4 = _sdpa_inputs(q.transpose(1, 2), k, v, mask[:, None])
+            q4 = q.transpose(1, 2).contiguous()
+            row = time_wrapper(
+                "flash prefill train shape",
+                lambda i: fp.flash_prefill_attention(q, k, v, full,
+                                                     window=window),
+                1, ("flash_prefill_kernel",),
+                plain=lambda i: fp.flash_prefill_attention_plain(
+                    q, k, v, full, window=window),
+                library=lambda i: F.scaled_dot_product_attention(
+                    q4, kk, vv, attn_mask=m4))
+            nbytes = bsz * s * (h + 2 * kvh) * hd * 2 + bsz * s * h * hd * 2
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 4 * hd * h * int(mask.sum()))
+            out["flash_prefill_forward_train_shape"] = row
+            del kk, vv, q4
+        del q, k, v, go, ins1, ins2, o1, o2
+    results["autograd"] = dict(
+        out, tolerance="d_x and bf16 attention gradients: each row within "
+                       "2^-7 of its own max|ref|; fp32 attention gradients: "
+                       "1e-4 of the tensor's max|ref|; d_scale: 1e-5 of "
+                       "sum |g * u|",
+        shape="binary matmul: M=512 at the 7 projections, bf16; flash "
+              "prefill: B=4 S=128 H=32 KV=8 hd=128 window 4096, lengths "
+              "128, 128, 128, 77, bf16 and fp32",
+        reference="autograd of the plain versions on the same inputs")
+
+
 def kernel_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
     for check in (check_pair, check_decode, check_dense, check_prefill,
-                  check_binary):
+                  check_binary, check_binary_t, check_grads):
         check(dev, gen, results)
         torch.cuda.empty_cache()
     for name, res in results.items():
@@ -570,6 +770,17 @@ def synthetic_finetune(cfg, base, gen, scale=0.002):
     return fine
 
 
+def same_delta(a, b, label):
+    """Require two CompressedModels to be equal, bit for bit."""
+    for name, d in a.deltas.items():
+        require(torch.equal(d.packed, b.deltas[name].packed)
+                and torch.equal(d.scale, b.deltas[name].scale),
+                f"{label}: delta {name} did not round-trip")
+    for name, x in a.extras.items():
+        require(torch.equal(x, b.extras[name]),
+                f"{label}: extra {name} did not round-trip")
+
+
 def build_world(cfg, dev, n_tenants=3, seed=0):
     from bitdelta_torch.core.artifact import load_delta, save_delta
     from bitdelta_torch.core.compress import compress_model
@@ -598,13 +809,7 @@ def build_world(cfg, dev, n_tenants=3, seed=0):
         size = Path(path).stat().st_size
         loaded, cfg_back = load_delta(path, device=dev)
     require(cfg_back == cfg, "artifact config did not round-trip")
-    for name, d in tenants[0].deltas.items():
-        require(torch.equal(d.packed, loaded.deltas[name].packed)
-                and torch.equal(d.scale, loaded.deltas[name].scale),
-                f"artifact delta {name} did not round-trip")
-    for name, x in tenants[0].extras.items():
-        require(torch.equal(x, loaded.extras[name]),
-                f"artifact extra {name} did not round-trip")
+    same_delta(tenants[0], loaded, "artifact")
     tenants[0] = loaded
     t_art = time.perf_counter() - t0
     stack = stack_tenants(cfg, base, tenants, device=dev)
@@ -697,8 +902,9 @@ def serve(cfg, stack, dev, name):
     require(all(0 <= t < vocab for o in outs for t in o),
             "Engine.generate produced out-of-vocab tokens")
     counts = read_counts()
-    for kname, c in counts.items():
-        require(c > 0, f"kernel {kname} was never launched on the main path")
+    for kname in PATHS["serving"]:
+        require(counts[kname] > 0,
+                f"kernel {kname} was never launched on the serving path")
     gen_tokens = sum(len(o) for o in outs)
 
     # Prefill and decode-step times through the same engine (after the
@@ -818,11 +1024,192 @@ def parity(cfg_full, dev):
         # such rounding stay within 2% of the logit scale.
         require(err <= 2e-2 * scale,
                 f"{label} logits: max|err| {err} > 2% of {scale}")
-    for kname in ("tenant_delta_matmul_pair", "flash_decode_attention",
-                  "tenant_dense_matmul", "flash_prefill_attention",
-                  "binary_matmul"):
+    for kname in PATHS["serving"]:
         require(counts[kname] > 0, f"parity run missed kernel {kname}")
     emit(out)
+
+
+# ---------------------------------------------------------------------------
+# 6. The training path end to end
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_LR = 4, 128, 3, 1e-4
+
+
+def batch_loss(cfg, base, fine, compressed, tokens):
+    """The distillation loss on one batch, without a gradient (student on
+    the kernel path, teacher on the plain path, as in training)."""
+    from bitdelta_torch.core.compress import student_params
+    from bitdelta_torch.models import llama
+
+    with torch.no_grad():
+        t = llama.forward(cfg, fine, tokens, kernel="torch")
+        s = llama.forward(cfg, student_params(base, compressed), tokens,
+                          deltas=compressed.deltas, kernel="cuda")
+        return torch.mean((t - s).float() ** 2).item()
+
+
+def train(cfg, dev):
+    """Compress a synthetic full-width fine-tune, distill its scales for
+    TRAIN_STEPS steps through the kernels, save and reload the result,
+    then time one more step on the same inputs."""
+    from bitdelta_torch.core.artifact import load_delta, save_delta
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models.llama import init_params
+    from bitdelta_torch.train.data import synthetic_batches
+    from bitdelta_torch.train.distill import (DistillConfig, distill_scales,
+                                              make_distill_step,
+                                              make_optimizer)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    base = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    fine = synthetic_finetune(cfg, base, gen)
+    comp = compress_model(base, fine)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    batches = synthetic_batches(cfg.vocab_size, TRAIN_STEPS, TRAIN_BATCH,
+                                TRAIN_LEN, seed=0)
+    dcfg = DistillConfig(lr=TRAIN_LR, num_steps=TRAIN_STEPS,
+                         compute_dtype="bfloat16", kernel="cuda")
+    report = {"layers": cfg.num_layers, "batch": TRAIN_BATCH,
+              "length": TRAIN_LEN, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+              "setup_s": setup_s}
+    tokens = torch.from_numpy(batches[0]).long().to(dev)
+    report["batch0_loss_before"] = batch_loss(cfg, base, fine, comp, tokens)
+    with tempfile.TemporaryDirectory() as tmp:
+        untrained = str(Path(tmp) / "diff_untrained.safetensors")
+        save_delta(untrained, comp, cfg)
+        report["artifact_bytes"] = Path(untrained).stat().st_size
+        torch.cuda.synchronize()
+        report["resident_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        distilled, losses = distill_scales(cfg, base, fine, comp, batches,
+                                           dcfg)
+        torch.cuda.synchronize()
+        report["distill_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        report["losses"] = losses
+        require(all(math.isfinite(x) for x in losses),
+                f"distillation losses not finite: {losses}")
+        for kname in PATHS["train"]:
+            require(counts[kname] > 0,
+                    f"kernel {kname} was never launched on the training path")
+        moved = {}
+        for name, d in distilled.deltas.items():
+            before = comp.deltas[name].scale
+            require(bool((d.scale != before).all()),
+                    f"{name}: some layer's scale did not move")
+            moved[name] = (d.scale - before).abs().max().item()
+        report["max_scale_change"] = moved
+        report["batch0_loss_after"] = batch_loss(cfg, base, fine, distilled,
+                                                 tokens)
+        path = str(Path(tmp) / "diff.safetensors")
+        save_delta(path, distilled, cfg)
+        back, cfg_back = load_delta(path, device=dev)
+        require(cfg_back == cfg, "distilled artifact config did not "
+                                 "round-trip")
+        same_delta(distilled, back, "diff.safetensors")
+        back, _ = load_delta(untrained, device=dev)
+        same_delta(comp, back, "diff_untrained.safetensors")
+        del back
+
+    # One more step, after the counted run, on a fresh optimizer over the
+    # distilled scales: wall time (no profiler), then its device time.
+    scales = {n: d.scale.clone().requires_grad_()
+              for n, d in distilled.deltas.items()}
+    step = make_distill_step(cfg, dcfg, base, fine, comp, scales,
+                             make_optimizer(scales, dcfg))
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, top = device_breakdown(lambda: step(tokens), "distill step",
+                                   top=10)
+    report.update(launches=counts, step_wall_ms=walls,
+                  step_device_ms=dev_ms,
+                  step_device_busy=dev_ms / min(walls),
+                  step_top_kernels=top,
+                  launches_per_step={k: v // TRAIN_STEPS
+                                     for k, v in counts.items()})
+    emit({"phase": "train", **report})
+    return counts, report
+
+
+# ---------------------------------------------------------------------------
+# 7. One distillation step: kernels against the plain path
+# ---------------------------------------------------------------------------
+
+def train_parity(cfg_full, dev):
+    """A 2-layer full-width fp32 model: the loss and every scale's
+    gradient of one step with kernel="cuda" against kernel="torch".
+
+    Tolerances: both paths run in fp32 and differ only in summation
+    order (the binary matmuls add exact ±x terms in sequence instead of
+    cuBLAS's fp32 GEMM; flash prefill's online softmax instead of the
+    dense one; the attention backward is the blockwise recompute instead
+    of autograd of the dense version). That moves each logit by about
+    1e-6 of its size: the loss to within 1e-5 relative, each gradient to
+    within 1e-3 of its projection's largest |gradient|."""
+    import dataclasses
+
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models.llama import init_params
+    from bitdelta_torch.train.data import synthetic_batches
+    from bitdelta_torch.train.distill import (DistillConfig,
+                                              make_distill_step,
+                                              make_optimizer)
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    fine = synthetic_finetune(cfg, base, gen)
+    comp = compress_model(base, fine)
+    tokens = torch.from_numpy(synthetic_batches(
+        cfg.vocab_size, 1, TRAIN_BATCH, TRAIN_LEN, seed=1)[0]).long().to(dev)
+    runs = {}
+    for kernel in ("cuda", "torch"):
+        dcfg = DistillConfig(lr=TRAIN_LR, num_steps=TRAIN_STEPS,
+                             compute_dtype="float32", kernel=kernel)
+        scales = {n: d.scale.clone().requires_grad_()
+                  for n, d in comp.deltas.items()}
+        step = make_distill_step(cfg, dcfg, base, fine, comp, scales,
+                                 make_optimizer(scales, dcfg))
+        reset_counts()
+        loss = step(tokens).item()
+        torch.cuda.synchronize()
+        runs[kernel] = (loss, {n: s.grad.clone() for n, s in scales.items()},
+                        read_counts())
+    (l_k, g_k, c_k), (l_p, g_p, c_p) = runs["cuda"], runs["torch"]
+    for kname in PATHS["train"]:
+        require(c_k[kname] > 0, f"train parity: kernel path missed {kname}")
+    require(not any(c_p.values()), f"train parity: plain path launched "
+                                   f"kernels {c_p}")
+    rel = abs(l_k - l_p) / abs(l_p)
+    require(math.isfinite(l_k) and rel <= 1e-5,
+            f"train parity: loss {l_k} vs {l_p} (rel {rel} > 1e-5)")
+    grads = {}
+    for name, gp in g_p.items():
+        err = (g_k[name] - gp).abs().max().item()
+        scale = gp.abs().max().item()
+        require(err <= 1e-3 * scale, f"train parity: {name} gradient off by "
+                                     f"{err} > 1e-3 * {scale}")
+        grads[name] = {"max_abs_err": err, "max_abs": scale,
+                       "rel_err": err / scale}
+    out = {"phase": "train_parity", "layers": 2, "dtype": "float32",
+           "loss_cuda": l_k, "loss_torch": l_p, "loss_rel_err": rel,
+           "grads": grads, "launches": c_k,
+           "tolerance": "loss: 1e-5 relative; each scale gradient: 1e-3 of "
+                        "its projection's max |gradient| (fp32 sums in "
+                        "another order)"}
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -857,19 +1244,30 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     # The stack is handed over without another reference, so the engine's
     # pair-layout copy replaces the canonical deltas.
-    counts, report["serving"] = serve(cfg, build_world(cfg, dev)[1], dev,
-                                      name)
+    serve_counts, report["serving"] = serve(cfg, build_world(cfg, dev)[1],
+                                            dev, name)
+    gc.collect()
     torch.cuda.empty_cache()
     parity(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts, report["train"] = train(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_parity"] = train_parity(cfg, dev)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
+        by_path = {"serving": serve_counts[kname],
+                   "train": train_counts[kname]}
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[kname],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+            "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"]})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     report["nvidia_smi"] = smi

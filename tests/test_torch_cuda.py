@@ -12,7 +12,11 @@ Tolerances: the pair kernel repeats the plain version's integer sums and
 fp32 epilogue op for op (4 ulp of the cancelling epilogue terms); the fp32 kernels
 sum in another order (1e-4 of the output scale); the attention kernels
 return bf16 (2e-2 absolute, about two bf16 ulps at these magnitudes) or
-fp32 (1e-4 absolute, sums in another order)."""
+fp32 (1e-4 absolute, sums in another order). Gradients through the
+autograd Functions are held against autograd of the plain versions: in
+fp32 to 1e-4 of each tensor's largest |value|; in bf16 each (row, head)
+within one bf16 ulp of its own largest |value| (2^-7 of it), since both
+sides compute in fp32 and round once; d_scale to 1e-5 of sum |g * u|."""
 
 import pytest
 import torch
@@ -21,6 +25,7 @@ from bitdelta_torch.core.delta import BinaryDelta, pair_delta
 from bitdelta_torch.ops import binary_gemm as tbg
 from bitdelta_torch.ops import flash_decode as tfd
 from bitdelta_torch.ops import flash_prefill as tfp
+from bitdelta_torch.ops.binary_matmul import matmul_f32
 
 # Output tolerance of the attention kernels per working dtype.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -110,3 +115,101 @@ def test_cuda_flash_prefill_matches_plain(cuda, window, dtype):
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
     assert not got[1, 70:].any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_binary_matmul_t_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    grad = torch.randn((130, 200), generator=g, device=cuda).to(dtype)
+    packed = torch.randint(-2**31, 2**31 - 1, (33, 200), generator=g,
+                           device=cuda, dtype=torch.int32)
+    scale = torch.tensor(0.37, device=cuda)
+    before = tbg.binary_matmul_t.launches
+    got = tbg.binary_matmul_t(grad, packed, scale, out_dtype=torch.float32)
+    want = tbg.binary_matmul_t_plain(grad, packed, scale)
+    torch.cuda.synchronize()
+    assert tbg.binary_matmul_t.launches == before + 1
+    assert got.shape == (130, 33 * 32)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _grad_close(got, want, rows_of):
+    """fp32: within 1e-4 of the largest |want|; bf16: each row of
+    ``rows_of`` values within 2^-7 of that row's largest |want|."""
+    got, want = got.float(), want.float()
+    if rows_of is None:
+        return (got - want).abs().max().item() <= 1e-4 * want.abs().max()
+    diff = (got - want).reshape(-1, rows_of).abs().amax(-1)
+    return bool((diff <= 2 ** -7 * want.reshape(-1, rows_of).abs().amax(-1)
+                 ).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_binary_matmul_trainable_grads_match_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((512, 1024), generator=g, device=cuda).to(dtype)
+    packed = torch.randint(-2**31, 2**31 - 1, (32, 384), generator=g,
+                           device=cuda, dtype=torch.int32)
+    gy = torch.randn((512, 384), generator=g, device=cuda).to(dtype)
+    x1, s1 = x.clone().requires_grad_(), torch.tensor(
+        0.02, device=cuda, requires_grad=True)
+    x2, s2 = x.clone().requires_grad_(), torch.tensor(
+        0.02, device=cuda, requires_grad=True)
+    counts = (tbg.binary_matmul.launches, tbg.binary_matmul_t.launches)
+    tbg.binary_matmul_trainable(x1, packed, s1).backward(gy)
+    # The plain version under autograd, rounded to x's dtype as the
+    # trainable forward is.
+    tbg.binary_matmul_plain(x2, packed, s2).to(dtype).backward(gy)
+    torch.cuda.synchronize()
+    assert (tbg.binary_matmul.launches, tbg.binary_matmul_t.launches) == (
+        counts[0] + 2, counts[1] + 1)
+    assert x1.grad.dtype == dtype
+    assert _grad_close(x1.grad, x2.grad,
+                       None if dtype == torch.float32 else 1024)
+    u = tbg.binary_matmul_plain(x, packed, torch.tensor(1.0, device=cuda))
+    mag = (gy.float() * u).abs().sum().item()
+    assert abs(s1.grad.item() - s2.grad.item()) <= 1e-5 * mag
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_prefill_grads_match_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((4, 128, 32, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((4, 128, 8, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn_like(k)
+    gout = torch.randn((4, 128, 32 * 128), generator=g, device=cuda).to(dtype)
+    lengths = torch.tensor([128, 128, 128, 77], device=cuda)
+    ins1 = [t.clone().requires_grad_() for t in (q, k, v)]
+    ins2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = tfp.flash_prefill_attention.launches
+    tfp.flash_prefill_attention(*ins1, lengths, window=100).backward(gout)
+    tfp.flash_prefill_attention_plain(*ins2, lengths,
+                                      window=100).backward(gout)
+    torch.cuda.synchronize()
+    assert tfp.flash_prefill_attention.launches == before + 1
+    for a, b in zip(ins1, ins2):
+        assert a.grad.dtype == dtype
+        assert _grad_close(a.grad, b.grad,
+                           None if dtype == torch.float32 else 128)
+        assert not a.grad[3, 77:].any()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_matmul_f32_carries_gradients(cuda):
+    # cuBLAS with an fp32 output type has no derivative in torch; the
+    # port's Function gives it the widened transpose.
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = torch.randn((64, 256), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((256, 96), generator=g, device=cuda).to(torch.bfloat16)
+    gy = torch.randn((64, 96), generator=g, device=cuda)
+    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    a2, w2 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    matmul_f32(a1, w1).backward(gy)
+    torch.matmul(a2.float(), w2.float()).backward(gy)
+    torch.cuda.synchronize()
+    for got, want in ((a1.grad, a2.grad), (w1.grad, w2.grad)):
+        assert got.dtype == torch.bfloat16
+        assert _grad_close(got, want, want.shape[-1])

@@ -1,7 +1,8 @@
-"""PyTorch port: the plain versions of the five serving-path kernels
-against the JAX Pallas kernels run in interpret mode (as the JAX
-package's own tests run them on the CPU). The CUDA kernels themselves
-are held against these plain versions on the card by
+"""PyTorch port: the plain versions of the six ported kernels against the
+JAX Pallas kernels run in interpret mode (as the JAX package's own tests
+run them on the CPU), and the gradients of the two autograd Functions of
+the training path against ``jax.vjp`` of their JAX counterparts. The CUDA
+kernels themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py.
 
 Tolerances: the pair-delta plain version repeats the TPU kernel's
@@ -9,7 +10,12 @@ integer arithmetic exactly, so it differs only in how fp32 rounds the
 epilogue ``2*a1*S + (a2*colsum - a1*sxq)``, whose terms (up to
 ``alpha * (xmax - xmin) * K``) cancel: 4 ulp of that magnitude. On-grid
 inputs are exact to 1e-5 as in tests/test_pallas_kernels.py. The float
-kernels agree to 2e-5 (fp32 sums taken in other orders)."""
+kernels agree to 2e-5 (fp32 sums taken in other orders), relative to
+the largest value where magnitudes grow with K. bf16 outputs and
+gradients agree to one bf16 ulp of the largest value (2^-7 of it): both
+sides sum in fp32 and round once."""
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +28,9 @@ from bitdelta_tpu.ops import flash_decode as jfd
 from bitdelta_tpu.ops import flash_prefill as jfp
 from bitdelta_tpu.ops import pallas_binary_gemm as jpb
 from bitdelta_tpu.ops.packing import pack_signs as jpack
+from bitdelta_torch.convert import tensor_from_numpy
 from bitdelta_torch.ops import binary_gemm as tbg
+from bitdelta_torch.ops.binary_matmul import _MatmulF32
 from bitdelta_torch.ops import flash_decode as tfd
 from bitdelta_torch.ops import flash_prefill as tfp
 
@@ -159,3 +167,134 @@ def test_cpu_tensors_take_the_plain_versions():
              tfd.flash_decode_attention.launches,
              tfp.flash_prefill_attention.launches]
     assert after == before
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 64, 128), (16, 512, 256), (24, 96, 40)])
+def test_binary_matmul_t_plain_matches_pallas(m, k, n):
+    rng = np.random.default_rng(10)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    packed = np.array(jpack(jnp.asarray(
+        rng.integers(0, 2, (k, n)).astype(bool))))
+    want = np.array(jpb.binary_matmul_t_pallas(
+        jnp.asarray(g), jnp.asarray(packed), 0.7, interpret=True))
+    got = tbg.binary_matmul_t(_t(g), _t(packed), torch.tensor(0.7)).numpy()
+    assert got.shape == (m, k)
+    np.testing.assert_allclose(got, want, rtol=FLOAT_TOL,
+                               atol=FLOAT_TOL * np.abs(want).max())
+
+
+def _tol(want, dtype):
+    rel = FLOAT_TOL if dtype == jnp.float32 else 2.0 ** -7
+    return rel * float(np.abs(np.asarray(want, np.float32)).max())
+
+
+def _bf16_or_f32(a, dtype):
+    """The same values for both packages: a JAX array of ``dtype`` and
+    its torch twin (bf16 bit-exact)."""
+    j = jnp.asarray(a, dtype)
+    return j, tensor_from_numpy(np.asarray(j), "cpu")
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_binary_matmul_trainable_vjp_matches_jax(dtype):
+    rng = np.random.default_rng(11)
+    m, k, n = 32, 256, 64
+    packed = np.array(jpack(jnp.asarray(
+        rng.integers(0, 2, (k, n)).astype(bool))))
+    jx, tx = _bf16_or_f32(rng.standard_normal((m, k)), dtype)
+    jg, tg = _bf16_or_f32(rng.standard_normal((m, n)), dtype)
+    y_want, vjp = jax.vjp(
+        lambda x, s: jpb.binary_matmul_trainable(x, jnp.asarray(packed), s,
+                                                 True),
+        jx, jnp.float32(0.7))
+    dx_want, ds_want = vjp(jg)
+    tx.requires_grad_()
+    ts = torch.tensor(0.7, requires_grad=True)
+    y = tbg.binary_matmul_trainable(tx, _t(packed), ts)
+    assert y.dtype == tx.dtype
+    y.backward(tg)
+    assert tx.grad.dtype == tx.dtype and ts.grad.shape == ()
+    for got, want in ((y, y_want), (tx.grad, dx_want)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=0, atol=_tol(want, dtype))
+    np.testing.assert_allclose(float(ts.grad), float(ds_want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("window,g,sq", [(None, 1, 48), (24, 4, 48),
+                                         (9, 2, 40)])
+def test_flash_prefill_vjp_matches_jax(window, g, sq):
+    rng = np.random.default_rng(12)
+    b, sk, kvh, hd = 3, 64, 2, 16
+    h = kvh * g
+    q = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, hd)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, hd)).astype(np.float32)
+    gout = rng.standard_normal((b, sq, h * hd)).astype(np.float32)
+    lengths = np.asarray([sq, 29, 5], np.int32)      # padded query rows
+    out_want, vjp = jax.vjp(
+        lambda q, k, v: jfp.flash_prefill_attention(
+            q, k, v, jnp.asarray(lengths), window=window, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(gout))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = tfp.flash_prefill_attention(tq, tk, tv, _t(lengths), window=window)
+    out.backward(_t(gout))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_want),
+                               rtol=FLOAT_TOL, atol=FLOAT_TOL)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   rtol=FLOAT_TOL, atol=FLOAT_TOL)
+    for row, n in enumerate(lengths):
+        # Padding queries and keys past a row's length: exact zeros.
+        for grad in (tq.grad, tk.grad, tv.grad):
+            assert not grad[row, n:].any()
+
+
+def test_autograd_functions_only_when_a_gradient_is_taken():
+    # Serving calls (no gradient to take) run the forward alone; a call
+    # with a gradient to take goes through the Function. CPU tensors
+    # launch nothing either way.
+    rng = np.random.default_rng(13)
+    q = _t(rng.standard_normal((1, 16, 4, 8)).astype(np.float32))
+    k = _t(rng.standard_normal((1, 16, 2, 8)).astype(np.float32))
+    lengths = torch.tensor([16])
+    x = _t(rng.standard_normal((16, 64)).astype(np.float32))
+    packed = torch.zeros((2, 8), dtype=torch.int32)
+    scale = torch.tensor(0.5)
+    before = (tfp.flash_prefill_attention.launches, tbg.binary_matmul.launches,
+              tbg.binary_matmul_t.launches)
+    with torch.no_grad():
+        assert tfp.flash_prefill_attention(q, k, k, lengths).grad_fn is None
+        assert tbg.binary_matmul_trainable(
+            x, packed, scale.requires_grad_()).grad_fn is None
+    out = tfp.flash_prefill_attention(q.requires_grad_(), k, k, lengths)
+    assert type(out.grad_fn).__name__ == "_FlashPrefillBackward"
+    y = tbg.binary_matmul_trainable(x, packed, scale)
+    assert type(y.grad_fn).__name__ == "_BinaryMatmulTrainableBackward"
+    (out.sum() + y.sum()).backward()
+    assert q.grad is not None and scale.grad is not None
+    assert before == (tfp.flash_prefill_attention.launches,
+                      tbg.binary_matmul.launches,
+                      tbg.binary_matmul_t.launches)
+
+
+@pytest.mark.parametrize("a_shape,b_shape", [((2, 5, 16), (16, 8)),
+                                             ((3, 5, 16), (3, 16, 8))])
+def test_matmul_f32_function_gradients(a_shape, b_shape):
+    # The Function that gives the card's bf16 matmul with an fp32 output a
+    # gradient, run here on CPU bf16 tensors: its backward equals autograd
+    # of the widened product (bf16 to fp32 is exact; one cast at the end).
+    rng = np.random.default_rng(14)
+    a = _t(rng.standard_normal(a_shape).astype(np.float32)).to(torch.bfloat16)
+    b = _t(rng.standard_normal(b_shape).astype(np.float32)).to(torch.bfloat16)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    y1 = _MatmulF32.apply(a1, b1)
+    y2 = torch.matmul(a2.float(), b2.float())
+    g = torch.randn(y1.shape, generator=torch.Generator().manual_seed(0))
+    y1.backward(g)
+    y2.backward(g)
+    assert y1.dtype == torch.float32 and torch.equal(y1, y2)
+    assert a1.grad.dtype == b1.grad.dtype == torch.bfloat16
+    assert torch.equal(a1.grad, a2.grad) and torch.equal(b1.grad, b2.grad)

@@ -279,6 +279,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m.startswith('bitdelta_tpu'))\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'bitdelta_torch.train.distill', "
+        "'bitdelta_torch.train.data'} <= set(mods), mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
