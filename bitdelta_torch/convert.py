@@ -6,7 +6,10 @@ This module never imports jax or ``bitdelta_tpu``: a JAX pytree is
 handed over as numpy (``jax.tree.map(np.asarray, tree)``). bf16 arrays
 (numpy's ``bfloat16`` extension dtype) cross as their 16-bit pattern, so
 every value arrives bit-exact. NamedTuple leaves (``BinaryDelta``,
-``PairedBinaryDelta``) are matched by their field names.
+``PairedBinaryDelta``, ``CompressedModel``, ``Int8Weight``,
+``Int4Weight``) are matched by their class name, and their fields must
+agree: JAX's ``Int4Weight`` and ``BinaryDelta`` share the fields
+``(packed, scale)``, so the fields alone cannot tell them apart.
 """
 
 from __future__ import annotations
@@ -19,11 +22,12 @@ import torch
 from .core.compress import CompressedModel
 from .core.delta import BinaryDelta, PairedBinaryDelta
 from .device import resolve_device
+from .research.quantized_base import Int4Weight, Int8Weight
 from .serving.stacking import TenantStack
 
-_TUPLES = {BinaryDelta._fields: BinaryDelta,
-           PairedBinaryDelta._fields: PairedBinaryDelta,
-           CompressedModel._fields: CompressedModel}
+_TUPLES = {cls.__name__: cls for cls in (BinaryDelta, PairedBinaryDelta,
+                                         CompressedModel, Int8Weight,
+                                         Int4Weight)}
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -40,9 +44,10 @@ def tree_from_numpy(tree: Any, device) -> Any:
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     fields = getattr(tree, "_fields", None)
     if fields is not None:
-        cls = _TUPLES.get(tuple(fields))
-        if cls is None:
-            raise TypeError(f"unknown NamedTuple with fields {fields}")
+        name = type(tree).__name__
+        cls = _TUPLES.get(name)
+        if cls is None or cls._fields != tuple(fields):
+            raise TypeError(f"unknown NamedTuple {name} with fields {fields}")
         return cls(*(tree_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_from_numpy(v, device) for v in tree)

@@ -10,8 +10,8 @@ One file holds::
   extras.{name}          non-bf16 fine-tuned tensors
   extras_bf16.{name}     bf16 tensors as their uint16 bit pattern
 
-and a ``__metadata__`` header with ``format_version`` and
-``model_config`` (JSON). The file layout: an 8-byte little-endian header
+and a ``__metadata__`` header with ``format_version``, ``model_config``
+(JSON) and, for deltas taken against a quantized base, ``base_quant``. The file layout: an 8-byte little-endian header
 length, the JSON header (tensor name -> dtype, shape, data offsets), then
 the raw little-endian buffers back to back.
 """
@@ -88,7 +88,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save_delta(path: str, compressed: CompressedModel,
-               cfg: Optional[ModelConfig] = None) -> None:
+               cfg: Optional[ModelConfig] = None,
+               base_quant: Optional[str] = None) -> None:
+    """``base_quant``: how the base must be quantized at load time for
+    the deltas to be exact (``"int8"`` / ``"int4"``: the deltas were taken
+    against the quantize-dequantized base, research/quantized_base.py)."""
     tensors = {}
     for name, d in compressed.deltas.items():
         tensors[f"deltas.{name}.packed"] = _to_numpy(d.packed)
@@ -104,12 +108,16 @@ def save_delta(path: str, compressed: CompressedModel,
     meta = {"format_version": str(FORMAT_VERSION)}
     if cfg is not None:
         meta["model_config"] = json.dumps(dataclasses.asdict(cfg))
+    if base_quant is not None:
+        meta["base_quant"] = base_quant
     write_safetensors(path, tensors, meta)
 
 
-def load_delta(path: str, device="cuda"):
+def load_delta(path: str, device="cuda", return_meta: bool = False):
     """Returns ``(CompressedModel, ModelConfig | None)`` with tensors on
-    ``device`` (the card unless the caller passes ``"cpu"``)."""
+    ``device`` (the card unless the caller passes ``"cpu"``); with
+    ``return_meta=True``, also the raw metadata dict (e.g.
+    ``base_quant``)."""
     device = resolve_device(device)
     raw, meta = read_safetensors(path)
     if int(meta.get("format_version", "1")) > FORMAT_VERSION:
@@ -136,4 +144,7 @@ def load_delta(path: str, device="cuda"):
                           scale=f["scale"].to(torch.float32).to(device))
         for proj, f in deltas_raw.items()
     }
-    return CompressedModel(deltas=deltas, extras=extras), cfg
+    result = CompressedModel(deltas=deltas, extras=extras)
+    if return_meta:
+        return result, cfg, meta
+    return result, cfg

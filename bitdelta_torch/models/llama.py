@@ -5,7 +5,9 @@ Plain functions over a params dict whose layer tensors are stacked on a
 leading L axis (the JAX scan becomes a Python loop over layers), with
 per-projection 1-bit deltas: single-tenant ``(L, ...)`` stacks, or
 tenant-routed ``(L, T, ...)`` stacks selected per batch row by
-``tenant_ids``. Weights are ``(K_in, N_out)`` (``y = x @ W``).
+``tenant_ids``. Weights are ``(K_in, N_out)`` (``y = x @ W``); a base
+projection may be dense, an ``Int8Weight`` (W8) or an ``Int4Weight``
+(W4), and the KV cache bf16 or int8 (``init_cache(kv_dtype=)``).
 
 ``kernel`` picks the functions as JAX's does (``engine.py:188-189``):
 ``"cuda"`` takes the branches that JAX routes to its Pallas kernels
@@ -37,7 +39,12 @@ from ..ops.binary_matmul import (binary_matmul, matmul_f32,
                                  tenant_binary_matmul)
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.flash_prefill import flash_prefill_attention
+from ..ops.int4 import MAX_M as W4_MAX_M
+from ..ops.int4 import w4_matmul
+from ..ops.kv_quant import dequantize_kv, quantize_kv
 from ..ops.packing import unpair_packed
+from ..research.quantized_base import (INT4_GROUP, Int4Weight, Int8Weight,
+                                       int4_matmul)
 from .config import ModelConfig
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -49,25 +56,49 @@ Deltas = Dict[str, Any]
 
 class KVCache(NamedTuple):
     """k/v: ``(L, B, S_max, KV_heads, head_dim)``; length: ``(B,)`` int32
-    valid tokens per row (right-aligned)."""
+    valid tokens per row (right-aligned).
+
+    ``k_scale``/``v_scale``: None for a bf16 cache; for the int8 cache
+    (``init_cache(kv_dtype="int8")``) fp32 ``(L, B, S_max, KV_heads)``,
+    one absmax scale per stored vector (ops/kv_quant.py)."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device="cuda") -> KVCache:
+               dtype=torch.bfloat16, device="cuda",
+               kv_dtype: Optional[str] = None) -> KVCache:
+    """An empty cache: K/V of ``dtype``, or int8 with fp32 scales when
+    ``kv_dtype="int8"`` (None, ``"bf16"`` and ``"bfloat16"`` keep
+    ``dtype``)."""
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=torch.zeros((batch,), dtype=torch.int32,
-                                      device=device))
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if kv_dtype in (None, "bf16", "bfloat16"):
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       length=length)
+    if kv_dtype != "int8":
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    return KVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                   v=torch.zeros(shape, dtype=torch.int8, device=device),
+                   length=length,
+                   k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                   v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -128,18 +159,48 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def _layer_delta(delta, layer: int):
-    """One layer's slice of a layer-stacked delta (either layout)."""
+    """One layer's slice of a layer-stacked NamedTuple (a delta in either
+    layout, or a quantized base leaf), field by field."""
     return type(delta)(*(leaf[layer] for leaf in delta))
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, delta, tenant_ids,
-          compute_dtype, kernel: str = "torch") -> torch.Tensor:
+def _base_matmul(x: torch.Tensor, w, compute_dtype, kernel: str = "torch"
+                 ) -> torch.Tensor:
+    """``x @ W_base`` with fp32 sums and an fp32 result. ``w`` is a dense
+    matrix, an :class:`Int8Weight` (W8: the int8 values cast to the
+    compute dtype, the per-column scale on the fp32 sum) or an
+    :class:`Int4Weight` (W4: per-group contraction, ``int4_matmul``).
+
+    With ``kernel="cuda"`` a decode-shaped W4 matmul takes the W4 kernel
+    (``w4_matmul``). The gate is JAX's (2-D x, at most 64 rows, K a
+    multiple of 128) with one condition of the port's in place of the
+    last: the scale has exactly K/128 rows (so K is a multiple of 128).
+    An imported GPTQ layer can carry groups of 16-64 rows, which
+    ``int4_matmul`` takes and the kernel does not (JAX's Pallas kernel
+    would fail its assert there). JAX's gate also misses N; the port's
+    kernel masks its last column tile, so it needs no N condition. The
+    choice is made by shape before any launch."""
+    if isinstance(w, Int8Weight):
+        y = matmul_f32(x.to(compute_dtype), w.q.to(compute_dtype))
+        return y * w.scale[..., None, :].to(torch.float32)
+    if isinstance(w, Int4Weight):
+        if (kernel == "cuda" and x.ndim == 2 and x.shape[0] <= W4_MAX_M
+                and w.scale.shape[-2] * INT4_GROUP == x.shape[-1]):
+            return w4_matmul(x.to(compute_dtype), w.packed, w.scale,
+                             out_dtype=torch.float32)
+        return int4_matmul(x, w, compute_dtype, out_dtype=torch.float32)
+    return matmul_f32(x.to(compute_dtype), w.to(compute_dtype))
+
+
+def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
+          kernel: str = "torch") -> torch.Tensor:
     """Linear with an optional fused 1-bit delta; the branch choices of
-    ``bitdelta_tpu/models/llama.py::_proj``."""
+    ``bitdelta_tpu/models/llama.py::_proj``. ``w`` is any base leaf that
+    :func:`_base_matmul` takes."""
     if isinstance(delta, PairedBinaryDelta):
         if kernel == "cuda" and tenant_ids is not None and x.shape[-2] == 1:
             # Decode: base matmul + pair-packed delta kernel.
-            y = matmul_f32(x[:, 0].to(compute_dtype), w.to(compute_dtype))
+            y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
             yd = binary_gemm.tenant_delta_matmul_pair(
                 x[:, 0].to(compute_dtype), delta.packed_pairs, delta.colsum,
                 delta.scale, tenant_ids, out_dtype=torch.float32)
@@ -151,6 +212,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor, delta, tenant_ids,
     # tenant_delta_matmul_pallas (kernel table row 7, not ported yet);
     # that branch takes the plain tenant path below here, which computes
     # the same function — and, as in JAX, it is NOT the prefill branch.
+    # Its base matmul takes the kernel dispatch, as in JAX.
     canonical_decode = (kernel == "cuda" and delta is not None
                         and tenant_ids is not None and x.shape[-2] == 1)
     if (kernel == "cuda" and delta is not None and tenant_ids is not None
@@ -159,12 +221,15 @@ def _proj(x: torch.Tensor, w: torch.Tensor, delta, tenant_ids,
         # tenant (index and scale stay on the device).
         packed_t = delta.packed[tenant_ids[0]]
         scale_t = delta.scale[tenant_ids[0]]
-        y = matmul_f32(x.to(compute_dtype), w.to(compute_dtype))
+        y = _base_matmul(x, w, compute_dtype)
         yd = binary_gemm.binary_matmul(x[0].to(compute_dtype), packed_t,
                                        scale_t, out_dtype=torch.float32)
         return (y + yd[None]).to(compute_dtype)
 
-    y = matmul_f32(x.to(compute_dtype), w.to(compute_dtype))
+    if canonical_decode:
+        y = _base_matmul(x[:, 0], w, compute_dtype, kernel)[:, None, :]
+    else:
+        y = _base_matmul(x, w, compute_dtype)
     if delta is not None:
         if tenant_ids is None and kernel == "cuda":
             # Training shapes (M = B*S): the binary matmul kernel behind
@@ -262,13 +327,21 @@ def _final_norm_w(params: Params, tenant_ids):
 
 def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
                q_positions, kv_valid, cos, sin, cache_k=None, cache_v=None,
-               write_pos=None, kernel: str = "torch", lengths=None):
+               write_pos=None, kernel: str = "torch", lengths=None,
+               cache_k_scale=None, cache_v_scale=None):
     """One decoder block. ``p``/``d``: this layer's params / deltas. With
     ``cache_k``/``cache_v`` (``(B, S, KV, hd)`` views of the cache) the
     new K/V are written IN PLACE at ``write_pos`` per row — the JAX
     version returns a new cache from ``.at[].set``; here the cache
     tensors are preallocated and updated where they lie — and attention
-    runs over the cache."""
+    runs over the cache.
+
+    With ``cache_k_scale``/``cache_v_scale`` (``(B, S, KV)`` views) the
+    cache is int8: the fresh K/V are quantized before the write and their
+    scales written beside them. Decode under ``kernel="cuda"`` hands the
+    int8 K/V and scales to flash decode; every other attention path,
+    prefill included, attends over a dequantized view of the whole cache,
+    so prefill logits see the quantized K/V, as JAX's do."""
     d = d or {}
     b, sq, _ = x.shape
 
@@ -300,21 +373,35 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    quantized = cache_k is not None and cache_k_scale is not None
+    kernel_decode = kernel == "cuda" and cache_k is not None and sq == 1
     if cache_k is not None:
         rows = torch.arange(b, device=x.device)[:, None]
         idx = write_pos.to(torch.int64)[:, None] + torch.arange(
             sq, device=x.device)[None, :]
         # JAX's scatter clamps out-of-range slots; so does this write.
         idx = torch.clamp(idx, max=cache_k.shape[1] - 1)
-        cache_k[rows, idx] = k.to(cache_k.dtype)
-        cache_v[rows, idx] = v.to(cache_v.dtype)
+        if quantized:
+            k_store, ks_new = quantize_kv(k)
+            v_store, vs_new = quantize_kv(v)
+            cache_k_scale[rows, idx] = ks_new
+            cache_v_scale[rows, idx] = vs_new
+        else:
+            k_store, v_store = k, v
+        cache_k[rows, idx] = k_store.to(cache_k.dtype)
+        cache_v[rows, idx] = v_store.to(cache_v.dtype)
         k_all, v_all = cache_k, cache_v
+        if quantized and not kernel_decode:
+            k_all = dequantize_kv(cache_k, cache_k_scale, compute_dtype)
+            v_all = dequantize_kv(cache_v, cache_v_scale, compute_dtype)
     else:
         k_all, v_all = k, v
 
-    if kernel == "cuda" and cache_k is not None and sq == 1:
+    if kernel_decode:
         attn = flash_decode_attention(
             q[:, 0], k_all, v_all, q_positions[:, 0] + 1,
+            k_scale=cache_k_scale if quantized else None,
+            v_scale=cache_v_scale if quantized else None,
             window=cfg.sliding_window).reshape(b, sq, -1)
     elif (kernel == "cuda" and lengths is not None and sq > 1
           and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
@@ -332,11 +419,26 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
 
 
 def _layer(params: Params, deltas: Optional[Deltas], layer: int):
-    lp = {name: w[layer] for name, w in params["layers"].items()}
+    # ``w[layer]`` of a quantized base leaf (Int8Weight / Int4Weight)
+    # would index the tuple, not its tensors.
+    lp = {name: (_layer_delta(w, layer) if isinstance(w, tuple)
+                 else w[layer])
+          for name, w in params["layers"].items()}
     ld = None
     if deltas is not None:
         ld = {name: _layer_delta(dl, layer) for name, dl in deltas.items()}
     return lp, ld
+
+
+def _cache_views(cache: Optional[KVCache], layer: int):
+    """One layer's ``(k, v, k_scale, v_scale)`` views (Nones where the
+    cache or its scales are absent)."""
+    if cache is None:
+        return None, None, None, None
+    if cache.quantized:
+        return (cache.k[layer], cache.v[layer], cache.k_scale[layer],
+                cache.v_scale[layer])
+    return cache.k[layer], cache.v[layer], None, None
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -344,12 +446,14 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             deltas: Optional[Deltas] = None,
             tenant_ids: Optional[torch.Tensor] = None,
             compute_dtype=None, return_cache: bool = False,
-            cache_max_seq: Optional[int] = None, kernel: str = "torch"):
+            cache_max_seq: Optional[int] = None, kernel: str = "torch",
+            kv_quant: bool = False):
     """Full-sequence forward (prefill / eval). tokens ``(B, S)``
     right-padded; lengths ``(B,)`` (default S). Returns fp32 logits
     ``(B, S, V)`` and, with ``return_cache``, a KVCache holding this
     sequence's K/V in slots ``[0, S)`` of a cache padded to
-    ``cache_max_seq``."""
+    ``cache_max_seq`` (int8 with its scales when ``kv_quant``, the
+    engine's ``kv_dtype="int8"``)."""
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
     b, s = tokens.shape
     dev = tokens.device
@@ -364,7 +468,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     cache = None
     if return_cache:
         max_seq = cache_max_seq or s
-        cache = init_cache(cfg, b, max_seq, compute_dtype, dev)
+        cache = init_cache(cfg, b, max_seq, compute_dtype, dev,
+                           kv_dtype="int8" if kv_quant else None)
         cache = cache._replace(length=lengths.to(torch.int32))
         kv_valid = (torch.arange(max_seq, device=dev)[None, :]
                     < lengths[:, None])
@@ -373,13 +478,13 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         kv_valid = positions < lengths[:, None]
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
-        ck = cache.k[layer] if cache is not None else None
-        cv = cache.v[layer] if cache is not None else None
+        ck, cv, cks, cvs = _cache_views(cache, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, tenant_ids,
                        positions, kv_valid, cos, sin, cache_k=ck,
                        cache_v=cv,
                        write_pos=write_pos if cache is not None else None,
-                       kernel=kernel, lengths=lengths)
+                       kernel=kernel, lengths=lengths, cache_k_scale=cks,
+                       cache_v_scale=cvs)
 
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
@@ -409,10 +514,11 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = _embed_lookup(params, tokens, tenant_ids).to(compute_dtype)
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
+        ck, cv, cks, cvs = _cache_views(cache, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, tenant_ids,
                        positions, kv_valid, cos, sin,
-                       cache_k=cache.k[layer], cache_v=cache.v[layer],
-                       write_pos=cache.length, kernel=kernel)
+                       cache_k=ck, cache_v=cv, write_pos=cache.length,
+                       kernel=kernel, cache_k_scale=cks, cache_v_scale=cvs)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
     return logits, cache._replace(length=new_length)

@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[1] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-KERNEL_SOURCES = ("binary_gemm", "flash_decode", "flash_prefill")
+KERNEL_SOURCES = ("binary_gemm", "flash_decode", "flash_prefill", "int4_gemm")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

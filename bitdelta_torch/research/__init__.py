@@ -1,0 +1,2 @@
+"""Beyond-the-reference serving modes (port of ``bitdelta_tpu/research``):
+the W8 / W4 quantized base under the 1-bit deltas."""

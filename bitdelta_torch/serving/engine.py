@@ -1,6 +1,6 @@
 """Multi-tenant continuous-batching generation engine (port of
-``bitdelta_tpu/serving/engine.py``, single device, llama family, bf16
-cache).
+``bitdelta_tpu/serving/engine.py``, single device, llama family, a bf16
+or int8 KV cache).
 
 * ``max_slots`` decode lanes share one KV cache; each slot carries its
   own tenant id, length, sampling params and stop set;
@@ -134,11 +134,17 @@ class Engine:
                  max_slots: int = 8, max_seq: int = 1024,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512, 1024),
                  kernel: str = "auto", compute_dtype=None, seed: int = 0,
-                 decode_chunk: int = 1, device="cuda"):
+                 decode_chunk: int = 1, device="cuda",
+                 kv_dtype: Optional[str] = None):
         """``kernel``: ``"cuda"`` (the hand-written kernels; on CPU
         tensors their plain versions), ``"torch"`` (plain paths), or
         ``"auto"`` (``"cuda"`` on a CUDA device). ``device``: where the
-        cache lives; the stack must already be there."""
+        cache lives; the stack must already be there. ``kv_dtype``:
+        ``"int8"`` for the int8 KV cache (half the decode-time cache
+        traffic under ``kernel="cuda"``, twice the capacity); None,
+        ``"bf16"`` or ``"bfloat16"`` for a cache of the compute dtype.
+        The stack's base projections may be dense, ``Int8Weight`` or
+        ``Int4Weight`` (research/quantized_base.py)."""
         self.device = resolve_device(device)
         if kernel == "auto":
             kernel = "cuda" if self.device.type == "cuda" else "torch"
@@ -147,6 +153,18 @@ class Engine:
         if stack.vocab_sizes.device.type != self.device.type:
             raise ValueError(f"stack lives on {stack.vocab_sizes.device}, "
                              f"engine on {self.device}")
+        if kv_dtype not in (None, "bf16", "bfloat16", "int8"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        self.kv_quant = kv_dtype == "int8"
+        if self.kv_quant and kernel != "cuda":
+            # Capacity still doubles, but the plain decode path reads a
+            # dequantized full-cache view per step — MORE traffic than
+            # bf16. Only the flash-decode kernel streams int8 end to end.
+            print("[engine] kv_dtype=int8 with kernel="
+                  f"{kernel!r}: cache capacity doubles but decode "
+                  "traffic does NOT drop (the plain path dequantizes the "
+                  "cache per step); use kernel='cuda' on the card for the "
+                  "bandwidth win", flush=True)
         self.cfg = cfg
         self.kernel = kernel
         # Decode hot path: pair-packed delta layout (prefill un-pairs on
@@ -161,7 +179,8 @@ class Engine:
 
         self.slots = [SlotState() for _ in range(max_slots)]
         self.cache = llama.init_cache(cfg, max_slots, max_seq,
-                                      self.compute_dtype, self.device)
+                                      self.compute_dtype, self.device,
+                                      kv_dtype=kv_dtype)
         self._stop_ids = np.full((max_slots, DEVICE_STOPS), -1, np.int32)
         self.tenant_ids = np.zeros((max_slots,), np.int32)
         self.temps = np.zeros((max_slots,), np.float32)
@@ -209,7 +228,8 @@ class Engine:
                 self.cfg, self.stack.params, tok, lengths=lens,
                 deltas=self.stack.deltas, tenant_ids=tids,
                 compute_dtype=self.compute_dtype, return_cache=True,
-                cache_max_seq=tokens.shape[1], kernel=self.kernel)
+                cache_max_seq=tokens.shape[1], kernel=self.kernel,
+                kv_quant=self.kv_quant)
             rows = torch.arange(tok.shape[0], device=self.device)
             last = logits[rows, lens.to(torch.int64) - 1].to(torch.float32)
             vmask = (torch.arange(last.shape[-1], device=self.device)[None]
@@ -228,6 +248,9 @@ class Engine:
         dst = torch.as_tensor(slots, device=self.device)
         self.cache.k[:, dst, :n] = rowcache.k[:, src]
         self.cache.v[:, dst, :n] = rowcache.v[:, src]
+        if self.kv_quant:
+            self.cache.k_scale[:, dst, :n] = rowcache.k_scale[:, src]
+            self.cache.v_scale[:, dst, :n] = rowcache.v_scale[:, src]
         self.cache.length[dst] = self._t(lengths, torch.int32)
 
     def _parked(self, live: torch.Tensor, probe) -> bool:

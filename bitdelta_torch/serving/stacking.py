@@ -19,6 +19,7 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import Params
 from ..ops.packing import PAIR_BLOCK
+from ..research.quantized_base import Int4Weight, Int8Weight
 
 
 class TenantStack(NamedTuple):
@@ -35,6 +36,14 @@ def _pad_vocab(arr: torch.Tensor, target: int, axis: int) -> torch.Tensor:
     shape = list(arr.shape)
     shape[axis] = pad
     return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def _to_device(w, device):
+    """A base leaf on ``device``: a tensor, or a quantized weight
+    (``Int8Weight`` / ``Int4Weight``) moved field by field."""
+    if isinstance(w, tuple):
+        return type(w)(*(f.to(device) for f in w))
+    return w.to(device)
 
 
 def stack_tenants(cfg: ModelConfig, base_params: Params,
@@ -84,7 +93,7 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
     }
     for name, w in base_params["layers"].items():
         if name not in LAYER_EXTRA_NAMES:
-            params["layers"][name] = w.to(device)
+            params["layers"][name] = _to_device(w, device)
     params["embed"] = torch.stack(
         [_pad_vocab(c.extras["embed"].to(device), vmax, 0) for c in tenants])
     if all("lm_head" in c.extras for c in tenants):
@@ -114,12 +123,23 @@ def to_pair_layout(stack: TenantStack) -> TenantStack:
     return stack._replace(deltas=deltas)
 
 
+def _weight_nbytes(w) -> int:
+    """Bytes of a base leaf, counted as JAX counts them: an
+    ``Int8Weight`` as its int8 values plus fp32 scales, an ``Int4Weight``
+    as its int32 words plus fp32 scales."""
+    if isinstance(w, Int8Weight):
+        return w.q.numel() + w.scale.numel() * 4
+    if isinstance(w, Int4Weight):
+        return w.packed.numel() * 4 + w.scale.numel() * 4
+    return w.numel() * w.element_size()
+
+
 def stack_nbytes(stack: TenantStack) -> Dict[str, float]:
     """Serving memory: shared base vs per-tenant increments."""
     def nbytes(t):
         return t.numel() * t.element_size()
 
-    base = sum(nbytes(w) for n, w in stack.params["layers"].items()
+    base = sum(_weight_nbytes(w) for n, w in stack.params["layers"].items()
                if n not in LAYER_EXTRA_NAMES)
     packed = sum(sum(nbytes(leaf) for leaf in d)
                  for d in stack.deltas.values())

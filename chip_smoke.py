@@ -14,17 +14,26 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    card at the Mistral-7B shapes of the path that runs it, and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
-   least time the card could take (bound); then hold the gradients of
-   the two autograd Functions of the training path (the trainable binary
-   matmul, flash prefill) against autograd of their plain versions;
+   least time the card could take (bound); the int8-cache branch of
+   flash decode is checked and timed as its own entry; then hold the
+   gradients of the two autograd Functions of the training path (the
+   trainable binary matmul, flash prefill) against autograd of their
+   plain versions;
 4. serving: a Mistral-7B base at its full width and 32 layers (random
    bf16 weights from a seeded generator) with three synthetic fine-tunes
    compressed by the port, one written and read back through the
    artifact I/O, stacked, and served by ``Engine`` behind the HTTP
    server; every serving kernel's launch counter must be > 0 afterwards;
+4b. density: the same base quantized to W4 (``quantize_base(base,
+   "int4")``), three fine-tunes compressed against the dequantized base
+   (one written with ``base_quant="int4"`` and read back), served by
+   ``Engine(kv_dtype="int8")`` over HTTP; the W4 kernel must launch 224
+   times (7 projections x 32 layers) per decode step, the int8 cache
+   must reach flash decode, and every other serving kernel must launch;
 5. parity: a 2-layer full-width model's prefill and decode logits with
    the kernels on the card against the same model on the CPU with the
-   plain versions;
+   plain versions: a bf16 base with a bf16 cache, a W4 base with the
+   int8 cache, a W8 base with a bf16 cache;
 6. train: a 32-layer full-width Mistral-7B fine-tune (bf16) compressed,
    written as ``diff_untrained.safetensors``, scale-distilled for 3
    steps by ``distill_scales`` (batch 4, length 128, lr 1e-4) through the
@@ -80,12 +89,18 @@ KERNELS = {
     "binary_matmul_t": (
         "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
         "bitdelta_tpu/ops/pallas_binary_gemm.py:721"),
+    "w4_matmul": (
+        "int4", "bitdelta_torch/csrc/int4_gemm.cu",
+        "bitdelta_tpu/ops/pallas_int4.py:99"),
 }
 # The kernels each main path must launch.
 PATHS = {
     "serving": ("tenant_delta_matmul_pair", "flash_decode_attention",
                 "tenant_dense_matmul", "flash_prefill_attention",
                 "binary_matmul"),
+    "density": ("w4_matmul", "tenant_delta_matmul_pair",
+                "flash_decode_attention", "tenant_dense_matmul",
+                "flash_prefill_attention", "binary_matmul"),
     "train": ("flash_prefill_attention", "binary_matmul", "binary_matmul_t"),
 }
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
@@ -419,6 +434,199 @@ def check_decode(dev, gen, results):
                 "(padded cache, boolean mask)")
 
 
+def check_decode_int8(dev, gen, results):
+    """Row 2's int8-cache branch at row 2's shapes: K/V from quantize_kv
+    of random bf16 values, scales folded in the kernel."""
+    import torch.nn.functional as F
+
+    from bitdelta_torch.ops import flash_decode as fd
+    from bitdelta_torch.ops.kv_quant import dequantize_kv, quantize_kv
+
+    bsz, h, kvh, hd, s, window = 8, 32, 8, 128, 2048, 4096
+    lengths = torch.tensor([2048, 1537, 1024, 777, 512, 300, 64, 1],
+                           device=dev, dtype=torch.int32)
+    live = int(lengths.sum())
+    set_bytes = live * kvh * (hd + 4) * 2
+    sets = []
+    for _ in range(n_sets(set_bytes)):
+        q = torch.randn((bsz, h, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k8, ks = quantize_kv(torch.randn((bsz, s, kvh, hd), generator=gen,
+                                         device=dev).to(torch.bfloat16))
+        v8, vs = quantize_kv(torch.randn((bsz, s, kvh, hd), generator=gen,
+                                         device=dev).to(torch.bfloat16))
+        sets.append((q, k8, v8, lengths, ks, vs))
+
+    def kernel(q, k8, v8, lens, ks, vs):
+        return fd.flash_decode_attention(q, k8, v8, lens, k_scale=ks,
+                                         v_scale=vs, window=window)
+
+    def plain(q, k8, v8, lens, ks, vs):
+        return fd.flash_decode_attention_plain(q, k8, v8, lens, k_scale=ks,
+                                               v_scale=vs, window=window)
+
+    got = kernel(*sets[0])
+    torch.cuda.synchronize()
+    want = plain(*sets[0])
+    torch.cuda.synchronize()
+    err, bad = attention_error(got, want, hd)
+    require(not bad, f"flash decode int8: {bad} (row, head) pairs off by "
+                     f"more than 2^-7 of their max |ref| (max|err| {err})")
+    q32 = sets[0][0].float()
+    got32 = kernel(q32, *sets[0][1:])
+    torch.cuda.synchronize()
+    err32 = (got32 - plain(q32, *sets[0][1:])).abs().max().item()
+    require(err32 <= 1e-4, f"flash decode int8, fp32 q: max|err| {err32} "
+                           f"> 1e-4")
+    q, k8, v8, _, ks, vs = sets[0]
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None] < lengths[:, None])[:, None, None, :]
+    kk, vv, mask = _sdpa_inputs(q[:, :, None, :],
+                                dequantize_kv(k8, ks, torch.bfloat16),
+                                dequantize_kv(v8, vs, torch.bfloat16), mask)
+    q4 = q[:, :, None, :]
+    row = time_wrapper(
+        "flash decode int8", lambda i: kernel(*sets[i]), len(sets),
+        ("flash_decode_kernel", "merge_splits_kernel"),
+        plain=lambda i: plain(*sets[i]),
+        library=lambda i: F.scaled_dot_product_attention(q4, kk, vv,
+                                                         attn_mask=mask))
+    nbytes = set_bytes + 2 * bsz * h * hd * 2
+    b_ms, b_by = bound(nbytes, 4 * h * hd * live)
+    results["flash_decode_attention_int8"] = dict(
+        row, timing=TIMING, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        fp32_max_abs_err=err32,
+        tolerance="bf16 q: each (row, head) within 2^-7 of its own "
+                  "max|ref|; fp32 q: 1e-4 absolute",
+        bound_basis="bytes: live int8 K/V rows and their fp32 scales + q + "
+                    "out (bf16); ops: 4*H*hd per live key at the bf16 rate",
+        shape="B=8 H=32 KV=8 hd=128 int8 cache 2048 (K/V = quantize_kv of "
+              f"random bf16), lengths {lengths.tolist()}, window {window}",
+        library="torch.nn.functional.scaled_dot_product_attention on the "
+                "dequantized bf16 cache (padded, boolean mask; the "
+                "dequantization is not timed)")
+
+
+def int4pack_ms(x, packed, scale):
+    """Device ms of ``torch._weight_int4pack_mm`` at group 128 on the same
+    weights, where this torch has it (a time only: it rounds the scales
+    to bf16). Returns ``(ms or None, note)``."""
+    if not (hasattr(torch, "_weight_int4pack_mm")
+            and hasattr(torch, "_convert_weight_to_int4pack")):
+        return None, "torch has no _weight_int4pack_mm"
+    from bitdelta_torch.research.quantized_base import _unpack_nibbles
+
+    # tinygemm's layout: (N, K/2) uint8 of unsigned nibbles q = nib + 8,
+    # dequantized as (q - 8) * scale + zero with zero 0.
+    q = (_unpack_nibbles(packed) + 8).transpose(0, 1).contiguous()
+    w_u8 = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
+    try:
+        w_pack = torch._convert_weight_to_int4pack(w_u8, 8)
+        sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(
+            torch.bfloat16).contiguous()
+        xb = x.to(torch.bfloat16)
+        ms = device_ms(lambda i: torch._weight_int4pack_mm(xb, w_pack, 128,
+                                                           sz),
+                       1, "int4pack", iters=5)[0]
+    except (RuntimeError, TypeError) as e:   # yardstick only
+        return None, f"_weight_int4pack_mm failed: {e}"[:200]
+    return ms, "torch._weight_int4pack_mm, group 128, bf16 scales"
+
+
+def check_w4(dev, gen, results):
+    """Row 8 at the seven Mistral-7B projections with M = 8 (a decode
+    step's rows), and at M = 1 and 64 on down_proj, bf16 and fp32 x."""
+    from bitdelta_torch.ops import int4 as i4
+    from bitdelta_torch.research.quantized_base import (Int4Weight,
+                                                        dequantize_int4,
+                                                        quantize_int4)
+
+    def weights(k, n):
+        return quantize_int4(torch.randn((k, n), generator=gen, device=dev)
+                             * 0.02)
+
+    def hold(x, w, label):
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            got = i4.w4_matmul(xd, w.packed, w.scale,
+                               out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            want = i4.w4_matmul_plain(xd, w.packed, w.scale)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            require(e <= tol, f"w4 matmul {label} {dtype}: max|err| {e} > "
+                              f"{tol}")
+            errs.append(e)
+        return errs
+
+    m = 8
+    tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                         "library_ms", "bound_ms", "int4pack_ms"), 0.0)
+    err, err32, shapes, by, notes = 0.0, 0.0, [], set(), set()
+    for name, k, n in PROJ_SHAPES:
+        set_bytes = k * n // 2 + (k // 128) * n * 4
+        sets = []
+        for _ in range(n_sets(set_bytes)):
+            w = weights(k, n)
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sets.append((x, w.packed, w.scale))
+        e, e32 = hold(sets[0][0], Int4Weight(*sets[0][1:]), name)
+        err, err32 = max(err, e), max(err32, e32)
+        x0 = sets[0][0]
+        w_deq = dequantize_int4(Int4Weight(*sets[0][1:]), torch.bfloat16)
+        row = time_wrapper(
+            f"w4 {name}",
+            lambda i: i4.w4_matmul(*sets[i], out_dtype=torch.float32),
+            len(sets), ("w4_matmul_kernel", "w4_sum_splits_kernel"),
+            plain=lambda i: i4.w4_matmul_plain(*sets[i]),
+            library=lambda i: torch.matmul(x0, w_deq))
+        del w_deq
+        row["int4pack_ms"], note = int4pack_ms(*sets[0])
+        notes.add(note)
+        nbytes = m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
+        row["bound_ms"], b_by = bound(nbytes, 2 * m * k * n)
+        by.add(b_by)
+        for key in tot:
+            tot[key] = (None if tot[key] is None or row[key] is None
+                        else tot[key] + row[key])
+        shapes.append({"proj": name, "k": k, "n": n,
+                       "splits": i4._splits(n, k // 128), **row,
+                       "max_abs_err": e, "fp32_max_abs_err": e32})
+        del sets
+    other_m = []
+    k, n = 14336, 4096
+    w = weights(k, n)
+    for m2 in (1, 64):
+        x = torch.randn((m2, k), generator=gen, device=dev).to(torch.bfloat16)
+        e, e32 = hold(x, w, f"down_proj M={m2}")
+        err, err32 = max(err, e), max(err32, e32)
+        ms, kern = device_ms(lambda i: i4.w4_matmul(x, w.packed, w.scale,
+                                                    out_dtype=torch.float32),
+                             1, f"w4 down_proj M={m2}",
+                             ("w4_matmul_kernel", "w4_sum_splits_kernel"))
+        b_ms, b_by = bound(m2 * k * 2 + k * n // 2 + (k // 128) * n * 4
+                           + m2 * n * 4, 2 * m2 * k * n)
+        other_m.append({"proj": "down_proj", "m": m2, "ms": ms,
+                        "kernel_ms": kern, "bound_ms": b_ms, "bound_by": b_by,
+                        "max_abs_err": e, "fp32_max_abs_err": e32})
+    results["w4_matmul"] = dict(
+        tot, max_abs_err=err, fp32_max_abs_err=err32,
+        bound_by="+".join(sorted(by)),
+        tolerance="1e-4 * max|ref| (fp32 sums in another order), bf16 and "
+                  "fp32 x",
+        shape="M=8, per decode layer: 7 projections; also M=1 and M=64 on "
+              "down_proj (other_m)", timing=TIMING,
+        bound_basis="bytes: x bf16 + K/8*N int32 words + K/128*N fp32 "
+                    "scales + fp32 out; ops: 2*M*K*N at the bf16 rate",
+        library="torch.matmul(x, dequantized bf16 matrix): the bf16 "
+                "base's call",
+        int4pack_note="; ".join(sorted(notes)), detail=shapes,
+        other_m=other_m)
+
+
 def check_dense(dev, gen, results):
     from bitdelta_torch.ops import binary_gemm as bg
 
@@ -737,8 +945,9 @@ def check_grads(dev, gen, results):
 def kernel_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
-    for check in (check_pair, check_decode, check_dense, check_prefill,
-                  check_binary, check_binary_t, check_grads):
+    for check in (check_pair, check_decode, check_decode_int8, check_w4,
+                  check_dense, check_prefill, check_binary, check_binary_t,
+                  check_grads):
         check(dev, gen, results)
         torch.cuda.empty_cache()
     for name, res in results.items():
@@ -781,44 +990,69 @@ def same_delta(a, b, label):
                 f"{label}: extra {name} did not round-trip")
 
 
-def build_world(cfg, dev, n_tenants=3, seed=0):
+def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None):
+    """The serving stack: a seeded bf16 base, ``n_tenants`` synthetic
+    fine-tunes of it, one through the artifact I/O. With ``base_quant``
+    (``"int4"`` / ``"int8"``) the stack's base is ``quantize_base(base,
+    base_quant)`` and the fine-tunes are compressed against
+    ``roundtrip_base(base, base_quant)``, the dequantized base; the dense
+    base and its round trip are freed before the stack is built."""
     from bitdelta_torch.core.artifact import load_delta, save_delta
     from bitdelta_torch.core.compress import compress_model
     from bitdelta_torch.models.llama import init_params
+    from bitdelta_torch.research.quantized_base import (quantize_base,
+                                                        roundtrip_base)
     from bitdelta_torch.serving.stacking import stack_tenants
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     base = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     t_base = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if base_quant is None:
+        stack_base, against = base, base
+    else:
+        stack_base = quantize_base(base, base_quant)
+        against = roundtrip_base(base, base_quant)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
     tenants, t_comp = [], 0.0
     for _ in range(n_tenants):
         t0 = time.perf_counter()
         fine = synthetic_finetune(cfg, base, gen)
-        tenants.append(compress_model(base, fine))
+        tenants.append(compress_model(against, fine))
         del fine
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t_comp += time.perf_counter() - t0
+    del base, against
     # One tenant through the artifact format and back, bit-exact.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "tenant0.safetensors")
-        save_delta(path, tenants[0], cfg)
+        save_delta(path, tenants[0], cfg, base_quant=base_quant)
         size = Path(path).stat().st_size
-        loaded, cfg_back = load_delta(path, device=dev)
+        loaded, cfg_back, meta = load_delta(path, device=dev,
+                                            return_meta=True)
     require(cfg_back == cfg, "artifact config did not round-trip")
+    require(meta.get("base_quant") == base_quant,
+            f"artifact base_quant {meta.get('base_quant')!r} != "
+            f"{base_quant!r}")
     same_delta(tenants[0], loaded, "artifact")
     tenants[0] = loaded
     t_art = time.perf_counter() - t0
-    stack = stack_tenants(cfg, base, tenants, device=dev)
-    del tenants
+    stack = stack_tenants(cfg, stack_base, tenants, device=dev)
+    del tenants, stack_base
+    gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "world", "layers": cfg.num_layers,
-          "base_init_s": t_base, "compress_s_per_tenant": t_comp / n_tenants,
-          "artifact_bytes": size, "artifact_roundtrip_s": t_art})
-    return base, stack
+          "base_quant": base_quant, "base_init_s": t_base,
+          "quantize_s": t_quant, "compress_s_per_tenant": t_comp / n_tenants,
+          "artifact_bytes": size, "artifact_roundtrip_s": t_art,
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    return stack
 
 
 def _post(url, body):
@@ -836,18 +1070,27 @@ def _post(url, body):
     return lines, first_s, time.perf_counter() - t0
 
 
-def serve(cfg, stack, dev, name):
+def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
+    """Serve ``stack`` over HTTP and through ``Engine.generate`` (the
+    counted run of ``path``), then time prefill and one decode step."""
     from bitdelta_torch.models import llama
+    from bitdelta_torch.ops import flash_decode as fd
+    from bitdelta_torch.ops import int4 as i4
     from bitdelta_torch.serving.engine import Engine, Request
     from bitdelta_torch.serving.server import (ByteTokenizer, ServingApp,
                                                TenantInfo, make_http_server)
     from bitdelta_torch.serving.stacking import stack_nbytes
 
+    torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, stack, max_slots=8, max_seq=2048, decode_chunk=8,
                  prefill_buckets=(64, 128, 256, 512, 1024, 2048),
-                 kernel="cuda", device=dev)
+                 kernel="cuda", device=dev, kv_dtype=kv_dtype)
     del stack
     torch.cuda.empty_cache()
+    if kv_dtype == "int8":
+        require(eng.cache.k.dtype == torch.int8
+                and eng.cache.v.dtype == torch.int8 and eng.cache.quantized,
+                f"{path}: the cache is not int8")
     resident = torch.cuda.memory_allocated()
     mem = stack_nbytes(eng.stack)
     tok = ByteTokenizer()
@@ -902,9 +1145,17 @@ def serve(cfg, stack, dev, name):
     require(all(0 <= t < vocab for o in outs for t in o),
             "Engine.generate produced out-of-vocab tokens")
     counts = read_counts()
-    for kname in PATHS["serving"]:
+    for kname in PATHS[path]:
         require(counts[kname] > 0,
-                f"kernel {kname} was never launched on the serving path")
+                f"kernel {kname} was never launched on the {path} path")
+    if "w4_matmul" in PATHS[path]:
+        # Every decode step launches flash decode once a layer and the W4
+        # kernel at each of a layer's 7 projections; prefill launches no
+        # W4 kernel (it is int4_matmul, as in JAX).
+        require(counts["w4_matmul"] == 7 * counts["flash_decode_attention"],
+                f"{path}: {counts['w4_matmul']} W4 launches for "
+                f"{counts['flash_decode_attention']} flash-decode launches "
+                f"(want 7 per layer and step)")
     gen_tokens = sum(len(o) for o in outs)
 
     # Prefill and decode-step times through the same engine (after the
@@ -936,6 +1187,16 @@ def serve(cfg, stack, dev, name):
         for _ in range(2):
             one_step()
         torch.cuda.synchronize()
+        before = (i4.w4_matmul.launches, fd.flash_decode_attention.launches)
+        one_step()
+        per_step = {"w4_matmul": i4.w4_matmul.launches - before[0],
+                    "flash_decode_attention":
+                        fd.flash_decode_attention.launches - before[1]}
+        if "w4_matmul" in PATHS[path]:
+            require(per_step["w4_matmul"] == 7 * cfg.num_layers,
+                    f"{path}: {per_step['w4_matmul']} W4 launches in one "
+                    f"decode step, want {7 * cfg.num_layers}")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps = 5
         for _ in range(steps):
@@ -945,7 +1206,10 @@ def serve(cfg, stack, dev, name):
         step_device_ms, step_top = device_breakdown(one_step,
                                                    "decode step")
     report.update(
-        card=name, layers=cfg.num_layers, launches=counts,
+        card=name, layers=cfg.num_layers, kv_dtype=kv_dtype or "bf16",
+        cache_dtype=str(eng.cache.k.dtype).replace("torch.", ""),
+        base_leaf=type(eng.stack.params["layers"]["q_proj"]).__name__,
+        launches=counts, launches_per_decode_step=per_step,
         http_ttft_ms=ttft, http_tokens=per_req, broadcast_s=b_total,
         generate_requests=len(reqs), generate_tokens=gen_tokens,
         generate_s=gen_s, generate_tok_s=gen_tokens / gen_s,
@@ -958,7 +1222,7 @@ def serve(cfg, stack, dev, name):
         decode_step_top_kernels=step_top,
         resident_bytes=resident,
         peak_bytes=torch.cuda.max_memory_allocated(), stack_bytes=mem)
-    emit({"phase": "serving", **report})
+    emit({"phase": path, **report})
     return counts, report
 
 
@@ -966,15 +1230,20 @@ def serve(cfg, stack, dev, name):
 # 5. Whole step: kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def parity(cfg_full, dev):
+PARITY_RUNS = (  # (label, base_quant, kv_dtype)
+    ("bf16", None, None), ("w4_int8_cache", "int4", "int8"),
+    ("w8_bf16_cache", "int8", None))
+
+
+def parity(cfg_full, dev, label, base_quant, kv_dtype):
     import dataclasses
 
     from bitdelta_torch.models import llama
     from bitdelta_torch.serving.stacking import TenantStack, to_pair_layout
 
     cfg = dataclasses.replace(cfg_full, num_layers=2)
-    _, stack = build_world(cfg, dev, seed=7)
-    stack = to_pair_layout(stack)
+    stack = to_pair_layout(build_world(cfg, dev, seed=7,
+                                       base_quant=base_quant))
 
     def to_cpu(tree):
         if isinstance(tree, dict):
@@ -998,7 +1267,11 @@ def parity(cfg_full, dev):
             logits, cache = llama.forward(
                 cfg, st.params, tokens.to(device), lengths=lengths.to(device),
                 deltas=st.deltas, tenant_ids=tids.to(device),
-                return_cache=True, cache_max_seq=64, kernel="cuda")
+                return_cache=True, cache_max_seq=64, kernel="cuda",
+                kv_quant=kv_dtype == "int8")
+            require(cache.k.dtype == (torch.int8 if kv_dtype == "int8"
+                                      else torch.bfloat16),
+                    f"parity {label}: cache dtype {cache.k.dtype}")
             step, _ = llama.decode_step(cfg, st.params, nxt.to(device), cache,
                                         deltas=st.deltas,
                                         tenant_ids=tids.to(device),
@@ -1010,23 +1283,32 @@ def parity(cfg_full, dev):
     torch.cuda.synchronize()
     counts = read_counts()
     cpu_pre, cpu_step = run(cpu_stack, torch.device("cpu"))
-    out = {"phase": "parity", "layers": 2, "launches": counts}
-    for label, a, b in (("prefill", gpu_pre, cpu_pre),
+    out = {"phase": "parity", "run": label, "base_quant": base_quant,
+           "kv_dtype": kv_dtype or "bf16", "layers": 2, "launches": counts}
+    for which, a, b in (("prefill", gpu_pre, cpu_pre),
                         ("decode", gpu_step, cpu_step)):
-        require(torch.isfinite(a).all().item(), f"{label} logits not finite")
+        require(torch.isfinite(a).all().item(),
+                f"parity {label} {which} logits not finite")
         scale = b.abs().max().item()
         err = (a - b).abs().max().item()
         agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        out[label] = {"max_abs_err": err, "ref_max_abs": scale,
+        out[which] = {"max_abs_err": err, "ref_max_abs": scale,
                       "rel_err": err / scale, "argmax_agreement": agree}
         # bf16 activations: the card and the CPU round each projection's
         # fp32 sum to bf16 after summing in different orders; 2 layers of
         # such rounding stay within 2% of the logit scale.
         require(err <= 2e-2 * scale,
-                f"{label} logits: max|err| {err} > 2% of {scale}")
-    for kname in PATHS["serving"]:
-        require(counts[kname] > 0, f"parity run missed kernel {kname}")
+                f"parity {label} {which} logits: max|err| {err} > 2% "
+                f"of {scale}")
+    want = PATHS["density"] if base_quant == "int4" else PATHS["serving"]
+    for kname in want:
+        require(counts[kname] > 0, f"parity {label} missed kernel {kname}")
+    if base_quant == "int4":
+        require(counts["w4_matmul"] == 7 * cfg.num_layers,
+                f"parity {label}: {counts['w4_matmul']} W4 launches for one "
+                f"decode step of {cfg.num_layers} layers")
     emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1214,6 +1496,12 @@ def train_parity(cfg_full, dev):
 
 # ---------------------------------------------------------------------------
 
+def _timing_keys(res):
+    return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1241,16 +1529,23 @@ def main(argv=None):
     checks = kernel_checks(dev)
     report = {"checks": checks}
     cfg = mistral_7b()
-    torch.cuda.reset_peak_memory_stats()
-    # The stack is handed over without another reference, so the engine's
-    # pair-layout copy replaces the canonical deltas.
-    serve_counts, report["serving"] = serve(cfg, build_world(cfg, dev)[1],
+    # Each stack is handed over without another reference, so the
+    # engine's pair-layout copy replaces the canonical deltas.
+    serve_counts, report["serving"] = serve(cfg, build_world(cfg, dev),
                                             dev, name)
     gc.collect()
     torch.cuda.empty_cache()
-    parity(cfg, dev)
+    density_counts, report["density"] = serve(
+        cfg, build_world(cfg, dev, base_quant="int4"), dev, name,
+        path="density", kv_dtype="int8")
     gc.collect()
     torch.cuda.empty_cache()
+    report["parity"] = []
+    for label, base_quant, kv_dtype in PARITY_RUNS:
+        report["parity"].append(parity(cfg, dev, label, base_quant,
+                                       kv_dtype))
+        gc.collect()
+        torch.cuda.empty_cache()
     train_counts, report["train"] = train(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1259,15 +1554,18 @@ def main(argv=None):
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
         by_path = {"serving": serve_counts[kname],
+                   "density": density_counts[kname],
                    "train": train_counts[kname]}
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "kernel_ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res["library_ms"]})
+            "launches_by_path": by_path}
+        entry.update(_timing_keys(res))
+        if kname == "flash_decode_attention":
+            # Row 2's int8-cache branch, checked and timed on its own.
+            entry["int8"] = _timing_keys(
+                checks["flash_decode_attention_int8"])
+        kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     report["nvidia_smi"] = smi

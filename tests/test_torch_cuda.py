@@ -16,7 +16,10 @@ fp32 (1e-4 absolute, sums in another order). Gradients through the
 autograd Functions are held against autograd of the plain versions: in
 fp32 to 1e-4 of each tensor's largest |value|; in bf16 each (row, head)
 within one bf16 ulp of its own largest |value| (2^-7 of it), since both
-sides compute in fp32 and round once; d_scale to 1e-5 of sum |g * u|."""
+sides compute in fp32 and round once; d_scale to 1e-5 of sum |g * u|.
+The W4 matmul sums in another order than its plain version (1e-4 of the
+output scale); the int8 flash decode folds the scales where the plain
+version dequantizes first (the attention tolerances)."""
 
 import pytest
 import torch
@@ -25,7 +28,9 @@ from bitdelta_torch.core.delta import BinaryDelta, pair_delta
 from bitdelta_torch.ops import binary_gemm as tbg
 from bitdelta_torch.ops import flash_decode as tfd
 from bitdelta_torch.ops import flash_prefill as tfp
+from bitdelta_torch.ops import int4 as ti
 from bitdelta_torch.ops.binary_matmul import matmul_f32
+from bitdelta_torch.ops.kv_quant import quantize_kv
 
 # Output tolerance of the attention kernels per working dtype.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -213,3 +218,71 @@ def test_cuda_matmul_f32_carries_gradients(cuda):
     for got, want in ((a1.grad, a2.grad), (w1.grad, w2.grad)):
         assert got.dtype == torch.bfloat16
         assert _grad_close(got, want, want.shape[-1])
+
+
+def _w4_inputs(cuda, m, k, n, dtype, seed):
+    from bitdelta_torch.research.quantized_base import quantize_int4
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = quantize_int4(torch.randn((k, n), generator=g, device=cuda) * 0.02)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    return x, w
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n", [1024, 14336])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_cuda_w4_matmul_matches_plain(cuda, m, dtype, n):
+    x, w = _w4_inputs(cuda, m, 4096, n, dtype, seed=9)
+    before = ti.w4_matmul.launches
+    got = ti.w4_matmul(x, w.packed, w.scale, out_dtype=torch.float32)
+    want = ti.w4_matmul_plain(x, w.packed, w.scale)
+    torch.cuda.synchronize()
+    assert ti.w4_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_w4_group16_launches_nothing(cuda):
+    # A 16-row-group weight (a GPTQ import) at a decode shape: the model's
+    # dispatch keeps int4_matmul, and the kernel's wrapper refuses it.
+    from bitdelta_torch.models.llama import _base_matmul
+    from bitdelta_torch.research.quantized_base import (int4_matmul,
+                                                        quantize_int4)
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    w = quantize_int4(torch.randn((1024, 512), generator=g, device=cuda),
+                      group=16)
+    x = torch.randn((8, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    before = ti.w4_matmul.launches
+    got = _base_matmul(x, w, torch.bfloat16, kernel="cuda")
+    want = int4_matmul(x, w, torch.bfloat16, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert ti.w4_matmul.launches == before
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        ti.w4_matmul(x, w.packed, w.scale)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_decode_int8_matches_plain(cuda, window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((4, 32, 128), generator=g, device=cuda).to(dtype)
+    k8, ks = quantize_kv(torch.randn((4, 512, 8, 128), generator=g,
+                                     device=cuda))
+    v8, vs = quantize_kv(torch.randn((4, 512, 8, 128), generator=g,
+                                     device=cuda))
+    lengths = torch.tensor([512, 1, 300, 77], device=cuda)
+    before = tfd.flash_decode_attention.launches
+    got = tfd.flash_decode_attention(q, k8, v8, lengths, k_scale=ks,
+                                      v_scale=vs, window=window)
+    want = tfd.flash_decode_attention_plain(q, k8, v8, lengths, k_scale=ks,
+                                            v_scale=vs, window=window)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_attention.launches == before + 1
+    assert got.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]

@@ -1,5 +1,6 @@
-"""PyTorch port: the plain versions of the six ported kernels against the
-JAX Pallas kernels run in interpret mode (as the JAX package's own tests
+"""PyTorch port: the plain versions of the seven ported kernels (and the
+int8-cache branch of flash decode) against the JAX Pallas kernels run in
+interpret mode (as the JAX package's own tests
 run them on the CPU), and the gradients of the two autograd Functions of
 the training path against ``jax.vjp`` of their JAX counterparts. The CUDA
 kernels themselves are held against these plain versions on the card by
@@ -27,12 +28,16 @@ from bitdelta_tpu.core.delta import pair_delta as jpair_delta
 from bitdelta_tpu.ops import flash_decode as jfd
 from bitdelta_tpu.ops import flash_prefill as jfp
 from bitdelta_tpu.ops import pallas_binary_gemm as jpb
+from bitdelta_tpu.ops import kv_quant as jkv
 from bitdelta_tpu.ops.packing import pack_signs as jpack
+from bitdelta_tpu.ops.pallas_int4 import w4_matmul_pallas
+from bitdelta_tpu.research.quantized_base import quantize_int4
 from bitdelta_torch.convert import tensor_from_numpy
 from bitdelta_torch.ops import binary_gemm as tbg
 from bitdelta_torch.ops.binary_matmul import _MatmulF32
 from bitdelta_torch.ops import flash_decode as tfd
 from bitdelta_torch.ops import flash_prefill as tfp
+from bitdelta_torch.ops import int4 as ti
 
 FLOAT_TOL = 2e-5
 
@@ -109,6 +114,60 @@ def test_flash_decode_plain_matches_pallas(b, s, h, kv, hd, window):
     np.testing.assert_allclose(got, want, rtol=FLOAT_TOL, atol=FLOAT_TOL)
 
 
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [(3, 64, 4, 2, 16, None),
+                                                 (2, 128, 8, 2, 32, 48)])
+def test_flash_decode_int8_plain_matches_pallas(b, s, h, kv, hd, window):
+    # The int8 cache: JAX's kernel folds the scales into scores and
+    # probabilities; the plain version dequantizes first. fp32 sums in
+    # another order (2e-5, as tests/test_flash_decode.py holds JAX's own
+    # kernel against attention over the dequantized cache).
+    rng = np.random.default_rng(15)
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    k8, ks = jkv.quantize_kv(jnp.asarray(rng.standard_normal((b, s, kv, hd)),
+                                         jnp.float32))
+    v8, vs = jkv.quantize_kv(jnp.asarray(rng.standard_normal((b, s, kv, hd)),
+                                         jnp.float32))
+    lengths = rng.integers(1, s + 1, (b,)).astype(np.int32)
+    want = np.array(jfd.flash_decode_attention(
+        jnp.asarray(q), k8, v8, jnp.asarray(lengths), k_scale=ks, v_scale=vs,
+        window=window, interpret=True))
+    got = tfd.flash_decode_attention(
+        _t(q), _t(k8), _t(v8), _t(lengths), k_scale=_t(ks), v_scale=_t(vs),
+        window=window).numpy()
+    np.testing.assert_allclose(got, want, rtol=FLOAT_TOL, atol=FLOAT_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 256, 256), (1, 128, 128),
+                                   (6, 512, 384), (8, 384, 128),
+                                   (4, 2048, 256)])
+def test_w4_matmul_plain_matches_pallas(m, k, n):
+    rng = np.random.default_rng(2)
+    w = quantize_int4(jnp.asarray(rng.standard_normal((k, n)) * 0.05,
+                                  jnp.float32))
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    want = np.array(w4_matmul_pallas(jnp.asarray(x), w.packed, w.scale,
+                                     interpret=True, out_dtype=jnp.float32))
+    got = ti.w4_matmul(_t(x), _t(w.packed), _t(w.scale)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_w4_matmul_bf16_x_plain_matches_pallas():
+    # bf16 x: both sides unpack the nibbles to bf16 and sum in fp32.
+    rng = np.random.default_rng(3)
+    w = quantize_int4(jnp.asarray(rng.standard_normal((512, 256)) * 0.05,
+                                  jnp.float32))
+    jx, tx = _bf16_or_f32(rng.standard_normal((8, 512)), jnp.bfloat16)
+    want = np.array(w4_matmul_pallas(jx, w.packed, w.scale, interpret=True,
+                                     out_dtype=jnp.float32))
+    got = ti.w4_matmul(tx, _t(w.packed), _t(w.scale),
+                       out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        # 64-row groups: the kernel's wrapper takes 128-row groups only.
+        ti.w4_matmul(tx, _t(w.packed), _t(np.repeat(np.array(w.scale), 2, 0)))
+
+
 def test_tenant_dense_plain_matches_pallas():
     rng = np.random.default_rng(6)
     bsz, t, k, n = 5, 3, 128, 256
@@ -159,13 +218,15 @@ def test_cpu_tensors_take_the_plain_versions():
     before = [tbg.tenant_delta_matmul_pair.launches,
               tbg.tenant_dense_matmul.launches, tbg.binary_matmul.launches,
               tfd.flash_decode_attention.launches,
-              tfp.flash_prefill_attention.launches]
+              tfp.flash_prefill_attention.launches, ti.w4_matmul.launches]
     test_tenant_dense_plain_matches_pallas()
     test_binary_matmul_plain_matches_pallas(8, 64, 128)
+    test_w4_matmul_plain_matches_pallas(8, 256, 256)
+    test_flash_decode_int8_plain_matches_pallas(3, 64, 4, 2, 16, None)
     after = [tbg.tenant_delta_matmul_pair.launches,
              tbg.tenant_dense_matmul.launches, tbg.binary_matmul.launches,
              tfd.flash_decode_attention.launches,
-             tfp.flash_prefill_attention.launches]
+             tfp.flash_prefill_attention.launches, ti.w4_matmul.launches]
     assert after == before
 
 
