@@ -14,9 +14,10 @@ Layering:
              hand-written CUDA kernels (csrc/) with their plain PyTorch
              versions
   core/      delta quantization, model compression, safetensors artifacts
-  models/    the Llama/Mistral decoder (forward / decode_step), GPTQ / bnb
-             layer import
-  research/  the W8 / W4 quantized base under the deltas
+  models/    the Llama/Mistral and Mixtral (MoE) decoders (forward /
+             decode_step), GPTQ / bnb layer import
+  research/  the W8 / W4 quantized base under the deltas; Mixtral
+             mean-expert compression
   serving/   tenant stacking, sampling, the engine and the HTTP server
   train/     calibration data and scale distillation (``distill_scales``)
 

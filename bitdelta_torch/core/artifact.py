@@ -5,8 +5,8 @@ written by either package loads bit-exact in the other).
 
 One file holds::
 
-  deltas.{proj}.packed   int32  (L, K//32, N)
-  deltas.{proj}.scale    fp32   (L,)
+  deltas.{proj}.packed   int32  (L, K//32, N); Mixtral experts (L, E, K//32, N)
+  deltas.{proj}.scale    fp32   (L,); Mixtral experts (L, E)
   extras.{name}          non-bf16 fine-tuned tensors
   extras_bf16.{name}     bf16 tensors as their uint16 bit pattern
 
@@ -125,9 +125,10 @@ def load_delta(path: str, device="cuda", return_meta: bool = False):
     cfg = None
     if "model_config" in meta:
         cfg_raw = json.loads(meta["model_config"])
-        if "num_experts" in cfg_raw:
-            raise NotImplementedError("Mixtral artifacts are not ported yet")
-        cfg = ModelConfig.from_dict(cfg_raw)
+        cls = ModelConfig
+        if "num_experts" in cfg_raw:           # a Mixtral artifact
+            from ..models.mixtral import MixtralConfig as cls
+        cfg = cls.from_dict(cfg_raw)
     deltas_raw: dict = {}
     extras: dict = {}
     for key, arr in raw.items():

@@ -7,6 +7,7 @@
 //   bd_tenant_dense    <- ::tenant_dense_matmul_pallas
 //   bd_binary_matmul   <- ::binary_matmul_pallas
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
+//   bd_tenant_delta    <- ::tenant_delta_matmul_pallas
 //
 // Every entry launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -457,5 +458,110 @@ extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
     binary_matmul_t_kernel<float><<<grid, 256, 0, s>>>(
         (const float*)g, (const uint32_t*)packed, (const float*)scale,
         (float*)out, m, k32, n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 7. Canonical-layout tenant delta at decode:
+//    Y[b, n] = scale[ids[b]] * (2 * sum_k bit[k, n] * xq[b, k] - sum_k xq[b, k])
+//              * xscale,
+//    P[ids[b]] (K/32, N) int32 LSB-first along K, xq the 14-bit symmetric
+//    grid of the whole (B, K) input (one xscale), quantized in plain torch
+//    by the wrapper as JAX quantizes it in XLA.
+//
+// Rows are routed to different (tenant, expert) matrices, so each row
+// streams its own matrix's words; no row reads another row's words. Bound
+// on the H100: at 8-16 decode rows each word has one use, so the integer
+// operations (32 shift/and/multiply-adds a word), not the words' bytes,
+// bound this first version. Design:
+//   * one block per (64-column tile, row); CT_KS thread rows split the
+//     K/32 words of each column and reduce through shared memory;
+//   * the row's xq (|xq| <= 2^14, int16: K = 14336 takes 28 KB) sits in
+//     shared memory and is read as a broadcast, eight values per 16-byte
+//     load; the words are read coalesced along N;
+//   * the sum of bit * xq is exact in int32 (|sum| <= K * 2^14 < 2^31 for
+//     K < 131072, asserted by the wrapper); the epilogue forms
+//     2 * S - sum(xq) in int64, converts once and applies the tenant scale
+//     and xscale with explicit round-to-nearest products, so it agrees with
+//     the plain version bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int CT_TX = 64;    // columns per block
+constexpr int CT_KS = 4;     // thread rows splitting the K words
+
+__device__ __forceinline__ int lo16(uint32_t v) {
+  return static_cast<int>(static_cast<short>(v & 0xFFFFu));
+}
+__device__ __forceinline__ int hi16(uint32_t v) {
+  return static_cast<int>(v) >> 16;
+}
+
+__global__ void tenant_delta_kernel(const short* __restrict__ xq,
+                                    const uint32_t* __restrict__ packed,
+                                    const int* __restrict__ ids,
+                                    const float* __restrict__ scales,
+                                    const float* __restrict__ xscale,
+                                    const int* __restrict__ sxq,
+                                    float* __restrict__ out,
+                                    int k32, int n) {
+  extern __shared__ uint4 xs4[];                 // K int16 values
+  __shared__ int red[CT_KS][CT_TX];
+
+  const int b = blockIdx.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * CT_TX + tx;
+  const int tid = ty * CT_TX + tx;
+
+  // K is a multiple of 32, so the row is a whole number of uint4s.
+  const uint4* src = reinterpret_cast<const uint4*>(xq + (size_t)b * k32 * 32);
+  for (int i = tid; i < k32 * 4; i += CT_TX * CT_KS) xs4[i] = src[i];
+  __syncthreads();
+
+  const uint32_t* p = packed + (size_t)ids[b] * k32 * n;
+  int acc = 0;
+  if (j < n) {
+    for (int kw = ty; kw < k32; kw += CT_KS) {
+      const uint32_t w = p[(size_t)kw * n + j];
+      const uint4* xk = xs4 + kw * 4;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 v = xk[q];
+        const uint32_t parts[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int s = q * 8 + h * 2;
+          acc += static_cast<int>((w >> s) & 1u) * lo16(parts[h]);
+          acc += static_cast<int>((w >> (s + 1)) & 1u) * hi16(parts[h]);
+        }
+      }
+    }
+  }
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty != 0 || j >= n) return;
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < CT_KS; ++i) s += red[i][tx];
+  const long long d = 2LL * s - static_cast<long long>(sxq[b]);
+  const float alpha = scales[ids[b]];
+  out[(size_t)b * n + j] =
+      __fmul_rn(__fmul_rn(alpha, __ll2float_rn(d)), xscale[0]);
+}
+
+extern "C" int bd_tenant_delta(const void* xq, const void* packed,
+                               const void* ids, const void* scales,
+                               const void* xscale, const void* sxq, void* out,
+                               int bsz, int k32, int n, void* stream) {
+  dim3 grid((n + CT_TX - 1) / CT_TX, bsz);
+  dim3 block(CT_TX, CT_KS);
+  size_t smem = (size_t)k32 * 32 * sizeof(short);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(tenant_delta_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  tenant_delta_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const short*)xq, (const uint32_t*)packed, (const int*)ids,
+      (const float*)scales, (const float*)xscale, (const int*)sxq,
+      (float*)out, k32, n);
   return (int)cudaGetLastError();
 }

@@ -56,13 +56,14 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
-    @staticmethod
-    def from_dict(raw: dict) -> "ModelConfig":
-        """Inverse of ``dataclasses.asdict`` (artifact metadata)."""
+    @classmethod
+    def from_dict(cls, raw: dict) -> "ModelConfig":
+        """Inverse of ``dataclasses.asdict`` (artifact metadata); a
+        subclass (``MixtralConfig``) builds itself."""
         raw = dict(raw)
         if raw.get("rope_scaling") is not None:
             raw["rope_scaling"] = RopeScaling(**raw["rope_scaling"])
-        return ModelConfig(**raw)
+        return cls(**raw)
 
 
 def mistral_7b() -> ModelConfig:

@@ -208,15 +208,18 @@ def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
         delta = BinaryDelta(packed=unpair_packed(delta.packed_pairs),
                             scale=delta.scale)
 
-    # JAX routes canonical-layout decode deltas to its
-    # tenant_delta_matmul_pallas (kernel table row 7, not ported yet);
-    # that branch takes the plain tenant path below here, which computes
-    # the same function — and, as in JAX, it is NOT the prefill branch.
-    # Its base matmul takes the kernel dispatch, as in JAX.
-    canonical_decode = (kernel == "cuda" and delta is not None
-                        and tenant_ids is not None and x.shape[-2] == 1)
     if (kernel == "cuda" and delta is not None and tenant_ids is not None
-            and x.shape[0] == 1 and not canonical_decode):
+            and x.shape[-2] == 1):
+        # Decode, canonical layout: base matmul + the canonical tenant
+        # delta kernel (x on one 14-bit grid).
+        y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
+        yd = binary_gemm.tenant_delta_matmul(
+            x[:, 0].to(compute_dtype), delta.packed, delta.scale,
+            tenant_ids, out_dtype=torch.float32)
+        return (y + yd).to(compute_dtype)[:, None, :]
+
+    if (kernel == "cuda" and delta is not None and tenant_ids is not None
+            and x.shape[0] == 1):
         # Single-request prefill: the binary matmul kernel on the row's
         # tenant (index and scale stay on the device).
         packed_t = delta.packed[tenant_ids[0]]
@@ -226,10 +229,7 @@ def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
                                        scale_t, out_dtype=torch.float32)
         return (y + yd[None]).to(compute_dtype)
 
-    if canonical_decode:
-        y = _base_matmul(x[:, 0], w, compute_dtype, kernel)[:, None, :]
-    else:
-        y = _base_matmul(x, w, compute_dtype)
+    y = _base_matmul(x, w, compute_dtype)
     if delta is not None:
         if tenant_ids is None and kernel == "cuda":
             # Training shapes (M = B*S): the binary matmul kernel behind
@@ -276,13 +276,15 @@ def _attention(cfg: ModelConfig, q, k, v, q_positions, kv_valid):
     return out.reshape(b, sq, h * hd).to(q.dtype)
 
 
-def _split_deltas(deltas: Optional[Deltas]):
+def _split_deltas(deltas: Optional[Deltas], names=PROJ_NAMES):
+    """The layer deltas of ``names``; compressed embed / lm_head deltas
+    are not ported yet."""
     if deltas is None:
         return None
     if "embed" in deltas or "lm_head" in deltas:
         raise NotImplementedError(
             "compressed embeddings / lm_head deltas are not ported yet")
-    return {k: v for k, v in deltas.items() if k in PROJ_NAMES} or None
+    return {k: v for k, v in deltas.items() if k in names} or None
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor,

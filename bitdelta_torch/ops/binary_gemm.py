@@ -1,9 +1,12 @@
 """1-bit delta GEMM kernels for the serving and training paths, each
-beside its plain PyTorch version (port of four kernels of
+beside its plain PyTorch version (port of five kernels of
 ``bitdelta_tpu/ops/pallas_binary_gemm.py``):
 
 * :func:`tenant_delta_matmul_pair` — decode, every projection's delta
   (``tenant_delta_matmul_pair_pallas``);
+* :func:`tenant_delta_matmul` — decode, a delta in the canonical layout:
+  a stack the pair layout did not convert, and Mixtral's routed experts
+  (``tenant_delta_matmul_pallas``);
 * :func:`tenant_dense_matmul` — decode, the per-tenant lm_head
   (``tenant_dense_matmul_pallas``);
 * :func:`binary_matmul` — the single-request prefill delta, and the
@@ -144,6 +147,83 @@ def tenant_delta_matmul_pair(x: torch.Tensor, packed_pairs: torch.Tensor,
 
 
 tenant_delta_matmul_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Canonical-layout tenant delta (decode)
+# ---------------------------------------------------------------------------
+
+X_QUANT_BITS = 14  # one symmetric grid for the whole (B, K) input
+
+
+def _canonical_quantize(x: torch.Tensor):
+    """JAX's x grid of ``tenant_delta_matmul_pallas`` (plain torch, as JAX
+    runs it in XLA): ``xq = round(x / xscale)`` with ONE ``xscale =
+    max(max|x|, 1e-30) / 2**14`` for the whole input, not per row.
+    Returns ``(xq (B, K) int32, xscale 0-d fp32)``."""
+    xf = x.to(torch.float32)
+    xmax = torch.clamp(xf.abs().max(), min=1e-30)
+    xscale = xmax / (2.0 ** X_QUANT_BITS)
+    return torch.round(xf / xscale).to(torch.int32), xscale
+
+
+def tenant_delta_matmul_plain(x, packed_stack, scales, tenant_ids):
+    """Plain version of :func:`tenant_delta_matmul` (fp32 out): the
+    integer sums ``sum_k bit * xq`` over each row's matrix in int64, then
+    ``(scale * float(2 * S - sum(xq))) * xscale`` in the kernel's order.
+    JAX sums per K block in fp32 instead, so it agrees with this to fp32
+    rounding; the kernel agrees bit for bit."""
+    bsz, kdim = x.shape
+    xq, xscale = _canonical_quantize(x)
+    xq = xq.to(torch.int64)
+    xr = xq.reshape(bsz, kdim // 32, 32)
+    u = _u32(packed_stack[tenant_ids])                  # (B, K/32, N)
+    s = torch.zeros((bsz, u.shape[-1]), dtype=torch.int64, device=x.device)
+    for bit in range(32):
+        s += (((u >> bit) & 1) * xr[:, :, bit, None]).sum(dim=1)
+    d = (2 * s - xq.sum(dim=1, keepdim=True)).to(torch.float32)
+    alpha = scales.to(torch.float32)[tenant_ids]
+    return (alpha[:, None] * d) * xscale
+
+
+def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
+                        scales: torch.Tensor, tenant_ids: torch.Tensor, *,
+                        out_dtype=None) -> torch.Tensor:
+    """``Y[b] = scales[ids[b]] * (x[b] @ sign(P[ids[b]]))`` at decode,
+    canonical layout, x on the 14-bit grid of :func:`_canonical_quantize`.
+    x ``(B, K)``; packed_stack ``(G, K//32, N)``; scales ``(G,)``;
+    tenant_ids ``(B,)`` in ``[0, G)`` (a tenant, or a flattened (tenant,
+    expert) pair). Returns ``(B, N)`` in ``out_dtype`` (default x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    bsz, kdim = x.shape
+    g, k32, n = packed_stack.shape
+    _require(k32 * 32 == kdim, f"x {tuple(x.shape)} vs packed "
+             f"{tuple(packed_stack.shape)}")
+    _require(tuple(scales.shape) == (g,), f"scales {tuple(scales.shape)} "
+             f"!= {(g,)}")
+    if not x.is_cuda:
+        return tenant_delta_matmul_plain(x, packed_stack, scales,
+                                         tenant_ids).to(out_dtype)
+    # |sum bit * xq| <= K * 2^14 stays exact in the kernel's int32.
+    _require(kdim < 131072, f"K={kdim}: int32 sums need K < 131072")
+    _require(kdim * 2 <= 200 * 1024, f"K={kdim} too large for the kernel")
+    xq, xscale = _canonical_quantize(x)
+    xq16 = xq.to(torch.int16)
+    sxq = xq.sum(dim=1, dtype=torch.int32)
+    out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
+    packed = packed_stack.contiguous()
+    ids = tenant_ids.to(torch.int32).contiguous()
+    sc = scales.to(torch.float32).contiguous()
+    _build.launch(_LIB, "bd_tenant_delta", [P] * 7 + [I, I, I, P],
+                  _build.ptr(xq16), _build.ptr(packed), _build.ptr(ids),
+                  _build.ptr(sc), _build.ptr(xscale.reshape(1)),
+                  _build.ptr(sxq), _build.ptr(out), bsz, k32, n,
+                  _build.stream(x.device))
+    tenant_delta_matmul.launches += 1
+    return out.to(out_dtype)
+
+
+tenant_delta_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------

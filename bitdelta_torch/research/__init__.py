@@ -1,2 +1,3 @@
 """Beyond-the-reference serving modes (port of ``bitdelta_tpu/research``):
-the W8 / W4 quantized base under the 1-bit deltas."""
+the W8 / W4 quantized base under the 1-bit deltas, and Mixtral's
+mean-expert compression."""

@@ -11,11 +11,12 @@ The deltas are taken against the *dequantized* base, as the reference's
 quantized-base ablation prescribes:
 ``W ~ deq(q(W_base)) + alpha * sign(W_fine - deq(q(W_base)))``.
 
-The ``quantize_base_projections*`` / ``dequantize_base_projections``
-functions walk a layer-stacked ``(L, K, N)`` projection one layer at a
-time into preallocated outputs, so the fp32 temporaries stay the size of
-one matrix (the JAX package quantizes the whole stack in one call; the
-values are the same, element by element).
+The ``quantize_*base_projections*`` / ``dequantize_base_projections``
+functions walk a layer-stacked ``(L, K, N)`` projection (or a Mixtral
+expert stack ``(L, E, K, N)``) one layer at a time into preallocated
+outputs, so the fp32 temporaries stay the size of one layer's matrices
+(the JAX package quantizes the whole stack in one call; the values are
+the same, element by element).
 """
 
 from __future__ import annotations
@@ -179,12 +180,12 @@ def _dequantize_layerwise(dequantize, w, dtype) -> torch.Tensor:
     return out
 
 
-def _quantize_projections(params, quantize):
+def _quantize_projections(params, quantize, names=None):
     from ..models.llama import PROJ_NAMES
 
     out = dict(params)
     out["layers"] = dict(params["layers"])
-    for name in PROJ_NAMES:
+    for name in names or PROJ_NAMES:
         out["layers"][name] = _layerwise(quantize, params["layers"][name])
     return out
 
@@ -196,6 +197,18 @@ def quantize_base_projections(params):
     keep their dtype; the model's ``_base_matmul`` dispatches on the leaf
     type."""
     return _quantize_projections(params, quantize_int8)
+
+
+def quantize_mixtral_base_projections(params, include_router=False):
+    """W8 serving mode for Mixtral: the attention projections and the
+    expert stacks ``w1/w3/w2 (L, E, K, N)`` become :class:`Int8Weight`
+    with per-column scales ``(L, E, N)``; the router stays dense unless
+    ``include_router``."""
+    from ..models.mixtral import ATTN_PROJS, EXPERT_MATS
+
+    names = ATTN_PROJS + EXPERT_MATS + (("router",) if include_router
+                                        else ())
+    return _quantize_projections(params, quantize_int8, names)
 
 
 def quantize_base_projections_int4(params):

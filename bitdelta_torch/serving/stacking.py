@@ -2,7 +2,8 @@
 ``bitdelta_tpu/serving/stacking.py``, single-device ``tp=1``).
 
 Packed deltas of all tenants are stacked per projection into
-``(L, T, K//32, N)``; per-tenant extras (embed / norms / lm_head) are
+``(L, T, K//32, N)`` (Mixtral's expert stacks keep their expert axis
+after the tenant axis: ``(L, T, E, K//32, N)``); per-tenant extras (embed / norms / lm_head) are
 stacked on a tenant axis, with ragged vocabularies right-padded to the
 largest (logits are masked per tenant at sampling).
 """
@@ -109,17 +110,43 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
                        num_tenants=t)
 
 
-def to_pair_layout(stack: TenantStack) -> TenantStack:
+def _pair_by_layer(d: BinaryDelta) -> PairedBinaryDelta:
+    """:func:`pair_delta` of a layer-stacked delta one layer at a time
+    into preallocated outputs, so the conversion's int64 transients stay
+    the size of one layer's slice."""
+    first = pair_delta(BinaryDelta(d.packed[0], d.scale[0]))
+    out = PairedBinaryDelta(*(torch.empty((d.packed.shape[0], *f.shape),
+                                          dtype=f.dtype, device=f.device)
+                              for f in first))
+    for layer in range(d.packed.shape[0]):
+        part = first if layer == 0 else pair_delta(
+            BinaryDelta(d.packed[layer], d.scale[layer]))
+        for dst, src in zip(out, part):
+            dst[layer] = src
+    return out
+
+
+def to_pair_layout(stack: TenantStack, *, in_place: bool = False
+                   ) -> TenantStack:
     """Convert delta stacks to the pair-packed serving layout of the pair
-    decode kernel (single device). Projections whose N is not a multiple
-    of 256 stay canonical; the model dispatch handles a mixed dict.
-    Already-paired leaves pass through."""
-    deltas = {}
-    for name, d in stack.deltas.items():
-        if isinstance(d, PairedBinaryDelta) or d.packed.shape[-1] % PAIR_BLOCK:
+    decode kernel (single device). ``embed`` and the Mixtral ``router``
+    stay canonical by name, as in JAX; so does a projection whose N is
+    not a multiple of 256 (the model dispatch handles a mixed dict).
+    Already-paired leaves pass through.
+
+    ``in_place=True`` replaces the entries of ``stack.deltas`` itself,
+    one projection at a time, so each canonical stack is freed as soon as
+    its pair layout exists (when nothing else holds it): the conversion
+    then needs one projection's stack more, not a second copy of all."""
+    deltas = stack.deltas if in_place else {}
+    for name in list(stack.deltas):
+        d = stack.deltas[name]
+        if (name in ("embed", "router") or isinstance(d, PairedBinaryDelta)
+                or d.packed.shape[-1] % PAIR_BLOCK):
             deltas[name] = d
         else:
-            deltas[name] = pair_delta(d)
+            deltas[name] = _pair_by_layer(d)
+        del d
     return stack._replace(deltas=deltas)
 
 

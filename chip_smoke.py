@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase is skipped on error):
 2. build: compile every kernel of ``bitdelta_torch/csrc`` with nvcc
    (one process per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the
-   card at the Mistral-7B shapes of the path that runs it, and time the
+   card at the Mistral-7B (Mixtral-8x7B for the canonical tenant delta)
+   shapes of the path that runs it, and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -33,14 +34,26 @@ Phases (any failure exits non-zero; no phase is skipped on error):
 5. parity: a 2-layer full-width model's prefill and decode logits with
    the kernels on the card against the same model on the CPU with the
    plain versions: a bf16 base with a bf16 cache, a W4 base with the
-   int8 cache, a W8 base with a bf16 cache;
+   int8 cache, a W8 base with a bf16 cache; and a 2-layer full-width
+   Mixtral-8x7B (W8 base, bf16 cache, canonical decode), held at the
+   positions whose top-2 routing agrees at every layer (at least 95% of
+   them must);
 6. train: a 32-layer full-width Mistral-7B fine-tune (bf16) compressed,
    written as ``diff_untrained.safetensors``, scale-distilled for 3
    steps by ``distill_scales`` (batch 4, length 128, lr 1e-4) through the
    kernels, written as ``diff.safetensors`` and read back bit-exact;
    every training kernel's launch counter must be > 0 afterwards;
 7. train parity: one distillation step of a 2-layer full-width fp32
-   model through the kernels against the same step on the plain path.
+   model through the kernels against the same step on the plain path;
+8. mixtral: every earlier world freed, a full-width 32-layer
+   Mixtral-8x7B over a W8 base with two synthetic fine-tunes, built one
+   layer at a time on the card (no dense bf16 base), one tenant written
+   and read back through the artifact I/O; a B=8 prefill and three
+   canonical-layout decode steps (the canonical tenant delta kernel must
+   launch 224 times a step); the stack converted to the pair layout in
+   place and the same step taken again (logits within 2% of the
+   canonical step's); then ``Engine(model=mixtral)`` over HTTP with both
+   tenants, as phase 4.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -92,6 +105,9 @@ KERNELS = {
     "w4_matmul": (
         "int4", "bitdelta_torch/csrc/int4_gemm.cu",
         "bitdelta_tpu/ops/pallas_int4.py:99"),
+    "tenant_delta_matmul": (
+        "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
+        "bitdelta_tpu/ops/pallas_binary_gemm.py:254"),
 }
 # The kernels each main path must launch.
 PATHS = {
@@ -102,6 +118,10 @@ PATHS = {
                 "flash_decode_attention", "tenant_dense_matmul",
                 "flash_prefill_attention", "binary_matmul"),
     "train": ("flash_prefill_attention", "binary_matmul", "binary_matmul_t"),
+    "mixtral": ("tenant_delta_matmul_pair", "flash_decode_attention",
+                "tenant_dense_matmul", "binary_matmul"),
+    "mixtral_canonical": ("tenant_delta_matmul", "flash_decode_attention",
+                          "tenant_dense_matmul"),
 }
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
@@ -364,6 +384,97 @@ def check_pair(dev, gen, results):
                     "tenants + fp32 out; ops: 2*B*K*N at the bf16 rate",
         library="torch.bmm(x[:, None], pm1[ids]) on the unpacked bf16 ±1 "
                 "stack (gather + bmm; no 12-bit x grid, no scale)",
+        detail=shapes)
+
+
+# Row 7's calls in one Mixtral-8x7B decode layer of the canonical layout:
+# (call site, rows, stacked matrices G, K, N). Attention: B = 8 rows over
+# 2 tenants; routed experts: 8 rows x top-2, (tenant, expert) flattened
+# into 2 x 8 = 16 matrices.
+CANON_SHAPES = (("q_proj", 8, 2, 4096, 4096), ("k_proj", 8, 2, 4096, 1024),
+                ("v_proj", 8, 2, 4096, 1024), ("o_proj", 8, 2, 4096, 4096),
+                ("w1", 16, 16, 4096, 14336), ("w3", 16, 16, 4096, 14336),
+                ("w2", 16, 16, 14336, 4096))
+
+
+def routed_ids(dev, gen, bsz=8, n_tenants=2, experts=8, topk=2):
+    """Flattened (tenant, expert) ids of ``bsz`` decode rows (row b is
+    tenant b % n_tenants) that each route to ``topk`` distinct experts."""
+    rows = [torch.randperm(experts, generator=gen, device=dev)[:topk]
+            for _ in range(bsz)]
+    tenant = torch.arange(bsz, device=dev) % n_tenants
+    return (tenant[:, None] * experts + torch.stack(rows)).reshape(-1)
+
+
+def check_canonical(dev, gen, results):
+    """Row 7 at the seven call sites of a Mixtral decode layer: exact
+    against its plain version with bf16, fp32 and all-zero x; timed with
+    bf16 x."""
+    from bitdelta_torch.ops import binary_gemm as bg
+    from bitdelta_torch.ops.packing import unpack_to_pm1
+
+    tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                         "library_ms", "bound_ms"), 0.0)
+    shapes, by = [], set()
+    for name, rows, g, k, n in CANON_SHAPES:
+        ids = (routed_ids(dev, gen) if g == 16
+               else torch.arange(rows, device=dev) % g)
+        scales = torch.rand((g,), generator=gen, device=dev) * 0.01 + 0.001
+        distinct = int(torch.unique(ids).numel())
+        set_bytes = distinct * k * n // 8 + rows * k * 2
+        sets = []
+        for _ in range(n_sets(set_bytes)):
+            packed = torch.randint(-2**31, 2**31 - 1, (g, k // 32, n),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            x = torch.randn((rows, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sets.append((x, packed, scales, ids))
+        errs = {}
+        x0 = sets[0][0]
+        for label, xin in (("bf16", x0), ("fp32", x0.float()),
+                           ("zero", torch.zeros_like(x0))):
+            got = bg.tenant_delta_matmul(xin, *sets[0][1:],
+                                         out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            want = bg.tenant_delta_matmul_plain(xin, *sets[0][1:])
+            torch.cuda.synchronize()
+            errs[label] = (got - want).abs().max().item()
+            require(errs[label] == 0.0,
+                    f"canonical delta kernel {name} {label} x: max|err| "
+                    f"{errs[label]}, want 0 (exact)")
+            require(label != "zero" or not got.any().item(),
+                    f"canonical delta kernel {name}: zero x gave nonzero y")
+        # The library call's ±1 stack is unpacked outside the timed call.
+        pm1 = unpack_to_pm1(sets[0][1], torch.bfloat16)        # (G, K, N)
+        row = time_wrapper(
+            f"canonical {name}",
+            lambda i: bg.tenant_delta_matmul(*sets[i],
+                                             out_dtype=torch.float32),
+            len(sets), ("tenant_delta_kernel",),
+            plain=lambda i: bg.tenant_delta_matmul_plain(*sets[i]),
+            library=lambda i: torch.bmm(x0[:, None], pm1[ids]))
+        del pm1, sets
+        nbytes = rows * k * 2 + distinct * (k // 32) * n * 4 + rows * n * 4
+        row["bound_ms"], b_by = bound(nbytes, 2 * rows * k * n)
+        by.add(b_by)
+        for key in tot:
+            tot[key] += row[key]
+        shapes.append({"site": name, "rows": rows, "matrices": g,
+                       "distinct": distinct, "k": k, "n": n, **row,
+                       "max_abs_err": errs})
+    results["tenant_delta_matmul"] = dict(
+        tot, max_abs_err=0.0, bound_by="+".join(sorted(by)),
+        tolerance="exact (0) against the plain version with bf16, fp32 and "
+                  "all-zero x: int32/int64 sums, the same fp32 epilogue",
+        shape="Mixtral-8x7B canonical decode layer: q/k/v/o at B=8 over 2 "
+              "tenants, w1/w3/w2 at 8 rows x top-2 over 16 (tenant, expert) "
+              "matrices", timing=TIMING + "; ms includes the plain-torch x "
+              "quantization (_canonical_quantize) before the kernel",
+        bound_basis="bytes: x bf16 + the words of the distinct matrices the "
+                    "ids touch + fp32 out; ops: 2*rows*K*N at the bf16 rate",
+        library="torch.bmm(x[:, None], pm1[ids]) on the unpacked bf16 ±1 "
+                "stack (gather + bmm; no 14-bit x grid, no scale)",
         detail=shapes)
 
 
@@ -945,9 +1056,9 @@ def check_grads(dev, gen, results):
 def kernel_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
-    for check in (check_pair, check_decode, check_decode_int8, check_w4,
-                  check_dense, check_prefill, check_binary, check_binary_t,
-                  check_grads):
+    for check in (check_pair, check_canonical, check_decode,
+                  check_decode_int8, check_w4, check_dense, check_prefill,
+                  check_binary, check_binary_t, check_grads):
         check(dev, gen, results)
         torch.cuda.empty_cache()
     for name, res in results.items():
@@ -1070,12 +1181,11 @@ def _post(url, body):
     return lines, first_s, time.perf_counter() - t0
 
 
-def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
+def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
+          n_generate=12, max_new=32):
     """Serve ``stack`` over HTTP and through ``Engine.generate`` (the
-    counted run of ``path``), then time prefill and one decode step."""
-    from bitdelta_torch.models import llama
-    from bitdelta_torch.ops import flash_decode as fd
-    from bitdelta_torch.ops import int4 as i4
+    counted run of ``path``), then time prefill and one decode step.
+    ``model``: the decoder module (llama by default)."""
     from bitdelta_torch.serving.engine import Engine, Request
     from bitdelta_torch.serving.server import (ByteTokenizer, ServingApp,
                                                TenantInfo, make_http_server)
@@ -1084,7 +1194,8 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, stack, max_slots=8, max_seq=2048, decode_chunk=8,
                  prefill_buckets=(64, 128, 256, 512, 1024, 2048),
-                 kernel="cuda", device=dev, kv_dtype=kv_dtype)
+                 kernel="cuda", device=dev, kv_dtype=kv_dtype, model=model)
+    model = eng.model
     del stack
     torch.cuda.empty_cache()
     if kv_dtype == "int8":
@@ -1094,7 +1205,7 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
     resident = torch.cuda.memory_allocated()
     mem = stack_nbytes(eng.stack)
     tok = ByteTokenizer()
-    names = ["alpha", "beta", "gamma"]
+    names = ["alpha", "beta", "gamma"][:eng.stack.num_tenants]
     app = ServingApp(eng, [TenantInfo(n, tok) for n in names])
     server = make_http_server(app, host="127.0.0.1", port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1125,22 +1236,23 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
             "messages": [{"role": "user", "content": "One question for all"}],
             "max_new_tokens": 12})
         require({line["tenant"] for line in lines} == set(names)
-                and sum(line["done"] for line in lines) == 3,
+                and sum(line["done"] for line in lines) == len(names),
                 "broadcast /generate did not answer from every tenant")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
         app.close()
-    prompts = [f"Batch prompt number {i} for the engine." for i in range(12)]
-    reqs = [Request(prompt_ids=tok.encode(p), tenant_id=i % 3,
-                    max_new_tokens=32) for i, p in enumerate(prompts)]
+    prompts = [f"Batch prompt number {i} for the engine."
+               for i in range(n_generate)]
+    reqs = [Request(prompt_ids=tok.encode(p), tenant_id=i % len(names),
+                    max_new_tokens=max_new) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    require(all(o is not None and len(o) <= 32 for o in outs),
+    require(all(o is not None and len(o) <= max_new for o in outs),
             "Engine.generate returned a bad batch")
     require(all(0 <= t < vocab for o in outs for t in o),
             "Engine.generate produced out-of-vocab tokens")
@@ -1174,12 +1286,12 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
     prefill_device_ms, prefill_top = device_breakdown(
         lambda: eng.submit(req), "prefill 500")
     eng.cancel(req.request_id)
-    tids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], device=dev)
+    tids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], device=dev) % len(names)
     toks = torch.ones((8, 1), dtype=torch.int64, device=dev)
     cache = eng.cache
 
     def one_step():
-        llama.decode_step(cfg, eng.stack.params, toks, cache,
+        model.decode_step(cfg, eng.stack.params, toks, cache,
                           deltas=eng.stack.deltas, tenant_ids=tids,
                           kernel="cuda")
 
@@ -1187,14 +1299,17 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
         for _ in range(2):
             one_step()
         torch.cuda.synchronize()
-        before = (i4.w4_matmul.launches, fd.flash_decode_attention.launches)
+        before = read_counts()
         one_step()
-        per_step = {"w4_matmul": i4.w4_matmul.launches - before[0],
-                    "flash_decode_attention":
-                        fd.flash_decode_attention.launches - before[1]}
+        per_step = {k: v - before[k] for k, v in read_counts().items()
+                    if v - before[k]}
+        require(per_step.get("tenant_delta_matmul_pair")
+                == 7 * cfg.num_layers,
+                f"{path}: {per_step} launches in one decode step, want "
+                f"{7 * cfg.num_layers} of the pair kernel")
         if "w4_matmul" in PATHS[path]:
-            require(per_step["w4_matmul"] == 7 * cfg.num_layers,
-                    f"{path}: {per_step['w4_matmul']} W4 launches in one "
+            require(per_step.get("w4_matmul") == 7 * cfg.num_layers,
+                    f"{path}: {per_step.get('w4_matmul')} W4 launches in one "
                     f"decode step, want {7 * cfg.num_layers}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1230,6 +1345,23 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None):
 # 5. Whole step: kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
+def stack_to_cpu(stack):
+    """A copy of a TenantStack with every tensor on the CPU."""
+    from bitdelta_torch.serving.stacking import TenantStack
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(to_cpu(v) for v in tree))
+        return tree.cpu()
+
+    return TenantStack(params=to_cpu(stack.params),
+                       deltas=to_cpu(stack.deltas),
+                       vocab_sizes=stack.vocab_sizes.cpu(),
+                       num_tenants=stack.num_tenants)
+
+
 PARITY_RUNS = (  # (label, base_quant, kv_dtype)
     ("bf16", None, None), ("w4_int8_cache", "int4", "int8"),
     ("w8_bf16_cache", "int8", None))
@@ -1239,23 +1371,12 @@ def parity(cfg_full, dev, label, base_quant, kv_dtype):
     import dataclasses
 
     from bitdelta_torch.models import llama
-    from bitdelta_torch.serving.stacking import TenantStack, to_pair_layout
+    from bitdelta_torch.serving.stacking import to_pair_layout
 
     cfg = dataclasses.replace(cfg_full, num_layers=2)
     stack = to_pair_layout(build_world(cfg, dev, seed=7,
                                        base_quant=base_quant))
-
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return type(tree)(*(to_cpu(v) for v in tree))
-        return tree.cpu()
-
-    cpu_stack = TenantStack(params=to_cpu(stack.params),
-                            deltas=to_cpu(stack.deltas),
-                            vocab_sizes=stack.vocab_sizes.cpu(),
-                            num_tenants=stack.num_tenants)
+    cpu_stack = stack_to_cpu(stack)
     g = torch.Generator().manual_seed(3)
     tokens = torch.randint(1, cfg.vocab_size, (1, 64), generator=g)
     lengths = torch.tensor([41], dtype=torch.int32)
@@ -1495,6 +1616,442 @@ def train_parity(cfg_full, dev):
 
 
 # ---------------------------------------------------------------------------
+# 8. Mixtral-8x7B over a W8 base: canonical decode (row 7), pair layout,
+#    and the engine over HTTP
+# ---------------------------------------------------------------------------
+
+MIX_TENANTS, MIX_NOISE = 2, 0.002
+
+
+def build_mixtral_world(cfg, dev, seed=21):
+    """A W8 Mixtral serving stack of MIX_TENANTS synthetic fine-tunes,
+    built one layer at a time on the card, so no dense bf16 base (93 GB at
+    full size) ever exists: for each layer, seeded fp32 weights are
+    quantized with ``quantize_int8`` into preallocated int8 stacks (the
+    router stays dense bf16), and each tenant's fine-tune of that layer
+    (the dequantized layer plus seeded fp32 noise) is compressed by
+    ``compress_mixtral`` on the one-layer pytree into preallocated packed
+    stacks. The deltas stay in the canonical layout."""
+    from bitdelta_torch.core.delta import BinaryDelta
+    from bitdelta_torch.models import mixtral as mx
+    from bitdelta_torch.research.quantized_base import (Int8Weight,
+                                                        dequantize_int8,
+                                                        quantize_int8)
+    from bitdelta_torch.serving.stacking import TenantStack
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    L, T, E = cfg.num_layers, MIX_TENANTS, cfg.num_experts
+    D, V = cfg.hidden_size, cfg.vocab_size
+    shapes = {"q_proj": (D, cfg.q_dim), "k_proj": (D, cfg.kv_dim),
+              "v_proj": (D, cfg.kv_dim), "o_proj": (cfg.q_dim, D),
+              "w1": (D, cfg.intermediate_size),
+              "w3": (D, cfg.intermediate_size),
+              "w2": (cfg.intermediate_size, D)}
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def noise(shape, scale=MIX_NOISE):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    layers, deltas = {}, {}
+    for name, (k, n) in shapes.items():
+        lead = (E,) if name in mx.EXPERT_MATS else ()
+        layers[name] = Int8Weight(q=empty((L, *lead, k, n), torch.int8),
+                                  scale=empty((L, *lead, n), torch.float32))
+        deltas[name] = BinaryDelta(
+            packed=empty((L, T, *lead, k // 32, n), torch.int32),
+            scale=empty((L, T, *lead), torch.float32))
+    layers["router"] = empty((L, D, E), torch.bfloat16)
+    deltas["router"] = BinaryDelta(packed=empty((L, T, D // 32, E),
+                                                torch.int32),
+                                   scale=empty((L, T), torch.float32))
+    for name in ("attn_norm", "mlp_norm"):
+        layers[name] = empty((L, T, D), torch.bfloat16)
+    # Per-tenant extras: the base's embed / head plus noise, in bf16.
+    extras = {"embed": empty((T, V, D), torch.bfloat16),
+              "lm_head": empty((T, D, V), torch.bfloat16),
+              "final_norm": empty((T, D), torch.bfloat16)}
+    for name, shape in (("embed", (V, D)), ("lm_head", (D, V))):
+        base_w = noise(shape, 0.02).to(torch.bfloat16)
+        for t in range(T):
+            extras[name][t] = (base_w.float() + noise(shape)).to(
+                torch.bfloat16)
+        del base_w
+    for t in range(T):
+        extras["final_norm"][t] = (1.0 + noise((D,), 10 * MIX_NOISE)).to(
+            torch.bfloat16)
+
+    for layer in range(L):
+        deq = {}
+        for name, (k, n) in shapes.items():
+            lead = (E,) if name in mx.EXPERT_MATS else ()
+            dq = empty((1, *lead, k, n), torch.float32)
+            q_dst = layers[name].q[layer].reshape(-1, k, n)
+            s_dst = layers[name].scale[layer].reshape(-1, n)
+            for e, mat in enumerate(dq.reshape(-1, k, n)):
+                qw = quantize_int8(noise((k, n), 0.02))
+                q_dst[e], s_dst[e] = qw.q, qw.scale
+                mat.copy_(dequantize_int8(qw))
+            deq[name] = dq
+        router = noise((D, E), 0.02).to(torch.bfloat16)
+        layers["router"][layer] = router
+        deq["router"] = router.float()[None]
+        for name in ("attn_norm", "mlp_norm"):
+            deq[name] = torch.ones((1, D), device=dev)
+        for t in range(T):
+            fine = {"layers": {
+                name: w + noise(w.shape, MIX_NOISE * (10 if "norm" in name
+                                                      else 1))
+                for name, w in deq.items()}}
+            fine.update({n_: extras[n_][t] for n_ in extras})
+            comp = mx.compress_mixtral({"layers": deq}, fine)
+            for name, d in comp.deltas.items():
+                deltas[name].packed[layer, t] = d.packed[0]
+                deltas[name].scale[layer, t] = d.scale[0]
+            for name in ("attn_norm", "mlp_norm"):
+                layers[name][layer, t] = comp.extras[name][0].to(
+                    torch.bfloat16)
+            del fine, comp
+        del deq
+    params = {"layers": layers, **extras}
+    stack = TenantStack(params=params, deltas=deltas,
+                        vocab_sizes=torch.full((T,), V, dtype=torch.int32,
+                                               device=dev),
+                        num_tenants=T)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stack, {"build_s": time.perf_counter() - t0,
+                   "build_peak_bytes": torch.cuda.max_memory_allocated(),
+                   "resident_bytes": torch.cuda.memory_allocated()}
+
+
+def tenant_artifact(stack, t):
+    """Tenant ``t`` of a canonical stack as a CompressedModel (views)."""
+    from bitdelta_torch.core.compress import CompressedModel
+    from bitdelta_torch.core.delta import BinaryDelta
+
+    deltas = {name: BinaryDelta(d.packed[:, t], d.scale[:, t])
+              for name, d in stack.deltas.items()}
+    p = stack.params
+    extras = {"embed": p["embed"][t], "lm_head": p["lm_head"][t],
+              "final_norm": p["final_norm"][t],
+              "attn_norm": p["layers"]["attn_norm"][:, t],
+              "mlp_norm": p["layers"]["mlp_norm"][:, t]}
+    return CompressedModel(deltas=deltas, extras=extras)
+
+
+class RouteRecorder:
+    """Records every top-k routing choice of ``mixtral._route`` (as CPU
+    tensors, in call order: one call per layer and forward)."""
+
+    def __init__(self):
+        from bitdelta_torch.models import mixtral as mx
+
+        self.mx, self.orig, self.calls = mx, mx._route, []
+
+    def __enter__(self):
+        def record(logits, k):
+            vals, idx = self.orig(logits, k)
+            self.calls.append(idx.sort(dim=-1).values.cpu())
+            return vals, idx
+        self.mx._route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mx._route = self.orig
+
+
+def routing_agreement(a, b):
+    """Per position (the leading dims of one call's ``(..., k)``), True
+    where both runs chose the same expert set at every layer."""
+    agree = None
+    for x, y in zip(a, b):
+        same = (x == y).all(dim=-1)
+        agree = same if agree is None else agree & same
+    return agree
+
+
+def held_logits(got, want, agree, label, limit=2e-2):
+    """Require |got - want| <= ``limit`` of the logit scale at the
+    positions whose routing agrees (no bound with ``limit=None``);
+    returns the numbers."""
+    scale = want.abs().max().item()
+    err = ((got - want).abs().amax(-1) * agree).max().item()
+    require(torch.isfinite(got).all().item(), f"{label}: logits not finite")
+    require(limit is None or err <= limit * scale,
+            f"{label}: max|err| {err} > {limit} of {scale} at positions "
+            f"whose routing agrees")
+    return {"max_abs_err_agreeing": err, "ref_max_abs": scale,
+            "rel_err": err / scale,
+            "positions_agreeing": int(agree.sum()),
+            "positions": int(agree.numel()),
+            "max_abs_err_all": (got - want).abs().max().item()}
+
+
+def mixtral_parity(cfg_full, dev):
+    """A 2-layer full-width Mixtral (8 experts, W8 base, bf16 cache):
+    prefill and canonical-decode logits with the kernels on the card
+    against the plain path on the CPU. Top-2 routing flips where two
+    router logits nearly tie and the card and the CPU round differently;
+    a flip moves a token's MoE output far more than 2%. So the (position,
+    layer) choices are compared, the logits are held to 2% of the logit
+    scale at the positions whose routing agrees at every layer, and at
+    least 95% of positions must agree."""
+    import dataclasses
+
+    from bitdelta_torch.models import mixtral as mx
+    from bitdelta_torch.serving.stacking import to_pair_layout
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    stack, _ = build_mixtral_world(cfg, dev, seed=31)
+    cpu_stack = stack_to_cpu(stack)
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 24), generator=g)
+    tids = torch.tensor([0, 1])
+    nxt = torch.tensor([[17], [5]])
+
+    def run(st, device):
+        with torch.no_grad(), RouteRecorder() as rec:
+            logits, cache = mx.forward(
+                cfg, st.params, tokens.to(device), deltas=st.deltas,
+                tenant_ids=tids.to(device), return_cache=True,
+                cache_max_seq=32, kernel="cuda")
+            step, _ = mx.decode_step(cfg, st.params, nxt.to(device), cache,
+                                     deltas=st.deltas,
+                                     tenant_ids=tids.to(device),
+                                     kernel="cuda")
+        n = cfg.num_layers
+        return (logits.float().cpu(), step.float().cpu(), rec.calls[:n],
+                rec.calls[n:], cache)
+
+    reset_counts()
+    gpu = run(stack, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # The same decode step in the pair layout, on the card.
+    to_pair_layout(stack, in_place=True)
+    with torch.no_grad(), RouteRecorder() as rec:
+        paired, _ = mx.decode_step(cfg, stack.params, nxt.to(dev), gpu[4],
+                                   deltas=stack.deltas,
+                                   tenant_ids=tids.to(dev), kernel="cuda")
+    pair = held_logits(paired.float().cpu(), gpu[1],
+                       routing_agreement(gpu[3], rec.calls).float(),
+                       "mixtral parity: pair vs canonical decode")
+    del stack, paired
+    t0 = time.perf_counter()
+    cpu = run(cpu_stack, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    agree_pre = routing_agreement(gpu[2], cpu[2])          # (2, 24)
+    agree_dec = routing_agreement(gpu[3], cpu[3])          # (2, 1)
+    n_agree = int(agree_pre.sum() + agree_dec.sum())
+    n_pos = agree_pre.numel() + agree_dec.numel()
+    out = {"phase": "parity", "run": "mixtral_w8", "base_quant": "int8",
+           "kv_dtype": "bf16", "layers": 2, "experts": cfg.num_experts,
+           "launches": counts, "cpu_s": cpu_s,
+           "routing_positions_agreeing": n_agree, "routing_positions": n_pos,
+           "prefill": held_logits(gpu[0], cpu[0], agree_pre.float(),
+                                  "mixtral parity prefill"),
+           "decode": held_logits(gpu[1], cpu[1], agree_dec.float(),
+                                 "mixtral parity decode"),
+           "pair_vs_canonical_decode": pair}
+    require(n_agree >= 0.95 * n_pos,
+            f"mixtral parity: routing agrees at {n_agree} of {n_pos} "
+            f"positions (< 95%)")
+    for kname in PATHS["mixtral_canonical"]:
+        require(counts[kname] > 0, f"mixtral parity missed kernel {kname}")
+    require(counts["tenant_delta_matmul"] == 7 * cfg.num_layers,
+            f"mixtral parity: {counts['tenant_delta_matmul']} canonical "
+            f"delta launches for one decode step of {cfg.num_layers} layers")
+    emit(out)
+    return out
+
+
+def w8_cast_ms(stack):
+    """Device ms of one W8 expert stack's ``int8 -> bf16`` cast (what
+    ``_expert_matmul`` does at every call): w1 of layer 0."""
+    q = stack.params["layers"]["w1"].q[0]
+    return device_ms(lambda i: q.to(torch.bfloat16), 1, "w8 cast",
+                     iters=5)[0]
+
+
+def mixtral(dev, name):
+    """Phase 8: the full-width Mixtral-8x7B world, its artifact, the
+    canonical decode (row 7), the pair layout, then the engine over
+    HTTP."""
+    from bitdelta_torch.core.artifact import load_delta, save_delta
+    from bitdelta_torch.models import mixtral as mx
+    from bitdelta_torch.serving.stacking import to_pair_layout
+
+    cfg = mx.mixtral_8x7b()
+    free_before, total = torch.cuda.mem_get_info()
+    stack, report = build_mixtral_world(cfg, dev)
+    report.update(card=name, layers=cfg.num_layers,
+                  experts=cfg.num_experts, tenants=MIX_TENANTS,
+                  free_bytes_before=free_before, card_bytes=total)
+
+    # Tenant 0 through the artifact format and back, bit-exact.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "mixtral_tenant0.safetensors")
+        comp = tenant_artifact(stack, 0)
+        save_delta(path, comp, cfg, base_quant="int8")
+        report["artifact_bytes"] = Path(path).stat().st_size
+        back, cfg_back, meta = load_delta(path, device="cpu",
+                                          return_meta=True)
+    require(isinstance(cfg_back, mx.MixtralConfig) and cfg_back == cfg,
+            f"mixtral artifact config came back as {cfg_back!r}")
+    require(meta.get("base_quant") == "int8", "mixtral artifact base_quant")
+    for label, a, b in (("deltas", comp.deltas, back.deltas),
+                        ("extras", comp.extras, back.extras)):
+        for key, x in a.items():
+            for f_a, f_b in zip(x if isinstance(x, tuple) else (x,),
+                                b[key] if isinstance(x, tuple)
+                                else (b[key],)):
+                require(torch.equal(f_a.cpu(), f_b),
+                        f"mixtral artifact {label}.{key} did not round-trip")
+    del comp, back
+    report["artifact_roundtrip_s"] = time.perf_counter() - t0
+
+    # Canonical decode: prefill B=8 over both tenants, 3 decode steps.
+    g = torch.Generator(device=dev).manual_seed(8)
+    tids = torch.arange(8, device=dev) % MIX_TENANTS
+    prompt = torch.randint(1, cfg.vocab_size, (8, 32), generator=g,
+                           device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (8, 1), generator=g, device=dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        _, cache0 = mx.forward(cfg, stack.params, prompt, deltas=stack.deltas,
+                               tenant_ids=tids, return_cache=True,
+                               cache_max_seq=64, kernel="cuda")
+        torch.cuda.synchronize()
+        report["canonical_prefill_b8_s32_ms"] = (time.perf_counter()
+                                                 - t0) * 1e3
+        reset_counts()
+        with RouteRecorder() as rec:
+            first, cache = mx.decode_step(cfg, stack.params, toks, cache0,
+                                          deltas=stack.deltas,
+                                          tenant_ids=tids, kernel="cuda")
+        route_canon = rec.calls
+        after_first = read_counts()
+        for _ in range(2):
+            _, cache = mx.decode_step(cfg, stack.params, toks, cache,
+                                      deltas=stack.deltas, tenant_ids=tids,
+                                      kernel="cuda")
+        torch.cuda.synchronize()
+        canon_counts = read_counts()
+        require(after_first["tenant_delta_matmul"] == 7 * cfg.num_layers,
+                f"canonical decode: {after_first['tenant_delta_matmul']} row-7 "
+                f"launches in one step, want {7 * cfg.num_layers}")
+        require(canon_counts["tenant_delta_matmul"]
+                == 3 * 7 * cfg.num_layers,
+                f"canonical decode: {canon_counts['tenant_delta_matmul']} "
+                f"row-7 launches in 3 steps")
+        for kname in PATHS["mixtral_canonical"]:
+            require(canon_counts[kname] > 0,
+                    f"kernel {kname} was never launched on the canonical "
+                    f"Mixtral decode")
+        require(torch.isfinite(first).all().item(),
+                "canonical decode logits not finite")
+
+        def canon_step():
+            mx.decode_step(cfg, stack.params, toks, cache0,
+                           deltas=stack.deltas, tenant_ids=tids,
+                           kernel="cuda")
+
+        canon_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        canon_step()
+        torch.cuda.synchronize()
+        report["canonical_step_ms_b8"] = (time.perf_counter() - t0) * 1e3
+        report["canonical_step_device_ms"], report[
+            "canonical_step_top_kernels"] = device_breakdown(
+            canon_step, "mixtral canonical decode step", top=10)
+        report["w8_cast_ms_per_expert_stack"] = w8_cast_ms(stack)
+        report["w8_casts_per_step"] = 3 * cfg.num_layers
+
+        # The same canonical step in fp32 (lm_head widened for the dense
+        # head kernel, which takes one dtype), for the layout comparison
+        # below without bf16's rounding noise.
+        p32 = dict(stack.params, lm_head=stack.params["lm_head"].float())
+        _, cache32 = mx.forward(cfg, p32, prompt, deltas=stack.deltas,
+                                tenant_ids=tids, compute_dtype=torch.float32,
+                                return_cache=True, cache_max_seq=64,
+                                kernel="cuda")
+        with RouteRecorder() as rec:
+            canon32, _ = mx.decode_step(cfg, p32, toks, cache32,
+                                        deltas=stack.deltas, tenant_ids=tids,
+                                        compute_dtype=torch.float32,
+                                        kernel="cuda")
+        route32 = rec.calls
+
+        # The pair layout in place, then the same steps on the same caches.
+        t0 = time.perf_counter()
+        to_pair_layout(stack, in_place=True)
+        torch.cuda.synchronize()
+        report["pair_convert_s"] = time.perf_counter() - t0
+        report["after_pair_bytes"] = torch.cuda.memory_allocated()
+        reset_counts()
+        with RouteRecorder() as rec:
+            paired, _ = mx.decode_step(cfg, stack.params, toks, cache0,
+                                       deltas=stack.deltas, tenant_ids=tids,
+                                       kernel="cuda")
+        torch.cuda.synchronize()
+        pair_counts = read_counts()
+        route_pair = rec.calls
+        with RouteRecorder() as rec:
+            pair32, _ = mx.decode_step(cfg, p32, toks, cache32,
+                                       deltas=stack.deltas, tenant_ids=tids,
+                                       compute_dtype=torch.float32,
+                                       kernel="cuda")
+    require(pair_counts["tenant_delta_matmul_pair"] == 7 * cfg.num_layers
+            and pair_counts["tenant_delta_matmul"] == 0,
+            f"pair decode launches {pair_counts}: want "
+            f"{7 * cfg.num_layers} of row 1 and none of row 7")
+    # Two x grids (the pair kernel's 12-bit per-row one, row 7's 14-bit
+    # global one) of one function. In bf16 every layer rounds each
+    # projection once, and over 32 layers the grids' one-ulp differences
+    # grow as the card's and the CPU's do; that distance is recorded. In
+    # fp32 the layouts are held to 2% of the logit scale at the rows
+    # whose routing agrees at every layer (at least 6 of 8).
+    agree = routing_agreement(route_canon, route_pair)[:, 0]  # (8,)
+    report["pair_vs_canonical_bf16"] = held_logits(
+        paired[:, 0].float(), first[:, 0].float(), agree.to(dev).float(),
+        "pair vs canonical decode, bf16", limit=None)
+    # How far bf16 alone moves the same canonical step over 32 layers.
+    report["canonical_bf16_vs_fp32"] = held_logits(
+        first[:, 0].float(), canon32[:, 0],
+        routing_agreement(route_canon, route32)[:, 0].to(dev).float(),
+        "canonical decode, bf16 vs fp32", limit=None)
+    agree32 = routing_agreement(route32, rec.calls)[:, 0]
+    report["pair_vs_canonical_fp32"] = held_logits(
+        pair32[:, 0], canon32[:, 0], agree32.to(dev).float(),
+        "pair vs canonical decode, fp32")
+    require(int(agree32.sum()) >= 6, f"pair vs canonical (fp32): routing "
+                                     f"agrees on only {int(agree32.sum())} "
+                                     f"of 8 rows")
+    report.update(canonical_launches=canon_counts,
+                  canonical_launches_first_step=after_first,
+                  pair_step_launches=pair_counts)
+    del cache0, cache, first, paired, cache32, canon32, pair32, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "mixtral_world", **report})
+    counts, served = serve(cfg, stack, dev, name, path="mixtral", model=mx,
+                           n_generate=8, max_new=16)
+    del stack
+    served["w8_cast_share_of_step"] = (
+        report["w8_casts_per_step"] * report["w8_cast_ms_per_expert_stack"]
+        / served["decode_step_device_ms"])
+    served["build"] = report
+    return canon_counts, counts, served
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -1515,6 +2072,7 @@ def main(argv=None):
     sys.path.insert(0, str(repo))
     import bitdelta_torch  # noqa: F401 — fails outside the repository
     from bitdelta_torch.models.config import mistral_7b
+    from bitdelta_torch.models.mixtral import mixtral_8x7b
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1546,16 +2104,24 @@ def main(argv=None):
                                        kv_dtype))
         gc.collect()
         torch.cuda.empty_cache()
+    report["parity"].append(mixtral_parity(mixtral_8x7b(), dev))
+    gc.collect()
+    torch.cuda.empty_cache()
     train_counts, report["train"] = train(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
     report["train_parity"] = train_parity(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    canon_counts, mixtral_counts, report["mixtral"] = mixtral(dev, name)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
         by_path = {"serving": serve_counts[kname],
                    "density": density_counts[kname],
-                   "train": train_counts[kname]}
+                   "train": train_counts[kname],
+                   "mixtral": mixtral_counts[kname],
+                   "mixtral_canonical": canon_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -9,7 +9,8 @@ that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the pair kernel repeats the plain version's integer sums and
-fp32 epilogue op for op (4 ulp of the cancelling epilogue terms); the fp32 kernels
+fp32 epilogue op for op (4 ulp of the cancelling epilogue terms); the
+canonical tenant delta kernel matches its plain version exactly; the fp32 kernels
 sum in another order (1e-4 of the output scale); the attention kernels
 return bf16 (2e-2 absolute, about two bf16 ulps at these magnitudes) or
 fp32 (1e-4 absolute, sums in another order). Gradients through the
@@ -62,6 +63,28 @@ def test_cuda_pair_delta_matches_plain(cuda):
     term = 1.1 * (xf.amax(1) - xf.amin(1)).max().item() * 1024
     assert (got - want).abs().max().item() <= 4 * torch.finfo(
         torch.float32).eps * term
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n,rows", [(4096, 1024, 8), (14336, 4096, 16),
+                                      (1024, 200, 5)])
+def test_cuda_tenant_delta_matches_plain_exactly(cuda, dtype, k, n, rows):
+    # Row 7: integer sums and the fp32 epilogue in the plain version's
+    # order, so kernel and plain version agree bit for bit (N = 200
+    # leaves a ragged last column tile).
+    g = torch.Generator(device=cuda).manual_seed(9)
+    packed = torch.randint(-2**31, 2**31 - 1, (16, k // 32, n),
+                           generator=g, device=cuda, dtype=torch.int32)
+    scales = torch.rand((16,), generator=g, device=cuda) + 0.1
+    ids = torch.randint(0, 16, (rows,), generator=g, device=cuda)
+    x = torch.randn((rows, k), generator=g, device=cuda).to(dtype)
+    for xin in (x, torch.zeros_like(x)):
+        got = tbg.tenant_delta_matmul(xin, packed, scales, ids,
+                                      out_dtype=torch.float32)
+        want = tbg.tenant_delta_matmul_plain(xin, packed, scales, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.requires_cuda

@@ -1,4 +1,4 @@
-"""PyTorch port: the plain versions of the seven ported kernels (and the
+"""PyTorch port: the plain versions of the eight ported kernels (and the
 int8-cache branch of flash decode) against the JAX Pallas kernels run in
 interpret mode (as the JAX package's own tests
 run them on the CPU), and the gradients of the two autograd Functions of
@@ -212,18 +212,68 @@ def test_binary_matmul_plain_matches_pallas(m, k, n):
     np.testing.assert_allclose(got, want, rtol=FLOAT_TOL, atol=FLOAT_TOL)
 
 
+@pytest.mark.parametrize("case", ["fp32", "bf16", "repeated_ids",
+                                  "multi_block_k", "zero_x"])
+def test_tenant_delta_plain_matches_pallas(case):
+    # Row 7: the port's plain version sums the integer bit-plane products
+    # over the whole K in int64; JAX sums per K block in fp32, so the two
+    # agree to fp32 rounding: 1e-5 of the output's largest |value|.
+    # "multi_block_k": K = 3072 is cut into three 1024-row blocks by the
+    # TPU kernel (nk = 3). "zero_x": the 1e-30 clamp of xmax.
+    rng = np.random.default_rng(11)
+    bsz, g, k, n = {"multi_block_k": (3, 2, 3072, 128)}.get(
+        case, (6, 4, 256, 128))
+    packed = np.array(jpack(jnp.asarray(
+        rng.integers(0, 2, (g, k, n)).astype(bool))))
+    scales = rng.uniform(0.1, 2.0, (g,)).astype(np.float32)
+    ids = (np.asarray([3, 3, 3, 1, 3, 3], np.int32) if case == "repeated_ids"
+           else rng.integers(0, g, (bsz,)).astype(np.int32))
+    x = rng.standard_normal((bsz, k)).astype(np.float32)
+    if case == "zero_x":
+        x[:] = 0.0
+    dtype = jnp.bfloat16 if case == "bf16" else jnp.float32
+    jx, tx = _bf16_or_f32(x, dtype)
+    want = np.array(jpb.tenant_delta_matmul_pallas(
+        jx, jnp.asarray(packed), jnp.asarray(scales), jnp.asarray(ids),
+        interpret=True, out_dtype=jnp.float32))
+    got = tbg.tenant_delta_matmul(tx, _t(packed), _t(scales), _t(ids),
+                                  out_dtype=torch.float32).numpy()
+    if case == "zero_x":
+        assert not got.any() and not want.any()
+        return
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_tenant_delta_grid_is_global_not_per_row():
+    # One xscale for the whole (B, K) input: a row of small values keeps
+    # the coarse grid of the largest row (per-row scales would be exact
+    # here), and the result is that grid's, not x @ sign exactly.
+    x = np.zeros((2, 32), np.float32)
+    x[0, 0] = 1.0
+    x[1, :2] = [3e-5, 1e-5]          # below half a step of 2^-14: rounds off
+    packed = np.array(jpack(jnp.ones((1, 32, 4), bool)))
+    got = tbg.tenant_delta_matmul(_t(x), _t(packed), torch.ones(1),
+                                  torch.zeros(2, dtype=torch.int64))
+    np.testing.assert_array_equal(got.numpy()[0], np.ones(4, np.float32))
+    np.testing.assert_array_equal(got.numpy()[1], np.zeros(4, np.float32))
+
+
 def test_cpu_tensors_take_the_plain_versions():
     # On CPU tensors the wrappers run the plain versions and launch
     # nothing: the counters stay where they were.
     before = [tbg.tenant_delta_matmul_pair.launches,
+              tbg.tenant_delta_matmul.launches,
               tbg.tenant_dense_matmul.launches, tbg.binary_matmul.launches,
               tfd.flash_decode_attention.launches,
               tfp.flash_prefill_attention.launches, ti.w4_matmul.launches]
     test_tenant_dense_plain_matches_pallas()
+    test_tenant_delta_grid_is_global_not_per_row()
     test_binary_matmul_plain_matches_pallas(8, 64, 128)
     test_w4_matmul_plain_matches_pallas(8, 256, 256)
     test_flash_decode_int8_plain_matches_pallas(3, 64, 4, 2, 16, None)
     after = [tbg.tenant_delta_matmul_pair.launches,
+             tbg.tenant_delta_matmul.launches,
              tbg.tenant_dense_matmul.launches, tbg.binary_matmul.launches,
              tfd.flash_decode_attention.launches,
              tfp.flash_prefill_attention.launches, ti.w4_matmul.launches]
