@@ -35,7 +35,8 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+    # np.array keeps a 0-d array 0-d (np.ascontiguousarray makes it 1-d).
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def tree_from_numpy(tree: Any, device) -> Any:

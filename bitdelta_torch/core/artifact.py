@@ -49,7 +49,9 @@ def write_safetensors(path: str, tensors: Dict[str, np.ndarray],
     offset = 0
     arrays = []
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
+        # np.asarray keeps a 0-d array (an embed delta's scale) 0-d, where
+        # np.ascontiguousarray would make it 1-d.
+        arr = np.asarray(tensors[name], order="C")
         if arr.dtype.byteorder == ">":
             arr = arr.astype(arr.dtype.newbyteorder("<"))
         header[name] = {"dtype": _NP_TO_ST[arr.dtype],

@@ -88,6 +88,24 @@ def dequantize_delta(delta: BinaryDelta, dtype=torch.float32
     return (scale * pm1).to(dtype)
 
 
+def apply_delta(base: torch.Tensor, delta: BinaryDelta) -> torch.Tensor:
+    """Dense fusion ``W_base + scale * sign`` in fp32, cast to the base's
+    dtype (the evaluation path of ``fuse_compressed``)."""
+    fused = base.to(torch.float32) + dequantize_delta(delta, torch.float32)
+    return fused.to(base.dtype)
+
+
+def delta_nbytes(delta: BinaryDelta) -> int:
+    """Bytes of a compressed delta (packed words + scales)."""
+    return delta.packed.numel() * 4 + delta.scale.numel() * 4
+
+
+def compression_ratio(base: torch.Tensor, delta: BinaryDelta,
+                      dense_bytes_per_el: int = 2) -> float:
+    """Dense-delta bytes over packed-delta bytes."""
+    return base.numel() * dense_bytes_per_el / delta_nbytes(delta)
+
+
 def delta_linear(x: torch.Tensor, base_w: torch.Tensor, delta: BinaryDelta,
                  *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Compressed linear layer ``x @ W_base + scale * (x @ sign)``."""

@@ -8,6 +8,8 @@
 //   bd_binary_matmul   <- ::binary_matmul_pallas
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
 //   bd_tenant_delta    <- ::tenant_delta_matmul_pallas
+//   bd_fused_tenant    <- ::fused_tenant_matmul_pallas
+//   bd_fused_base_pair <- ::fused_base_pair_matmul_pallas
 //
 // Every entry launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
@@ -563,5 +565,373 @@ extern "C" int bd_tenant_delta(const void* xq, const void* packed,
       (const short*)xq, (const uint32_t*)packed, (const int*)ids,
       (const float*)scales, (const float*)xscale, (const int*)sxq,
       (float*)out, k32, n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 9 and 10. Fused base + tenant delta at decode (one kernel each):
+//    Y[b] = x[b] @ W + scale[ids[b]] * (x[b] @ sign(P[ids[b]]))
+//
+// Row 9 (bd_fused_tenant) takes the canonical layout P (T, K/32, N) and
+// adds the delta as ±x in fp32 for each bit, as the TPU kernel's float
+// dot with ±1 does (no x grid). Row 10 (bd_fused_base_pair) takes the
+// pair layout (T, K/16, N/2) and x quantized by the wrapper to row 1's
+// per-row 12-bit grid; the delta is row 1's exact integer pair sums and
+// its fp32 epilogue. The base product x @ W is computed in the kernel's
+// own body in both, fp32 sums of the products of x and W in their dtype
+// (bf16 products are exact in fp32).
+//
+// Bound on the H100: at decode (B = 8 rows) each W element has B uses,
+// so the bytes are the K*N*2 of the bf16 base plus the words of the
+// distinct tenants (1/16 of the base each), against 3.35 TB/s; the work
+// is about 2*B*K*N multiply-adds for the base and as many again for the
+// delta, which on CUDA cores (this first version; no tensor cores) is of
+// the same order as the bytes' time. Design, for both:
+//   * W is read ONCE for all the rows: one block per 256-column tile (two
+//     adjacent columns a thread, 128 threads along N, so each warp's W
+//     loads are contiguous) and per group of up to FUSED_ROWS rows; the
+//     block keeps every row's sums in registers and, for each W element
+//     it loads, does one fused multiply-add per row;
+//   * x (and row 10's xq) of all the block's rows is staged in shared
+//     memory in K chunks of FUSED_TK (a whole row set does not fit: 8 rows
+//     of K = 14336 in bf16 are 229 KB) and read as a broadcast;
+//   * each row adds its delta from its own tenant's words (a row's word
+//     load for a tenant another row already read hits the L1);
+//   * K is split across blocks so that k_proj / v_proj (N = 1024: 4 column
+//     tiles) still give the 132 SMs enough blocks; every split writes its
+//     partial sums to a scratch buffer and a second kernel adds the splits
+//     in order, so the result does not depend on scheduling (no atomics).
+// Row 10's pair word at column g*128 + r covers natural columns
+// g*256 + r and g*256 + 128 + r: the thread that owns pair columns j, j+1
+// reads W at those natural columns (neighbouring threads read neighbouring
+// columns: coalesced) and writes its sums in natural column order. Its
+// splits keep the base in fp32 and the pair sums in int32, so the second
+// pass forms row 1's epilogue from the exact whole-K integer sums.
+// ---------------------------------------------------------------------------
+
+constexpr int FUSED_THREADS = 128;   // threads along N, two columns each
+constexpr int FUSED_ROWS = 8;        // batch rows per block
+constexpr int FUSED_TK = 128;        // K per shared-memory chunk
+
+// Two adjacent elements of W as they are loaded (bf16x2 or float2), so a
+// word's whole column of W can be in flight before any of it is used.
+template <typename T> struct Two;
+template <> struct Two<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct Two<float> { using type = float2; };
+
+// One 4- or 8-byte load where ``vec`` (N even, so the pair is aligned),
+// else two scalar loads, the second only where ``has1``.
+template <typename T>
+__device__ __forceinline__ typename Two<T>::type load_two(const T* p,
+                                                          bool vec,
+                                                          bool has1) {
+  if (vec) return *reinterpret_cast<const typename Two<T>::type*>(p);
+  typename Two<T>::type v;
+  v.x = p[0];
+  v.y = has1 ? p[1] : T(0.0f);
+  return v;
+}
+
+// The sign of bit ``s`` of ~word, moved to bit 31: XOR it into x to get
+// +x for a set bit and -x for a clear one.
+__device__ __forceinline__ uint32_t sign_bit(uint32_t neg, int s) {
+  return (neg << (31 - s)) & 0x80000000u;
+}
+
+template <typename T>
+__global__ void fused_tenant_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ w,
+                                    const uint32_t* __restrict__ packed,
+                                    const int* __restrict__ ids,
+                                    const float* __restrict__ scales,
+                                    float* __restrict__ partial,
+                                    int bsz, int k, int n, int k_per_split) {
+  __shared__ float xs[FUSED_ROWS][FUSED_TK];
+  __shared__ int tid_of[FUSED_ROWS];
+
+  const int row0 = blockIdx.y * FUSED_ROWS;
+  const int rows = min(FUSED_ROWS, bsz - row0);
+  const int split = blockIdx.z;
+  const int k_lo = split * k_per_split;
+  const int k_hi = min(k, k_lo + k_per_split);
+  const int k32 = k / 32;
+  const int c0 = blockIdx.x * (2 * FUSED_THREADS) + 2 * threadIdx.x;
+  const bool has0 = c0 < n, has1 = c0 + 1 < n;
+  const bool vec = (n % 2) == 0;
+  // Rows past the batch read tenant 0's words against x = 0.
+  if (threadIdx.x < FUSED_ROWS)
+    tid_of[threadIdx.x] = threadIdx.x < rows ? ids[row0 + threadIdx.x] : 0;
+  __syncthreads();
+
+  float b0[FUSED_ROWS], b1[FUSED_ROWS], d0[FUSED_ROWS], d1[FUSED_ROWS];
+#pragma unroll
+  for (int r = 0; r < FUSED_ROWS; ++r) b0[r] = b1[r] = d0[r] = d1[r] = 0.0f;
+
+  // k_lo and every chunk are whole words (k_per_split and FUSED_TK are
+  // multiples of 32).
+  for (int k0 = k_lo; k0 < k_hi; k0 += FUSED_TK) {
+    const int tk = min(FUSED_TK, k_hi - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < FUSED_ROWS * FUSED_TK; i += FUSED_THREADS) {
+      const int r = i / FUSED_TK, kk = i % FUSED_TK;
+      xs[r][kk] = (r < rows && kk < tk)
+                      ? to_f32(x[(size_t)(row0 + r) * k + k0 + kk]) : 0.0f;
+    }
+    __syncthreads();
+    if (!has0) continue;
+    for (int q = 0; q < tk / 32; ++q) {
+      const int kw = k0 / 32 + q;
+      uint32_t neg0[FUSED_ROWS], neg1[FUSED_ROWS];
+#pragma unroll
+      for (int r = 0; r < FUSED_ROWS; ++r) {
+        const uint32_t* pw = packed + ((size_t)tid_of[r] * k32 + kw) * n + c0;
+        uint32_t lo, hi = 0u;
+        if (vec) {
+          const uint2 v = *reinterpret_cast<const uint2*>(pw);
+          lo = v.x;
+          hi = v.y;
+        } else {
+          lo = pw[0];
+          if (has1) hi = pw[1];
+        }
+        neg0[r] = ~lo;
+        neg1[r] = ~hi;
+      }
+      // Every W load of the word is issued before any is used, so the 32
+      // loads wait on memory together.
+      const T* wq = w + (size_t)(k0 + q * 32) * n + c0;
+      typename Two<T>::type wv[32];
+#pragma unroll
+      for (int s = 0; s < 32; ++s) wv[s] = load_two(wq + (size_t)s * n, vec, has1);
+#pragma unroll
+      for (int s = 0; s < 32; ++s) {
+        const float w0 = to_f32(wv[s].x), w1 = to_f32(wv[s].y);
+#pragma unroll
+        for (int r = 0; r < FUSED_ROWS; ++r) {
+          const float xv = xs[r][q * 32 + s];
+          const uint32_t xb = __float_as_uint(xv);
+          b0[r] = fmaf(xv, w0, b0[r]);
+          b1[r] = fmaf(xv, w1, b1[r]);
+          d0[r] += __uint_as_float(xb ^ sign_bit(neg0[r], s));
+          d1[r] += __uint_as_float(xb ^ sign_bit(neg1[r], s));
+        }
+      }
+    }
+  }
+  if (!has0) return;
+  float* out = partial + (size_t)split * bsz * n;
+  for (int r = 0; r < rows; ++r) {
+    const float alpha = scales[tid_of[r]];
+    out[(size_t)(row0 + r) * n + c0] = b0[r] + alpha * d0[r];
+    if (has1) out[(size_t)(row0 + r) * n + c0 + 1] = b1[r] + alpha * d1[r];
+  }
+}
+
+// K per split: ceil(k / splits) rounded up to whole 32-row words.
+static int fused_k_per_split(int k, int splits) {
+  return (((k + splits - 1) / splits) + 31) / 32 * 32;
+}
+
+extern "C" int bd_fused_tenant(const void* x, const void* w,
+                               const void* packed, const void* ids,
+                               const void* scales, void* partial, void* out,
+                               int bsz, int k, int n, int splits, int is_bf16,
+                               void* stream) {
+  const int k_per_split = fused_k_per_split(k, splits);
+  dim3 grid((n + 2 * FUSED_THREADS - 1) / (2 * FUSED_THREADS),
+            (bsz + FUSED_ROWS - 1) / FUSED_ROWS, splits);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    fused_tenant_kernel<__nv_bfloat16><<<grid, FUSED_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+        (const uint32_t*)packed, (const int*)ids, (const float*)scales,
+        (float*)partial, bsz, k, n, k_per_split);
+  else
+    fused_tenant_kernel<float><<<grid, FUSED_THREADS, 0, s>>>(
+        (const float*)x, (const float*)w, (const uint32_t*)packed,
+        (const int*)ids, (const float*)scales, (float*)partial, bsz, k, n,
+        k_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int count = bsz * n;
+  sum_splits_kernel<<<(count + 255) / 256, 256, 0, s>>>(
+      (const float*)partial, (float*)out, splits, count);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+__global__ void fused_pair_kernel(const T* __restrict__ x,
+                                  const int* __restrict__ xq,
+                                  const T* __restrict__ w,
+                                  const uint32_t* __restrict__ pairs,
+                                  const int* __restrict__ ids,
+                                  float* __restrict__ part_base,
+                                  int* __restrict__ part_s,
+                                  int bsz, int k, int n2, int k_per_split) {
+  __shared__ float xs[FUSED_ROWS][FUSED_TK];
+  __shared__ unsigned short xqs[FUSED_ROWS][FUSED_TK];
+  __shared__ int tid_of[FUSED_ROWS];
+
+  const int n = n2 * 2;
+  const int k16 = k / 16;
+  const int row0 = blockIdx.y * FUSED_ROWS;
+  const int rows = min(FUSED_ROWS, bsz - row0);
+  const int split = blockIdx.z;
+  const int k_lo = split * k_per_split;
+  const int k_hi = min(k, k_lo + k_per_split);
+  // Pair columns j, j + 1 (one 128-column group: j is even); natural
+  // columns n_lo, n_lo + 1 (low halves) and n_lo + 128, n_lo + 129.
+  const int j = blockIdx.x * (2 * FUSED_THREADS) + 2 * threadIdx.x;
+  const bool has = j < n2;                  // n2 is a multiple of 128
+  const int n_lo = (j / 128) * 256 + j % 128;
+  const int n_hi = n_lo + 128;
+  if (threadIdx.x < FUSED_ROWS)
+    tid_of[threadIdx.x] = threadIdx.x < rows ? ids[row0 + threadIdx.x] : 0;
+  __syncthreads();
+
+  float bl0[FUSED_ROWS], bl1[FUSED_ROWS], bh0[FUSED_ROWS], bh1[FUSED_ROWS];
+  int sl0[FUSED_ROWS], sl1[FUSED_ROWS], sh0[FUSED_ROWS], sh1[FUSED_ROWS];
+#pragma unroll
+  for (int r = 0; r < FUSED_ROWS; ++r) {
+    bl0[r] = bl1[r] = bh0[r] = bh1[r] = 0.0f;
+    sl0[r] = sl1[r] = sh0[r] = sh1[r] = 0;
+  }
+
+  // k_lo and every chunk are whole 16-row words.
+  for (int k0 = k_lo; k0 < k_hi; k0 += FUSED_TK) {
+    const int tk = min(FUSED_TK, k_hi - k0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < FUSED_ROWS * FUSED_TK; i += FUSED_THREADS) {
+      const int r = i / FUSED_TK, kk = i % FUSED_TK;
+      const bool in = r < rows && kk < tk;
+      const size_t at = (size_t)(row0 + r) * k + k0 + kk;
+      xs[r][kk] = in ? to_f32(x[at]) : 0.0f;
+      xqs[r][kk] = in ? static_cast<unsigned short>(xq[at]) : 0;
+    }
+    __syncthreads();
+    if (!has) continue;
+    for (int q = 0; q < tk / 16; ++q) {
+      const int kw = k0 / 16 + q;
+      uint32_t p0[FUSED_ROWS], p1[FUSED_ROWS];
+#pragma unroll
+      for (int r = 0; r < FUSED_ROWS; ++r) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            pairs + ((size_t)tid_of[r] * k16 + kw) * n2 + j);
+        p0[r] = v.x;
+        p1[r] = v.y;
+      }
+      uint32_t in0[FUSED_ROWS], in1[FUSED_ROWS];
+#pragma unroll
+      for (int r = 0; r < FUSED_ROWS; ++r) in0[r] = in1[r] = 0u;
+      // Every W load of the word is issued before any is used.
+      const T* wq = w + (size_t)(k0 + q * 16) * n;
+      typename Two<T>::type wl[16], wh[16];
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        wl[s] = load_two(wq + (size_t)s * n + n_lo, true, true);
+        wh[s] = load_two(wq + (size_t)s * n + n_hi, true, true);
+      }
+#pragma unroll
+      for (int s = 0; s < 16; ++s) {
+        const float wl0 = to_f32(wl[s].x), wl1 = to_f32(wl[s].y);
+        const float wh0 = to_f32(wh[s].x), wh1 = to_f32(wh[s].y);
+#pragma unroll
+        for (int r = 0; r < FUSED_ROWS; ++r) {
+          const float xv = xs[r][q * 16 + s];
+          const uint32_t xqv = xqs[r][q * 16 + s];
+          bl0[r] = fmaf(xv, wl0, bl0[r]);
+          bl1[r] = fmaf(xv, wl1, bl1[r]);
+          bh0[r] = fmaf(xv, wh0, bh0[r]);
+          bh1[r] = fmaf(xv, wh1, bh1[r]);
+          in0[r] += ((p0[r] >> s) & 0x00010001u) * xqv;
+          in1[r] += ((p1[r] >> s) & 0x00010001u) * xqv;
+        }
+      }
+      // Each half summed at most 16 * 4095 < 2^16: no carry between them.
+#pragma unroll
+      for (int r = 0; r < FUSED_ROWS; ++r) {
+        sl0[r] += static_cast<int>(in0[r] & 0xFFFFu);
+        sh0[r] += static_cast<int>(in0[r] >> 16);
+        sl1[r] += static_cast<int>(in1[r] & 0xFFFFu);
+        sh1[r] += static_cast<int>(in1[r] >> 16);
+      }
+    }
+  }
+  if (!has) return;
+  const size_t base = (size_t)split * bsz * n;
+  for (int r = 0; r < rows; ++r) {
+    const size_t at = base + (size_t)(row0 + r) * n;
+    part_base[at + n_lo] = bl0[r];
+    part_base[at + n_lo + 1] = bl1[r];
+    part_base[at + n_hi] = bh0[r];
+    part_base[at + n_hi + 1] = bh1[r];
+    part_s[at + n_lo] = sl0[r];
+    part_s[at + n_lo + 1] = sl1[r];
+    part_s[at + n_hi] = sh0[r];
+    part_s[at + n_hi + 1] = sh1[r];
+  }
+}
+
+// Second pass of row 10, one thread per (row, natural column): the base
+// splits added in order, the integer sums added exactly, then row 1's
+// epilogue 2*a1*S + (a2*colsum - a1*sxq) with explicit round-to-nearest
+// operations, and one add of the base.
+__global__ void fused_pair_epilogue_kernel(const float* __restrict__ part_base,
+                                           const int* __restrict__ part_s,
+                                           const int* __restrict__ ids,
+                                           const float* __restrict__ a1,
+                                           const float* __restrict__ a2,
+                                           const float* __restrict__ sxq,
+                                           const float* __restrict__ colsum,
+                                           float* __restrict__ out,
+                                           int n, int splits, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const int b = i / n, c = i % n;
+  float base = 0.0f;
+  int s = 0;
+  for (int sp = 0; sp < splits; ++sp) {
+    base += part_base[(size_t)sp * count + i];
+    s += part_s[(size_t)sp * count + i];
+  }
+  const float c1 = a1[b];
+  const float two_a1 = __fmul_rn(2.0f, c1);
+  const float off = __fmul_rn(c1, sxq[b]);
+  const float delta = __fadd_rn(
+      __fmul_rn(two_a1, static_cast<float>(s)),
+      __fsub_rn(__fmul_rn(a2[b], colsum[(size_t)ids[b] * n + c]), off));
+  out[i] = __fadd_rn(base, delta);
+}
+
+extern "C" int bd_fused_base_pair(const void* x, const void* xq,
+                                  const void* w, const void* pairs,
+                                  const void* ids, const void* a1,
+                                  const void* a2, const void* sxq,
+                                  const void* colsum, void* part_base,
+                                  void* part_s, void* out, int bsz, int k,
+                                  int n2, int splits, int is_bf16,
+                                  void* stream) {
+  // K per split in whole 16-row words.
+  const int k_per_split = (((k + splits - 1) / splits) + 15) / 16 * 16;
+  dim3 grid((n2 + 2 * FUSED_THREADS - 1) / (2 * FUSED_THREADS),
+            (bsz + FUSED_ROWS - 1) / FUSED_ROWS, splits);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    fused_pair_kernel<__nv_bfloat16><<<grid, FUSED_THREADS, 0, s>>>(
+        (const __nv_bfloat16*)x, (const int*)xq, (const __nv_bfloat16*)w,
+        (const uint32_t*)pairs, (const int*)ids, (float*)part_base,
+        (int*)part_s, bsz, k, n2, k_per_split);
+  else
+    fused_pair_kernel<float><<<grid, FUSED_THREADS, 0, s>>>(
+        (const float*)x, (const int*)xq, (const float*)w,
+        (const uint32_t*)pairs, (const int*)ids, (float*)part_base,
+        (int*)part_s, bsz, k, n2, k_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int count = bsz * n2 * 2;
+  fused_pair_epilogue_kernel<<<(count + 255) / 256, 256, 0, s>>>(
+      (const float*)part_base, (const int*)part_s, (const int*)ids,
+      (const float*)a1, (const float*)a2, (const float*)sxq,
+      (const float*)colsum, (float*)out, n2 * 2, splits, count);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,9 @@ projection may be dense, an ``Int8Weight`` (W8) or an ``Int4Weight``
 ``kernel`` picks the functions as JAX's does (``engine.py:188-189``):
 ``"cuda"`` takes the branches that JAX routes to its Pallas kernels
 (``"pallas"``), ``"torch"`` the plain paths JAX leaves to XLA (``"xla"``).
+``"cuda_fused"`` is ``"cuda"`` except at a tenant-routed decode
+projection over a dense base leaf, where one kernel computes base and
+delta (see :func:`_proj`); JAX dispatches no such route.
 Each kernel wrapper then runs its CUDA kernel on a CUDA tensor and its
 plain version on a CPU tensor, so the CPU tests walk the same branches
 the card runs. For a forward with no tenant ids and no cache (the
@@ -19,6 +22,11 @@ distillation student) JAX's ``"pallas"`` and ``"pallas_train"`` take the
 same branches, and so does ``"cuda"`` here: the binary matmul and flash
 prefill go through autograd Functions, so ``forward`` is differentiable
 in the delta scales on either device.
+
+With compressed embeddings the deltas dict also holds ``"embed"`` (packed
+along D: ``(D//32, V)``, tenant-stacked ``(T, D//32, V)``) and, untied,
+``"lm_head"`` (``(D//32, V)`` / ``(T, D//32, V)``) over a shared base
+embed / head; a tied model's embed delta is also its head delta.
 
 bf16 rounding follows JAX: ``rms_norm`` casts to the input dtype before
 the weight multiply, RoPE and silu run in fp32 and cast once, and every
@@ -49,6 +57,9 @@ from .config import ModelConfig
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
               "gate_proj", "up_proj", "down_proj")
+# The kernel routes: the values of ``kernel`` that take JAX's Pallas
+# branches on the card (and the kernels' plain versions on the CPU).
+CARD_KERNELS = ("cuda", "cuda_fused")
 
 Params = Dict[str, Any]
 Deltas = Dict[str, Any]
@@ -158,6 +169,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return out.to(x.dtype)
 
 
+def on_card(kernel: str) -> bool:
+    """True for a kernel route (``"cuda"``, ``"cuda_fused"``)."""
+    return kernel in CARD_KERNELS
+
+
 def _layer_delta(delta, layer: int):
     """One layer's slice of a layer-stacked NamedTuple (a delta in either
     layout, or a quantized base leaf), field by field."""
@@ -171,7 +187,7 @@ def _base_matmul(x: torch.Tensor, w, compute_dtype, kernel: str = "torch"
     compute dtype, the per-column scale on the fp32 sum) or an
     :class:`Int4Weight` (W4: per-group contraction, ``int4_matmul``).
 
-    With ``kernel="cuda"`` a decode-shaped W4 matmul takes the W4 kernel
+    On a kernel route a decode-shaped W4 matmul takes the W4 kernel
     (``w4_matmul``). The gate is JAX's (2-D x, at most 64 rows, K a
     multiple of 128) with one condition of the port's in place of the
     last: the scale has exactly K/128 rows (so K is a multiple of 128).
@@ -184,7 +200,7 @@ def _base_matmul(x: torch.Tensor, w, compute_dtype, kernel: str = "torch"
         y = matmul_f32(x.to(compute_dtype), w.q.to(compute_dtype))
         return y * w.scale[..., None, :].to(torch.float32)
     if isinstance(w, Int4Weight):
-        if (kernel == "cuda" and x.ndim == 2 and x.shape[0] <= W4_MAX_M
+        if (on_card(kernel) and x.ndim == 2 and x.shape[0] <= W4_MAX_M
                 and w.scale.shape[-2] * INT4_GROUP == x.shape[-1]):
             return w4_matmul(x.to(compute_dtype), w.packed, w.scale,
                              out_dtype=torch.float32)
@@ -196,29 +212,56 @@ def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
           kernel: str = "torch") -> torch.Tensor:
     """Linear with an optional fused 1-bit delta; the branch choices of
     ``bitdelta_tpu/models/llama.py::_proj``. ``w`` is any base leaf that
-    :func:`_base_matmul` takes."""
+    :func:`_base_matmul` takes.
+
+    A tenant-routed decode projection (``x.shape[-2] == 1``) on a kernel
+    route takes, under ``"cuda"``, the base matmul and then the delta
+    kernel of its layout (row 1 for a pair-layout delta, row 7 for a
+    canonical one). Under ``"cuda_fused"`` the same projection over a
+    DENSE base leaf takes one kernel for base and delta: row 10
+    (:func:`binary_gemm.fused_base_pair_matmul`) for a pair-layout delta,
+    row 9 (:func:`binary_gemm.fused_tenant_matmul`) for a canonical one.
+    A quantized base leaf (``Int8Weight`` / ``Int4Weight``) keeps the
+    ``"cuda"`` route. The choice is made by the leaf's type before any
+    launch; nothing falls back on a failure."""
+    decode = (on_card(kernel) and delta is not None
+              and tenant_ids is not None and x.shape[-2] == 1)
+    fused = (decode and kernel == "cuda_fused"
+             and isinstance(w, torch.Tensor))
     if isinstance(delta, PairedBinaryDelta):
-        if kernel == "cuda" and tenant_ids is not None and x.shape[-2] == 1:
-            # Decode: base matmul + pair-packed delta kernel.
-            y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
-            yd = binary_gemm.tenant_delta_matmul_pair(
-                x[:, 0].to(compute_dtype), delta.packed_pairs, delta.colsum,
-                delta.scale, tenant_ids, out_dtype=torch.float32)
-            return (y + yd).to(compute_dtype)[:, None, :]
+        if decode:
+            xd = x[:, 0].to(compute_dtype)
+            if fused:
+                y = binary_gemm.fused_base_pair_matmul(
+                    xd, w.to(compute_dtype), delta.packed_pairs,
+                    delta.colsum, delta.scale, tenant_ids,
+                    out_dtype=torch.float32)
+            else:
+                # Base matmul + pair-packed delta kernel.
+                y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
+                y = y + binary_gemm.tenant_delta_matmul_pair(
+                    xd, delta.packed_pairs, delta.colsum, delta.scale,
+                    tenant_ids, out_dtype=torch.float32)
+            return y.to(compute_dtype)[:, None, :]
         delta = BinaryDelta(packed=unpair_packed(delta.packed_pairs),
                             scale=delta.scale)
 
-    if (kernel == "cuda" and delta is not None and tenant_ids is not None
-            and x.shape[-2] == 1):
-        # Decode, canonical layout: base matmul + the canonical tenant
-        # delta kernel (x on one 14-bit grid).
-        y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
-        yd = binary_gemm.tenant_delta_matmul(
-            x[:, 0].to(compute_dtype), delta.packed, delta.scale,
-            tenant_ids, out_dtype=torch.float32)
-        return (y + yd).to(compute_dtype)[:, None, :]
+    if decode:
+        xd = x[:, 0].to(compute_dtype)
+        if fused:
+            y = binary_gemm.fused_tenant_matmul(
+                xd, w.to(compute_dtype), delta.packed, delta.scale,
+                tenant_ids, out_dtype=torch.float32)
+        else:
+            # Base matmul + the canonical tenant delta kernel (x on one
+            # 14-bit grid).
+            y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
+            y = y + binary_gemm.tenant_delta_matmul(
+                xd, delta.packed, delta.scale, tenant_ids,
+                out_dtype=torch.float32)
+        return y.to(compute_dtype)[:, None, :]
 
-    if (kernel == "cuda" and delta is not None and tenant_ids is not None
+    if (on_card(kernel) and delta is not None and tenant_ids is not None
             and x.shape[0] == 1):
         # Single-request prefill: the binary matmul kernel on the row's
         # tenant (index and scale stay on the device).
@@ -231,7 +274,7 @@ def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
 
     y = _base_matmul(x, w, compute_dtype)
     if delta is not None:
-        if tenant_ids is None and kernel == "cuda":
+        if tenant_ids is None and on_card(kernel):
             # Training shapes (M = B*S): the binary matmul kernel behind
             # its autograd Function; gradients flow to x (the transposed
             # kernel) and to the scale.
@@ -277,35 +320,98 @@ def _attention(cfg: ModelConfig, q, k, v, q_positions, kv_valid):
 
 
 def _split_deltas(deltas: Optional[Deltas], names=PROJ_NAMES):
-    """The layer deltas of ``names``; compressed embed / lm_head deltas
-    are not ported yet."""
+    """``(layer deltas of names, embed delta, lm_head delta)``: the layer
+    stacks run inside the layer loop, the embedding / head deltas outside
+    it."""
     if deltas is None:
-        return None
-    if "embed" in deltas or "lm_head" in deltas:
-        raise NotImplementedError(
-            "compressed embeddings / lm_head deltas are not ported yet")
-    return {k: v for k, v in deltas.items() if k in names} or None
+        return None, None, None
+    layer = {k: v for k, v in deltas.items() if k in names}
+    return (layer or None), deltas.get("embed"), deltas.get("lm_head")
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor,
-                  tenant_ids: Optional[torch.Tensor]) -> torch.Tensor:
-    """Token embedding; ``embed`` may be tenant-stacked ``(T, V, D)``."""
+                  tenant_ids: Optional[torch.Tensor],
+                  embed_delta=None) -> torch.Tensor:
+    """Token embedding; ``embed`` may be tenant-stacked ``(T, V, D)``, or
+    shared ``(V, D)`` with a 1-bit per-tenant delta (``embed_delta``,
+    packed along D, so a token's sign row is one packed-word column):
+    ``base + alpha * ±1`` in fp32, cast to the embed's dtype."""
     e = params["embed"]
     if e.ndim == 3 and tenant_ids is not None:
-        return e[tenant_ids[:, None], tokens]
-    return e[tokens]
+        base = e[tenant_ids[:, None], tokens]
+    else:
+        base = e[tokens]
+    if embed_delta is None:
+        return base
+    packed, scale = embed_delta.packed, embed_delta.scale
+    if packed.ndim == 3 and tenant_ids is not None:
+        # (T, D//32, V): rows (b, s) read tenant b's column tokens[b, s].
+        words = packed[tenant_ids[:, None], :, tokens]      # (B, S, D//32)
+        alpha = scale[tenant_ids][:, None, None]
+    else:
+        words = packed[..., tokens].movedim(-3, -1)
+        alpha = scale
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1                # (B, S, D//32, 32)
+    pm1 = (2 * bits - 1).reshape(*tokens.shape, -1).to(torch.float32)
+    out = base.to(torch.float32) + alpha.to(torch.float32) * pm1
+    return out.to(e.dtype)
+
+
+def _head_delta_logits(x: torch.Tensor, head_delta,
+                       tenant_ids: Optional[torch.Tensor], compute_dtype,
+                       kernel: str) -> torch.Tensor:
+    """fp32 ``alpha * (x @ sign)`` of the head delta (``(D//32, V)``, per
+    tenant when stacked); the branch choices of
+    ``bitdelta_tpu/models/llama.py::_head_delta_logits``: at decode on a
+    kernel route row 1 for a paired stacked head, row 7 for a canonical
+    one; the plain paths otherwise."""
+    if isinstance(head_delta, PairedBinaryDelta):
+        stacked = head_delta.packed_pairs.ndim == 3
+        if (on_card(kernel) and stacked and tenant_ids is not None
+                and x.shape[1] == 1):
+            yd = binary_gemm.tenant_delta_matmul_pair(
+                x[:, 0].to(compute_dtype), head_delta.packed_pairs,
+                head_delta.colsum, head_delta.scale, tenant_ids,
+                out_dtype=torch.float32)
+            return yd[:, None, :]
+        head_delta = BinaryDelta(packed=unpair_packed(head_delta.packed_pairs),
+                                 scale=head_delta.scale)
+    stacked = head_delta.packed.ndim == 3
+    if stacked and tenant_ids is not None:
+        if on_card(kernel) and x.shape[1] == 1:
+            yd = binary_gemm.tenant_delta_matmul(
+                x[:, 0].to(compute_dtype), head_delta.packed,
+                head_delta.scale, tenant_ids, out_dtype=torch.float32)
+            return yd[:, None, :]
+        return tenant_binary_matmul(x, head_delta.packed, head_delta.scale,
+                                    tenant_ids, compute_dtype=compute_dtype
+                                    ).to(torch.float32)
+    return binary_matmul(x, head_delta.packed, head_delta.scale,
+                         compute_dtype=compute_dtype).to(torch.float32)
 
 
 def _lm_head_logits(params: Params, x: torch.Tensor,
                     tenant_ids: Optional[torch.Tensor], compute_dtype,
-                    kernel: str = "torch") -> torch.Tensor:
+                    kernel: str = "torch", head_delta=None,
+                    embed_delta=None) -> torch.Tensor:
     """fp32 logits ``(B, S, V)``; the branch choices of
-    ``bitdelta_tpu/models/llama.py::_lm_head_logits`` (no head deltas)."""
+    ``bitdelta_tpu/models/llama.py::_lm_head_logits``. With a head delta
+    (or, tied, the embed delta) the shared base head's logits plus
+    :func:`_head_delta_logits`."""
     lm_head = params.get("lm_head")
     if lm_head is None:  # tied embeddings
         lm_head = params["embed"].transpose(-1, -2)
+        if head_delta is None:
+            # Tied + compressed embeddings: the embed delta (packed along
+            # D against embed.T) is the head delta.
+            head_delta = embed_delta
+    if head_delta is not None:
+        base = matmul_f32(x.to(compute_dtype), lm_head.to(compute_dtype))
+        return base + _head_delta_logits(x, head_delta, tenant_ids,
+                                         compute_dtype, kernel)
     if lm_head.ndim == 3 and tenant_ids is not None:
-        if kernel == "cuda" and x.shape[1] == 1:
+        if on_card(kernel) and x.shape[1] == 1:
             # Decode: each row streams its tenant's head; no gather.
             y = binary_gemm.tenant_dense_matmul(
                 x[:, 0].to(compute_dtype), lm_head, tenant_ids,
@@ -376,7 +482,7 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
     k = apply_rope(k, cos, sin)
 
     quantized = cache_k is not None and cache_k_scale is not None
-    kernel_decode = kernel == "cuda" and cache_k is not None and sq == 1
+    kernel_decode = on_card(kernel) and cache_k is not None and sq == 1
     if cache_k is not None:
         rows = torch.arange(b, device=x.device)[:, None]
         idx = write_pos.to(torch.int64)[:, None] + torch.arange(
@@ -405,7 +511,7 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
             k_scale=cache_k_scale if quantized else None,
             v_scale=cache_v_scale if quantized else None,
             window=cfg.sliding_window).reshape(b, sq, -1)
-    elif (kernel == "cuda" and lengths is not None and sq > 1
+    elif (on_card(kernel) and lengths is not None and sq > 1
           and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
         attn = flash_prefill_attention(q, k_all, v_all, lengths,
                                        window=cfg.sliding_window)
@@ -461,8 +567,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     dev = tokens.device
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
-    deltas = _split_deltas(deltas)
-    x = _embed_lookup(params, tokens, tenant_ids).to(compute_dtype)
+    deltas, embed_delta, head_delta = _split_deltas(deltas)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
+        compute_dtype)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -489,7 +596,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                        cache_v_scale=cvs)
 
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
+    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
+                             head_delta=head_delta, embed_delta=embed_delta)
     if not return_cache:
         return logits
     return logits, cache
@@ -512,8 +620,9 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 < new_length[:, None])
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
-    deltas = _split_deltas(deltas)
-    x = _embed_lookup(params, tokens, tenant_ids).to(compute_dtype)
+    deltas, embed_delta, head_delta = _split_deltas(deltas)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
+        compute_dtype)
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
         ck, cv, cks, cvs = _cache_views(cache, layer)
@@ -522,7 +631,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                        cache_k=ck, cache_v=cv, write_pos=cache.length,
                        kernel=kernel, cache_k_scale=cks, cache_v_scale=cvs)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
+    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
+                             head_delta=head_delta, embed_delta=embed_delta)
     return logits, cache._replace(length=new_length)
 
 

@@ -13,10 +13,14 @@ D)``, router ``(L, D, E)``. Their 1-bit deltas keep the expert axis:
 At decode the base experts still run densely, but each row's delta runs
 only for its top-k routed experts: the (tenant, expert) pair is
 flattened into the tenant kernels' one stack axis (a view, no copy) and
-selected per row. Under ``kernel="cuda"`` a pair-layout expert stack
-takes the pair kernel and a canonical one the canonical tenant delta
-kernel; the router and the prefill experts stay on the plain paths, as
-they stay on XLA in JAX. The KV cache is bf16 (llama's ``init_cache``).
+selected per row. On a kernel route (``"cuda"``, ``"cuda_fused"``) a
+pair-layout expert stack takes the pair kernel and a canonical one the
+canonical tenant delta kernel; the router and the prefill experts stay on
+the plain paths, as they stay on XLA in JAX. ``"cuda_fused"`` fuses only
+an attention projection over a dense base (llama's ``_proj``): the
+experts' base runs densely over all experts, apart from their routed
+deltas. Compressed embed / head deltas take llama's helpers. The KV cache
+is bf16 (llama's ``init_cache``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from ..research.quantized_base import Int8Weight
 from .config import ModelConfig
 from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
                     _embed_lookup, _final_norm_w, _layer, _lm_head_logits,
-                    _proj, _split_deltas, apply_rope, rms_norm, rope_tables)
+                    _proj, _split_deltas, apply_rope, on_card, rms_norm,
+                    rope_tables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,15 +106,15 @@ def _routed_expert_delta(x_rows, delta, flat_ids, compute_dtype,
     """Delta matmul of routed (row, expert) pairs, the Mixtral decode hot
     path: x_rows ``(R, K)``; ``delta`` leaves lead with ONE flattened
     stack axis G; flat_ids ``(R,)`` in ``[0, G)``. Returns ``(R, N)``
-    fp32. Under ``kernel="cuda"``: the pair kernel for a pair-layout
-    stack, the canonical tenant delta kernel otherwise."""
+    fp32. On a kernel route: the pair kernel for a pair-layout stack, the
+    canonical tenant delta kernel otherwise."""
     if isinstance(delta, PairedBinaryDelta):
-        if kernel == "cuda":
+        if on_card(kernel):
             return binary_gemm.tenant_delta_matmul_pair(
                 x_rows.to(compute_dtype), delta.packed_pairs, delta.colsum,
                 delta.scale, flat_ids, out_dtype=torch.float32)
         delta = _unpair(delta)
-    if kernel == "cuda":
+    if on_card(kernel):
         return binary_gemm.tenant_delta_matmul(
             x_rows.to(compute_dtype), delta.packed, delta.scale, flat_ids,
             out_dtype=torch.float32)
@@ -286,7 +291,7 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
     else:
         k_all, v_all = k, v
 
-    if kernel == "cuda" and cache_k is not None and sq == 1:
+    if on_card(kernel) and cache_k is not None and sq == 1:
         attn = flash_decode_attention(
             q[:, 0], k_all, v_all, positions[:, 0] + 1,
             window=cfg.sliding_window).reshape(b, sq, -1)
@@ -315,8 +320,9 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
     dev = tokens.device
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
-    deltas = _split_deltas(deltas, MOE_PARTS)
-    x = _embed_lookup(params, tokens, tenant_ids).to(compute_dtype)
+    deltas, embed_delta, head_delta = _split_deltas(deltas, MOE_PARTS)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
+        compute_dtype)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -338,7 +344,8 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
                        cos, sin, cache_k=ck, cache_v=cv, write_pos=write_pos,
                        tenant_ids=tenant_ids, kernel=kernel)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
+    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
+                             head_delta=head_delta, embed_delta=embed_delta)
     if not return_cache:
         return logits
     return logits, cache
@@ -364,8 +371,9 @@ def decode_step(cfg: MixtralConfig, params: Params, tokens: torch.Tensor,
                 < new_length[:, None])
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
-    deltas = _split_deltas(deltas, MOE_PARTS)
-    x = _embed_lookup(params, tokens, tenant_ids).to(compute_dtype)
+    deltas, embed_delta, head_delta = _split_deltas(deltas, MOE_PARTS)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
+        compute_dtype)
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, positions, kv_valid,
@@ -373,7 +381,8 @@ def decode_step(cfg: MixtralConfig, params: Params, tokens: torch.Tensor,
                        cache_v=cache.v[layer], write_pos=cache.length,
                        tenant_ids=tenant_ids, kernel=kernel)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel)
+    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
+                             head_delta=head_delta, embed_delta=embed_delta)
     return logits, cache._replace(length=new_length)
 
 
@@ -428,14 +437,14 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
                      compress_embeddings: bool = False,
                      zero_sign: str = "positive"):
     """1-bit fine-tune delta of every attention projection, expert matrix
-    and the router; extras are the fine-tuned embed / norms / head. One
-    matrix at a time, so the fp32 diff never exceeds one ``(K, N)``
-    matrix (JAX quantizes each stack in one call; the values agree)."""
-    from ..core.compress import CompressedModel
+    and the router; extras are the fine-tuned norms and, unless
+    ``compress_embeddings``, embed / head. One matrix at a time, so the
+    fp32 diff never exceeds one ``(K, N)`` matrix (JAX quantizes each
+    stack in one call; the values agree). ``compress_embeddings=True``:
+    embed / lm_head become 1-bit deltas against the base (packed along
+    D), as llama's ``compress_model`` makes them."""
+    from ..core.compress import CompressedModel, embedding_deltas
 
-    if compress_embeddings:
-        raise NotImplementedError(
-            "compress_embeddings is not ported yet (see ROADMAP.md)")
     deltas = {}
     for name in MOE_PARTS:
         base_w = base_params["layers"][name]
@@ -455,10 +464,14 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
         deltas[name] = BinaryDelta(packed=packed, scale=scale)
     extras = {"final_norm": finetuned_params["final_norm"],
               "attn_norm": finetuned_params["layers"]["attn_norm"],
-              "mlp_norm": finetuned_params["layers"]["mlp_norm"],
-              "embed": finetuned_params["embed"]}
-    if "lm_head" in finetuned_params:
-        extras["lm_head"] = finetuned_params["lm_head"]
+              "mlp_norm": finetuned_params["layers"]["mlp_norm"]}
+    if compress_embeddings:
+        deltas.update(embedding_deltas(base_params, finetuned_params,
+                                       zero_sign))
+    else:
+        extras["embed"] = finetuned_params["embed"]
+        if "lm_head" in finetuned_params:
+            extras["lm_head"] = finetuned_params["lm_head"]
     return CompressedModel(deltas=deltas, extras=extras)
 
 

@@ -1,5 +1,5 @@
 """1-bit delta GEMM kernels for the serving and training paths, each
-beside its plain PyTorch version (port of five kernels of
+beside its plain PyTorch version (port of the seven kernels of
 ``bitdelta_tpu/ops/pallas_binary_gemm.py``):
 
 * :func:`tenant_delta_matmul_pair` — decode, every projection's delta
@@ -12,7 +12,13 @@ beside its plain PyTorch version (port of five kernels of
 * :func:`binary_matmul` — the single-request prefill delta, and the
   forward of the trainable matmul (``binary_matmul_pallas``);
 * :func:`binary_matmul_t` — its transpose, the activation gradient of
-  the trainable matmul (``binary_matmul_t_pallas``).
+  the trainable matmul (``binary_matmul_t_pallas``);
+* :func:`fused_tenant_matmul` — decode under the fused route, the base
+  matmul and a canonical delta in one kernel
+  (``fused_tenant_matmul_pallas``);
+* :func:`fused_base_pair_matmul` — decode under the fused route, the base
+  matmul and a pair-layout delta in one kernel
+  (``fused_base_pair_matmul_pallas``).
 
 :func:`binary_matmul_trainable` is the differentiable delta matmul of
 scale distillation, an autograd Function over the last two.
@@ -272,6 +278,147 @@ def _dense_splits(kdim: int) -> int:
 
 
 tenant_dense_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused base + tenant delta (decode under the fused route)
+# ---------------------------------------------------------------------------
+
+FUSED_COLS = 256   # output columns (row 10: pair columns) per kernel block
+FUSED_ROWS = 8     # batch rows per kernel block
+
+
+def _fused_splits(kdim: int, col_tiles: int, rows: int,
+                  device: torch.device) -> int:
+    """K ranges of the fused kernels: enough blocks for three per SM (the
+    number that fit at their register use), each range at least 128
+    deep."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = col_tiles * -(-rows // FUSED_ROWS)
+    return max(1, min(-(-3 * sms // blocks), kdim // 128))
+
+
+def _check_fused(x, w_base, kdim, n):
+    _require(tuple(w_base.shape) == (kdim, n),
+             f"x {tuple(x.shape)} vs W {tuple(w_base.shape)}")
+    _require(x.dtype == w_base.dtype,
+             f"x ({x.dtype}) and W ({w_base.dtype}) must share a dtype")
+
+
+def fused_tenant_matmul_plain(x, w_base, packed_stack, scales, tenant_ids):
+    """Plain version of :func:`fused_tenant_matmul` (fp32 out): the base
+    matmul with fp32 sums, plus ``scale * (x @ ±1)`` with the ±1 stack in
+    x's dtype and fp32 sums, as the TPU kernel's two dots."""
+    from .binary_matmul import matmul_f32
+    from .packing import unpack_to_pm1
+
+    base = matmul_f32(x, w_base)
+    pm1 = unpack_to_pm1(packed_stack[tenant_ids], x.dtype)      # (B, K, N)
+    d = matmul_f32(x[:, None, :], pm1)[:, 0]
+    alpha = scales.to(torch.float32)[tenant_ids]
+    return base + alpha[:, None] * d
+
+
+def fused_tenant_matmul(x: torch.Tensor, w_base: torch.Tensor,
+                        packed_stack: torch.Tensor, scales: torch.Tensor,
+                        tenant_ids: torch.Tensor, *, out_dtype=None
+                        ) -> torch.Tensor:
+    """``Y[b] = x[b] @ W + scales[ids[b]] * (x[b] @ sign(P[ids[b]]))`` at
+    decode, canonical layout, the delta as exact ±x sums (no x grid). x
+    ``(B, K)`` and w_base ``(K, N)`` of one dtype (bf16 or fp32);
+    packed_stack ``(T, K//32, N)``; scales ``(T,)``; tenant_ids ``(B,)``.
+    Returns ``(B, N)`` in ``out_dtype`` (default x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    bsz, kdim = x.shape
+    t, k32, n = packed_stack.shape
+    _require(k32 * 32 == kdim, f"x {tuple(x.shape)} vs packed "
+             f"{tuple(packed_stack.shape)}")
+    _require(tuple(scales.shape) == (t,), f"scales {tuple(scales.shape)} "
+             f"!= {(t,)}")
+    _check_fused(x, w_base, kdim, n)
+    if not x.is_cuda:
+        return fused_tenant_matmul_plain(x, w_base, packed_stack, scales,
+                                         tenant_ids).to(out_dtype)
+    flag = _cuda_dtype_flag(x)
+    splits = _fused_splits(kdim, -(-n // FUSED_COLS), bsz, x.device)
+    partial = torch.empty((splits, bsz, n), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
+    xc = x.contiguous()
+    wc = w_base.contiguous()
+    packed = packed_stack.contiguous()
+    ids = tenant_ids.to(torch.int32).contiguous()
+    sc = scales.to(torch.float32).contiguous()
+    _build.launch(_LIB, "bd_fused_tenant", [P] * 7 + [I] * 5 + [P],
+                  _build.ptr(xc), _build.ptr(wc), _build.ptr(packed),
+                  _build.ptr(ids), _build.ptr(sc), _build.ptr(partial),
+                  _build.ptr(out), bsz, kdim, n, splits, flag,
+                  _build.stream(x.device))
+    fused_tenant_matmul.launches += 1
+    return out.to(out_dtype)
+
+
+fused_tenant_matmul.launches = 0
+
+
+def fused_base_pair_matmul_plain(x, w_base, packed_pairs, colsum, scales,
+                                 tenant_ids):
+    """Plain version of :func:`fused_base_pair_matmul` (fp32 out): the
+    base matmul with fp32 sums plus :func:`tenant_delta_matmul_pair_plain`
+    (row 1's integer pair sums and epilogue)."""
+    from .binary_matmul import matmul_f32
+
+    return matmul_f32(x, w_base) + tenant_delta_matmul_pair_plain(
+        x, packed_pairs, colsum, scales, tenant_ids)
+
+
+def fused_base_pair_matmul(x: torch.Tensor, w_base: torch.Tensor,
+                           packed_pairs: torch.Tensor, colsum: torch.Tensor,
+                           scales: torch.Tensor, tenant_ids: torch.Tensor, *,
+                           out_dtype=None) -> torch.Tensor:
+    """``Y[b] = x[b] @ W + scales[ids[b]] * (x[b] @ sign(P[ids[b]]))`` at
+    decode, pair-packed layout, the delta on row 1's 12-bit x grid. x
+    ``(B, K)`` and w_base ``(K, N)`` (natural layout) of one dtype;
+    packed_pairs ``(T, K//16, N//2)``; colsum ``(T, N)``; scales ``(T,)``;
+    tenant_ids ``(B,)``; N a multiple of 256. Returns ``(B, N)`` in
+    ``out_dtype`` (default x.dtype)."""
+    out_dtype = out_dtype or x.dtype
+    bsz, kdim = x.shape
+    t, k16, nhalf = packed_pairs.shape
+    n = nhalf * 2
+    _require(k16 * 16 == kdim, f"x {tuple(x.shape)} vs pairs "
+             f"{tuple(packed_pairs.shape)}")
+    _require(tuple(colsum.shape) == (t, n),
+             f"colsum {tuple(colsum.shape)} != {(t, n)}")
+    _check_fused(x, w_base, kdim, n)
+    if not x.is_cuda:
+        return fused_base_pair_matmul_plain(
+            x, w_base, packed_pairs, colsum, scales, tenant_ids).to(out_dtype)
+    _require(n % PAIR_BLOCK == 0, "N must be a multiple of 256")
+    flag = _cuda_dtype_flag(x)
+    xq, sxq, a1, a2 = _pair_quantize(x, scales, tenant_ids)
+    splits = _fused_splits(kdim, -(-nhalf // FUSED_COLS), bsz, x.device)
+    part_base = torch.empty((splits, bsz, n), dtype=torch.float32,
+                            device=x.device)
+    part_s = torch.empty((splits, bsz, n), dtype=torch.int32,
+                         device=x.device)
+    out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
+    xc = x.contiguous()
+    wc = w_base.contiguous()
+    pairs = packed_pairs.contiguous()
+    ids = tenant_ids.to(torch.int32).contiguous()
+    cs = colsum.to(torch.float32).contiguous()
+    _build.launch(_LIB, "bd_fused_base_pair", [P] * 12 + [I] * 5 + [P],
+                  _build.ptr(xc), _build.ptr(xq), _build.ptr(wc),
+                  _build.ptr(pairs), _build.ptr(ids), _build.ptr(a1),
+                  _build.ptr(a2), _build.ptr(sxq), _build.ptr(cs),
+                  _build.ptr(part_base), _build.ptr(part_s), _build.ptr(out),
+                  bsz, kdim, nhalf, splits, flag, _build.stream(x.device))
+    fused_base_pair_matmul.launches += 1
+    return out.to(out_dtype)
+
+
+fused_base_pair_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------

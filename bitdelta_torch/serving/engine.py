@@ -137,8 +137,11 @@ class Engine:
                  decode_chunk: int = 1, device="cuda",
                  kv_dtype: Optional[str] = None, model=None):
         """``kernel``: ``"cuda"`` (the hand-written kernels; on CPU
-        tensors their plain versions), ``"torch"`` (plain paths), or
-        ``"auto"`` (``"cuda"`` on a CUDA device). ``device``: where the
+        tensors their plain versions), ``"cuda_fused"`` (the same, with
+        base and delta in one kernel at each decode projection over a
+        dense base), ``"torch"`` (plain paths), or ``"auto"`` (``"cuda"``
+        on a CUDA device). The stack's ``vocab_sizes`` mask each tenant's
+        logits (a compressed-embedding stack has the base's vocabulary). ``device``: where the
         cache lives; the stack must already be there. ``kv_dtype``:
         ``"int8"`` for the int8 KV cache (half the decode-time cache
         traffic under ``kernel="cuda"``, twice the capacity); None,
@@ -152,7 +155,7 @@ class Engine:
         self.device = resolve_device(device)
         if kernel == "auto":
             kernel = "cuda" if self.device.type == "cuda" else "torch"
-        if kernel not in ("cuda", "torch"):
+        if kernel not in llama.CARD_KERNELS + ("torch",):
             raise ValueError(f"unknown kernel {kernel!r}")
         if stack.vocab_sizes.device.type != self.device.type:
             raise ValueError(f"stack lives on {stack.vocab_sizes.device}, "
@@ -164,7 +167,7 @@ class Engine:
         if self.kv_quant and self.model is not llama:
             raise ValueError("kv_dtype='int8' is wired for the llama "
                              "family only (mixtral keeps a bf16 cache)")
-        if self.kv_quant and kernel != "cuda":
+        if self.kv_quant and not llama.on_card(kernel):
             # Capacity still doubles, but the plain decode path reads a
             # dequantized full-cache view per step — MORE traffic than
             # bf16. Only the flash-decode kernel streams int8 end to end.
@@ -177,7 +180,8 @@ class Engine:
         self.kernel = kernel
         # Decode hot path: pair-packed delta layout (prefill un-pairs on
         # the fly); same bytes as the canonical layout.
-        self.stack = to_pair_layout(stack) if kernel == "cuda" else stack
+        self.stack = (to_pair_layout(stack) if llama.on_card(kernel)
+                      else stack)
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.prefill_buckets = sorted(b for b in prefill_buckets

@@ -5,7 +5,10 @@ Packed deltas of all tenants are stacked per projection into
 ``(L, T, K//32, N)`` (Mixtral's expert stacks keep their expert axis
 after the tenant axis: ``(L, T, E, K//32, N)``); per-tenant extras (embed / norms / lm_head) are
 stacked on a tenant axis, with ragged vocabularies right-padded to the
-largest (logits are masked per tenant at sampling).
+largest (logits are masked per tenant at sampling). With compressed
+embeddings the embed / lm_head deltas stack tenant-first, ``(T, D//32,
+V)``, over the base's shared embed / head, and every tenant has the
+base's vocabulary.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ from ..models.llama import Params
 from ..ops.packing import PAIR_BLOCK
 from ..research.quantized_base import Int4Weight, Int8Weight
 
+EMBED_DELTAS = ("embed", "lm_head")   # deltas with no layer axis
+
 
 class TenantStack(NamedTuple):
     params: Params              # base projections + stacked extras
-    deltas: Dict[str, object]   # packed (L, T, K//32, N), scale (L, T)
+    # packed (L, T, K//32, N), scale (L, T); embed / lm_head (T, D//32, V)
+    deltas: Dict[str, object]
     vocab_sizes: torch.Tensor   # (T,) int32 — true vocab per tenant
     num_tenants: int
 
@@ -70,18 +76,25 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
                     f"tenant {i} has mismatched {n} shape "
                     f"{tuple(c.deltas[n].packed.shape)} != {ref_shapes[n]}"
                     f" — all tenants must share the base architecture")
-    if "embed" in delta_keys or "lm_head" in delta_keys:
-        raise NotImplementedError("compressed embeddings are not ported yet")
 
     deltas = {}
     for name in delta_keys:
+        # Layer stacks take the tenant axis second, (L, T, ...); the
+        # embed / lm_head deltas have no layer axis: (T, D//32, V).
+        axis = 0 if name in EMBED_DELTAS else 1
         packed = torch.stack([c.deltas[name].packed.to(device)
-                              for c in tenants], dim=1)
+                              for c in tenants], dim=axis)
         scale = torch.stack([c.deltas[name].scale.to(device, torch.float32)
-                             for c in tenants], dim=1)
+                             for c in tenants], dim=axis)
         deltas[name] = BinaryDelta(packed=packed, scale=scale)
 
-    vocab_sizes = [int(c.extras["embed"].shape[0]) for c in tenants]
+    compressed_embeds = "embed" in deltas
+    if compressed_embeds:
+        # compress_model made every tenant's deltas against the base's
+        # vocabulary.
+        vocab_sizes = [int(base_params["embed"].shape[0])] * t
+    else:
+        vocab_sizes = [int(c.extras["embed"].shape[0]) for c in tenants]
     vmax = max(vocab_sizes)
     params: Params = {
         "final_norm": torch.stack([c.extras["final_norm"].to(device)
@@ -95,14 +108,22 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
     for name, w in base_params["layers"].items():
         if name not in LAYER_EXTRA_NAMES:
             params["layers"][name] = _to_device(w, device)
-    params["embed"] = torch.stack(
-        [_pad_vocab(c.extras["embed"].to(device), vmax, 0) for c in tenants])
-    if all("lm_head" in c.extras for c in tenants):
-        params["lm_head"] = torch.stack(
-            [_pad_vocab(c.extras["lm_head"].to(device), vmax, 1)
+    if compressed_embeds:
+        # The shared base embed / head; the tenants' 1-bit deltas ride on
+        # top (no per-tenant dense (V, D) tensors).
+        params["embed"] = base_params["embed"].to(device)
+        if "lm_head" in deltas:
+            params["lm_head"] = base_params["lm_head"].to(device)
+    else:
+        params["embed"] = torch.stack(
+            [_pad_vocab(c.extras["embed"].to(device), vmax, 0)
              for c in tenants])
-    elif any("lm_head" in c.extras for c in tenants):
-        raise ValueError("mixing tied and untied lm_head tenants")
+        if all("lm_head" in c.extras for c in tenants):
+            params["lm_head"] = torch.stack(
+                [_pad_vocab(c.extras["lm_head"].to(device), vmax, 1)
+                 for c in tenants])
+        elif any("lm_head" in c.extras for c in tenants):
+            raise ValueError("mixing tied and untied lm_head tenants")
     return TenantStack(params=params, deltas=deltas,
                        vocab_sizes=torch.tensor(vocab_sizes,
                                                 dtype=torch.int32,
@@ -111,9 +132,9 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
 
 
 def _pair_by_layer(d: BinaryDelta) -> PairedBinaryDelta:
-    """:func:`pair_delta` of a layer-stacked delta one layer at a time
-    into preallocated outputs, so the conversion's int64 transients stay
-    the size of one layer's slice."""
+    """:func:`pair_delta` of a stacked delta one slice of its leading axis
+    (a layer; the tenant of an lm_head delta) at a time into preallocated
+    outputs, so the conversion's int64 transients stay one slice's size."""
     first = pair_delta(BinaryDelta(d.packed[0], d.scale[0]))
     out = PairedBinaryDelta(*(torch.empty((d.packed.shape[0], *f.shape),
                                           dtype=f.dtype, device=f.device)
@@ -129,10 +150,11 @@ def _pair_by_layer(d: BinaryDelta) -> PairedBinaryDelta:
 def to_pair_layout(stack: TenantStack, *, in_place: bool = False
                    ) -> TenantStack:
     """Convert delta stacks to the pair-packed serving layout of the pair
-    decode kernel (single device). ``embed`` and the Mixtral ``router``
-    stay canonical by name, as in JAX; so does a projection whose N is
-    not a multiple of 256 (the model dispatch handles a mixed dict).
-    Already-paired leaves pass through.
+    decode kernel (single device). ``embed`` (read by a gather, not a
+    matmul) and the Mixtral ``router`` stay canonical by name, as in JAX;
+    so does a projection whose N is not a multiple of 256 (the model
+    dispatch handles a mixed dict). A compressed ``lm_head`` pairs where
+    V is a multiple of 256. Already-paired leaves pass through.
 
     ``in_place=True`` replaces the entries of ``stack.deltas`` itself,
     one projection at a time, so each canonical stack is freed as soon as
@@ -162,7 +184,9 @@ def _weight_nbytes(w) -> int:
 
 
 def stack_nbytes(stack: TenantStack) -> Dict[str, float]:
-    """Serving memory: shared base vs per-tenant increments."""
+    """Serving memory: shared base vs per-tenant increments. A tenant-
+    stacked ``(T, ...)`` embed / lm_head is per-tenant; a shared 2-D one
+    (compressed embeddings) is base, as JAX counts it."""
     def nbytes(t):
         return t.numel() * t.element_size()
 
@@ -173,8 +197,14 @@ def stack_nbytes(stack: TenantStack) -> Dict[str, float]:
     extras = nbytes(stack.params["final_norm"])
     extras += sum(nbytes(w) for n, w in stack.params["layers"].items()
                   if n in LAYER_EXTRA_NAMES)
-    extras += sum(nbytes(stack.params[n]) for n in ("embed", "lm_head")
-                  if n in stack.params)
+    for name in ("embed", "lm_head"):
+        w = stack.params.get(name)
+        if w is None:
+            continue
+        if w.ndim == 3:
+            extras += nbytes(w)
+        else:
+            base += nbytes(w)
     return {"base_bytes": float(base), "deltas_bytes": float(packed),
             "tenant_extras_bytes": float(extras),
             "per_tenant_bytes": float((packed + extras) / stack.num_tenants)}

@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    (one process per source, all at once);
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the Mistral-7B (Mixtral-8x7B for the canonical tenant delta)
-   shapes of the path that runs it, and time the
+   shapes of the path that runs it (the two fused base + delta kernels
+   with bf16 and fp32 x and W), and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -37,7 +38,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    int8 cache, a W8 base with a bf16 cache; and a 2-layer full-width
    Mixtral-8x7B (W8 base, bf16 cache, canonical decode), held at the
    positions whose top-2 routing agrees at every layer (at least 95% of
-   them must);
+   them must); a bf16 base with compressed embeddings on the fused route
+   (``kernel="cuda_fused"``); and, on the card, a 2-layer fp32 model's
+   fused decode step against its unfused one in both layouts;
 6. train: a 32-layer full-width Mistral-7B fine-tune (bf16) compressed,
    written as ``diff_untrained.safetensors``, scale-distilled for 3
    steps by ``distill_scales`` (batch 4, length 128, lr 1e-4) through the
@@ -53,7 +56,18 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    launch 224 times a step); the stack converted to the pair layout in
    place and the same step taken again (logits within 2% of the
    canonical step's); then ``Engine(model=mixtral)`` over HTTP with both
-   tenants, as phase 4.
+   tenants, as phase 4;
+9. fused: every earlier world freed, a full-width 32-layer Mistral-7B
+   bf16 base with three synthetic fine-tunes compressed with
+   ``compress_embeddings=True`` (one through the artifact I/O), stacked
+   over the shared base embed / head; a B=8 decode step on ``"cuda"``
+   and on ``"cuda_fused"`` in the canonical layout (row 9 launches 224
+   times a fused step, row 7 once for the head), then in the pair layout
+   after ``to_pair_layout(in_place=True)`` (row 10 224 times, row 1
+   once); ``Engine(kernel="cuda_fused")`` over HTTP with the three
+   tenants, as phase 4; then one tenant's perplexity (3 windows of
+   1024 + 512 seeded tokens) densely fused by ``fuse_compressed`` and
+   through its deltas, which must agree within 1%.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -63,6 +77,7 @@ Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -108,6 +123,12 @@ KERNELS = {
     "tenant_delta_matmul": (
         "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
         "bitdelta_tpu/ops/pallas_binary_gemm.py:254"),
+    "fused_tenant_matmul": (
+        "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
+        "bitdelta_tpu/ops/pallas_binary_gemm.py:665"),
+    "fused_base_pair_matmul": (
+        "binary_gemm", "bitdelta_torch/csrc/binary_gemm.cu",
+        "bitdelta_tpu/ops/pallas_binary_gemm.py:603"),
 }
 # The kernels each main path must launch.
 PATHS = {
@@ -122,6 +143,11 @@ PATHS = {
                 "tenant_dense_matmul", "binary_matmul"),
     "mixtral_canonical": ("tenant_delta_matmul", "flash_decode_attention",
                           "tenant_dense_matmul"),
+    "fused": ("fused_base_pair_matmul", "flash_decode_attention",
+              "flash_prefill_attention", "binary_matmul",
+              "tenant_delta_matmul_pair"),
+    "fused_canonical": ("fused_tenant_matmul", "tenant_delta_matmul",
+                        "flash_decode_attention"),
 }
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
@@ -475,6 +501,103 @@ def check_canonical(dev, gen, results):
                     "ids touch + fp32 out; ops: 2*rows*K*N at the bf16 rate",
         library="torch.bmm(x[:, None], pm1[ids]) on the unpacked bf16 ±1 "
                 "stack (gather + bmm; no 14-bit x grid, no scale)",
+        detail=shapes)
+
+
+def check_fused(dev, gen, results, name):
+    """Row 9 (``fused_tenant_matmul``, canonical) or row 10
+    (``fused_base_pair_matmul``, pair layout) at the seven Mistral-7B
+    projections, B=8 over T=3 tenants: against its plain version with
+    bf16 and fp32 x and W, timed with bf16."""
+    from bitdelta_torch.core.delta import BinaryDelta, pair_delta
+    from bitdelta_torch.ops import binary_gemm as bg
+    from bitdelta_torch.ops.packing import unpack_to_pm1
+
+    pair = name == "fused_base_pair_matmul"
+    fn, plain_fn = getattr(bg, name), getattr(bg, name + "_plain")
+    kernel_names = (("fused_pair_kernel", "fused_pair_epilogue_kernel")
+                    if pair else ("fused_tenant_kernel", "sum_splits_kernel"))
+    bsz, t = 8, 3
+    ids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 0], device=dev)
+    scales = torch.rand((t,), generator=gen, device=dev) * 0.01 + 0.001
+    tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                         "library_ms", "bound_ms"), 0.0)
+    err, err32, shapes, by = 0.0, 0.0, [], set()
+    for proj, k, n in PROJ_SHAPES:
+        set_bytes = k * n * 2 + t * k * n // 8 + bsz * k * 2
+        sets, canonical = [], []
+        for _ in range(n_sets(set_bytes)):
+            packed = torch.randint(-2**31, 2**31 - 1, (t, k // 32, n),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            x = torch.randn((bsz, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 * 0.02).to(torch.bfloat16)
+            if pair:
+                pd = pair_delta(BinaryDelta(packed, scales))
+                sets.append((x, w, pd.packed_pairs, pd.colsum, pd.scale,
+                             ids))
+            else:
+                sets.append((x, w, packed, scales, ids))
+            canonical.append(packed)
+        errs = {}
+        for label, dtype in (("bf16", torch.bfloat16),
+                             ("fp32", torch.float32)):
+            args = (sets[0][0].to(dtype), sets[0][1].to(dtype),
+                    *sets[0][2:])
+            got = fn(*args, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            want = plain_fn(*args)
+            torch.cuda.synchronize()
+            errs[label] = e = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            require(e <= tol, f"{name} {proj} {label}: max|err| {e} > {tol}")
+            del got, want
+        err, err32 = max(err, errs["bf16"]), max(err32, errs["fp32"])
+        # The library calls' ±1 stack is unpacked outside the timed call.
+        pm1 = unpack_to_pm1(canonical[0], torch.bfloat16)      # (T, K, N)
+        del canonical
+        x0, w0 = sets[0][0], sets[0][1]
+
+        def library(i):
+            return torch.matmul(x0, w0), torch.bmm(x0[:, None], pm1[ids])
+
+        row = time_wrapper(
+            f"{name} {proj}",
+            lambda i: fn(*sets[i], out_dtype=torch.float32),
+            len(sets), kernel_names, plain=lambda i: plain_fn(*sets[i]),
+            library=library)
+        del pm1, sets
+        distinct = int(torch.unique(ids).numel())
+        words = distinct * k * n // 8 + (distinct * n * 4 if pair else 0)
+        nbytes = k * n * 2 + words + bsz * k * 2 + bsz * n * 4
+        row["bound_ms"], b_by = bound(nbytes, 2 * (2 * bsz * k * n))
+        by.add(b_by)
+        for key in tot:
+            tot[key] += row[key]
+        shapes.append({"proj": proj, "k": k, "n": n, **row,
+                       "max_abs_err": errs})
+    results[name] = dict(
+        tot, max_abs_err=err, fp32_max_abs_err=err32,
+        bound_by="+".join(sorted(by)),
+        tolerance="1e-4 * max|ref| with bf16 and with fp32 x and W: bf16 "
+                  "products are exact in fp32 and both sides sum in fp32, "
+                  "in another order" + ("; the integer pair sums and row "
+                                        "1's epilogue are exact" if pair
+                                        else ""),
+        shape="B=8 T=3 (3 distinct tenants), per decode layer: 7 "
+              "projections", timing=TIMING + (
+                  "; ms includes the plain-torch x prep (_pair_quantize)"
+                  if pair else ""),
+        bound_basis="bytes: the bf16 base (K*N*2, read once) + the "
+                    "distinct tenants' words" + (" and colsums" if pair
+                                                 else "")
+                    + " + x bf16 + fp32 out; ops: 2*B*K*N for the base and "
+                    "as many for the delta, at the bf16 rate",
+        library="torch.matmul(x, W) (cuBLAS) + torch.bmm(x[:, None], "
+                "pm1[ids]) on the unpacked bf16 ±1 stack (the unfused "
+                "route's base call and the gather + bmm of rows 1 and 7)",
         detail=shapes)
 
 
@@ -1056,9 +1179,12 @@ def check_grads(dev, gen, results):
 def kernel_checks(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
-    for check in (check_pair, check_canonical, check_decode,
-                  check_decode_int8, check_w4, check_dense, check_prefill,
-                  check_binary, check_binary_t, check_grads):
+    for check in (check_pair, check_canonical,
+                  functools.partial(check_fused, name="fused_tenant_matmul"),
+                  functools.partial(check_fused,
+                                    name="fused_base_pair_matmul"),
+                  check_decode, check_decode_int8, check_w4, check_dense,
+                  check_prefill, check_binary, check_binary_t, check_grads):
         check(dev, gen, results)
         torch.cuda.empty_cache()
     for name, res in results.items():
@@ -1101,13 +1227,18 @@ def same_delta(a, b, label):
                 f"{label}: extra {name} did not round-trip")
 
 
-def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None):
-    """The serving stack: a seeded bf16 base, ``n_tenants`` synthetic
-    fine-tunes of it, one through the artifact I/O. With ``base_quant``
-    (``"int4"`` / ``"int8"``) the stack's base is ``quantize_base(base,
-    base_quant)`` and the fine-tunes are compressed against
-    ``roundtrip_base(base, base_quant)``, the dequantized base; the dense
-    base and its round trip are freed before the stack is built."""
+def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None,
+                compress_embeddings=False, dtype=torch.bfloat16,
+                keep_tenant=False):
+    """The serving stack: a seeded base of ``dtype``, ``n_tenants``
+    synthetic fine-tunes of it, one through the artifact I/O. With
+    ``base_quant`` (``"int4"`` / ``"int8"``) the stack's base is
+    ``quantize_base(base, base_quant)`` and the fine-tunes are compressed
+    against ``roundtrip_base(base, base_quant)``, the dequantized base;
+    the dense base and its round trip are freed before the stack is
+    built. ``compress_embeddings``: the embed / lm_head become 1-bit
+    deltas over the shared base embed / head. ``keep_tenant``: also
+    return the artifact tenant's CompressedModel."""
     from bitdelta_torch.core.artifact import load_delta, save_delta
     from bitdelta_torch.core.compress import compress_model
     from bitdelta_torch.models.llama import init_params
@@ -1118,7 +1249,7 @@ def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    base = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    base = init_params(cfg, gen, dtype=dtype, device=dev)
     torch.cuda.synchronize()
     t_base = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1133,7 +1264,8 @@ def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None):
     for _ in range(n_tenants):
         t0 = time.perf_counter()
         fine = synthetic_finetune(cfg, base, gen)
-        tenants.append(compress_model(against, fine))
+        tenants.append(compress_model(
+            against, fine, compress_embeddings=compress_embeddings))
         del fine
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1155,15 +1287,17 @@ def build_world(cfg, dev, n_tenants=3, seed=0, base_quant=None):
     tenants[0] = loaded
     t_art = time.perf_counter() - t0
     stack = stack_tenants(cfg, stack_base, tenants, device=dev)
+    kept = tenants[0]
     del tenants, stack_base
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "world", "layers": cfg.num_layers,
-          "base_quant": base_quant, "base_init_s": t_base,
+          "base_quant": base_quant, "dtype": str(dtype).replace("torch.", ""),
+          "compress_embeddings": compress_embeddings, "base_init_s": t_base,
           "quantize_s": t_quant, "compress_s_per_tenant": t_comp / n_tenants,
           "artifact_bytes": size, "artifact_roundtrip_s": t_art,
           "peak_bytes": torch.cuda.max_memory_allocated()})
-    return stack
+    return (stack, kept) if keep_tenant else stack
 
 
 def _post(url, body):
@@ -1182,10 +1316,11 @@ def _post(url, body):
 
 
 def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
-          n_generate=12, max_new=32):
+          n_generate=12, max_new=32, kernel="cuda"):
     """Serve ``stack`` over HTTP and through ``Engine.generate`` (the
     counted run of ``path``), then time prefill and one decode step.
-    ``model``: the decoder module (llama by default)."""
+    ``model``: the decoder module (llama by default); ``kernel``: the
+    engine's route (``"cuda_fused"`` for the fused decode projections)."""
     from bitdelta_torch.serving.engine import Engine, Request
     from bitdelta_torch.serving.server import (ByteTokenizer, ServingApp,
                                                TenantInfo, make_http_server)
@@ -1194,7 +1329,7 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, stack, max_slots=8, max_seq=2048, decode_chunk=8,
                  prefill_buckets=(64, 128, 256, 512, 1024, 2048),
-                 kernel="cuda", device=dev, kv_dtype=kv_dtype, model=model)
+                 kernel=kernel, device=dev, kv_dtype=kv_dtype, model=model)
     model = eng.model
     del stack
     torch.cuda.empty_cache()
@@ -1293,7 +1428,7 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
     def one_step():
         model.decode_step(cfg, eng.stack.params, toks, cache,
                           deltas=eng.stack.deltas, tenant_ids=tids,
-                          kernel="cuda")
+                          kernel=kernel)
 
     with torch.no_grad():
         for _ in range(2):
@@ -1303,10 +1438,17 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
         one_step()
         per_step = {k: v - before[k] for k, v in read_counts().items()
                     if v - before[k]}
-        require(per_step.get("tenant_delta_matmul_pair")
-                == 7 * cfg.num_layers,
+        # The projections' kernel: row 10 under the fused route, row 1
+        # otherwise; a compressed (shared) head adds one row-1 launch.
+        proj_kernel = ("fused_base_pair_matmul" if kernel == "cuda_fused"
+                       else "tenant_delta_matmul_pair")
+        head = 1 if "lm_head" in eng.stack.deltas else 0
+        want = {proj_kernel: 7 * cfg.num_layers}
+        want["tenant_delta_matmul_pair"] = want.get(
+            "tenant_delta_matmul_pair", 0) + head
+        require(all(per_step.get(k) == v for k, v in want.items()),
                 f"{path}: {per_step} launches in one decode step, want "
-                f"{7 * cfg.num_layers} of the pair kernel")
+                f"{want}")
         if "w4_matmul" in PATHS[path]:
             require(per_step.get("w4_matmul") == 7 * cfg.num_layers,
                     f"{path}: {per_step.get('w4_matmul')} W4 launches in one "
@@ -1321,7 +1463,8 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
         step_device_ms, step_top = device_breakdown(one_step,
                                                    "decode step")
     report.update(
-        card=name, layers=cfg.num_layers, kv_dtype=kv_dtype or "bf16",
+        card=name, layers=cfg.num_layers, kernel=kernel,
+        kv_dtype=kv_dtype or "bf16",
         cache_dtype=str(eng.cache.k.dtype).replace("torch.", ""),
         base_leaf=type(eng.stack.params["layers"]["q_proj"]).__name__,
         launches=counts, launches_per_decode_step=per_step,
@@ -1362,20 +1505,24 @@ def stack_to_cpu(stack):
                        num_tenants=stack.num_tenants)
 
 
-PARITY_RUNS = (  # (label, base_quant, kv_dtype)
-    ("bf16", None, None), ("w4_int8_cache", "int4", "int8"),
-    ("w8_bf16_cache", "int8", None))
+PARITY_RUNS = (  # (label, base_quant, kv_dtype, kernel, compress_embeddings)
+    ("bf16", None, None, "cuda", False),
+    ("w4_int8_cache", "int4", "int8", "cuda", False),
+    ("w8_bf16_cache", "int8", None, "cuda", False),
+    ("bf16_embeddings_fused", None, None, "cuda_fused", True))
 
 
-def parity(cfg_full, dev, label, base_quant, kv_dtype):
+def parity(cfg_full, dev, label, base_quant, kv_dtype, kernel="cuda",
+           compress_embeddings=False):
     import dataclasses
 
     from bitdelta_torch.models import llama
     from bitdelta_torch.serving.stacking import to_pair_layout
 
     cfg = dataclasses.replace(cfg_full, num_layers=2)
-    stack = to_pair_layout(build_world(cfg, dev, seed=7,
-                                       base_quant=base_quant))
+    stack = to_pair_layout(build_world(
+        cfg, dev, seed=7, base_quant=base_quant,
+        compress_embeddings=compress_embeddings))
     cpu_stack = stack_to_cpu(stack)
     g = torch.Generator().manual_seed(3)
     tokens = torch.randint(1, cfg.vocab_size, (1, 64), generator=g)
@@ -1388,7 +1535,7 @@ def parity(cfg_full, dev, label, base_quant, kv_dtype):
             logits, cache = llama.forward(
                 cfg, st.params, tokens.to(device), lengths=lengths.to(device),
                 deltas=st.deltas, tenant_ids=tids.to(device),
-                return_cache=True, cache_max_seq=64, kernel="cuda",
+                return_cache=True, cache_max_seq=64, kernel=kernel,
                 kv_quant=kv_dtype == "int8")
             require(cache.k.dtype == (torch.int8 if kv_dtype == "int8"
                                       else torch.bfloat16),
@@ -1396,7 +1543,7 @@ def parity(cfg_full, dev, label, base_quant, kv_dtype):
             step, _ = llama.decode_step(cfg, st.params, nxt.to(device), cache,
                                         deltas=st.deltas,
                                         tenant_ids=tids.to(device),
-                                        kernel="cuda")
+                                        kernel=kernel)
         return logits[0, :41].float().cpu(), step[0, 0].float().cpu()
 
     reset_counts()
@@ -1405,7 +1552,9 @@ def parity(cfg_full, dev, label, base_quant, kv_dtype):
     counts = read_counts()
     cpu_pre, cpu_step = run(cpu_stack, torch.device("cpu"))
     out = {"phase": "parity", "run": label, "base_quant": base_quant,
-           "kv_dtype": kv_dtype or "bf16", "layers": 2, "launches": counts}
+           "kv_dtype": kv_dtype or "bf16", "kernel": kernel,
+           "compress_embeddings": compress_embeddings, "layers": 2,
+           "launches": counts}
     for which, a, b in (("prefill", gpu_pre, cpu_pre),
                         ("decode", gpu_step, cpu_step)):
         require(torch.isfinite(a).all().item(),
@@ -1421,7 +1570,8 @@ def parity(cfg_full, dev, label, base_quant, kv_dtype):
         require(err <= 2e-2 * scale,
                 f"parity {label} {which} logits: max|err| {err} > 2% "
                 f"of {scale}")
-    want = PATHS["density"] if base_quant == "int4" else PATHS["serving"]
+    want = PATHS["density" if base_quant == "int4" else
+                 "fused" if kernel == "cuda_fused" else "serving"]
     for kname in want:
         require(counts[kname] > 0, f"parity {label} missed kernel {kname}")
     if base_quant == "int4":
@@ -2052,6 +2202,209 @@ def mixtral(dev, name):
 
 
 # ---------------------------------------------------------------------------
+# 9. The fused route: Mistral-7B with compressed embeddings, rows 9 and 10
+# ---------------------------------------------------------------------------
+
+FUSED_PPL_WINDOWS = 3          # windows of 1024 + 512 tokens
+FUSED_PPL_RTOL = 1e-2
+
+
+def _want_step_counts(layers, layout, kernel):
+    """Launches of one B=8 decode step of a compressed-embedding Mistral
+    stack: the projections' kernel 7 a layer, the head delta's once."""
+    head = "tenant_delta_matmul_pair" if layout == "pair" \
+        else "tenant_delta_matmul"
+    if kernel == "cuda_fused":
+        proj = ("fused_base_pair_matmul" if layout == "pair"
+                else "fused_tenant_matmul")
+        return {proj: 7 * layers, head: 1, "flash_decode_attention": layers}
+    return {head: 7 * layers + 1, "flash_decode_attention": layers}
+
+
+def fused_step_parity(cfg_full, dev):
+    """A 2-layer full-width fp32 model with compressed embeddings: the
+    B=8 decode step under ``kernel="cuda_fused"`` against the same step
+    under ``"cuda"`` on the card, canonical layout, then pair layout.
+
+    Limits: the pair route's fused kernel (row 10) shares row 1's integer
+    sums and epilogue with the unfused step and differs only in the order
+    of the base's fp32 sums: 1e-3 of the logit scale. The canonical
+    route's unfused step puts x on row 7's one 14-bit grid (each value
+    moves by up to max|x| * 2^-15) where row 9 adds x exactly: 2e-3 of
+    the logit scale, the limit of JAX's kernel-dispatch tests."""
+    import dataclasses
+
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.serving.stacking import to_pair_layout
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    stack = build_world(cfg, dev, seed=13, compress_embeddings=True,
+                        dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(6)
+    tids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], device=dev)
+    prompt = torch.randint(1, cfg.vocab_size, (8, 24), generator=g,
+                           device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (8, 1), generator=g, device=dev)
+    out = {"phase": "parity", "run": "fused_vs_unfused_fp32", "layers": 2,
+           "dtype": "float32", "compress_embeddings": True}
+    with torch.no_grad():
+        _, cache0 = llama.forward(cfg, stack.params, prompt,
+                                  deltas=stack.deltas, tenant_ids=tids,
+                                  compute_dtype=torch.float32,
+                                  return_cache=True, cache_max_seq=32,
+                                  kernel="cuda")
+        for layout, limit in (("canonical", 2e-3), ("pair", 1e-3)):
+            if layout == "pair":
+                to_pair_layout(stack, in_place=True)
+            steps = {}
+            for kernel in ("cuda", "cuda_fused"):
+                reset_counts()
+                logits, _ = llama.decode_step(
+                    cfg, stack.params, toks, cache0, deltas=stack.deltas,
+                    tenant_ids=tids, compute_dtype=torch.float32,
+                    kernel=kernel)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in read_counts().items() if v}
+                want = _want_step_counts(cfg.num_layers, layout, kernel)
+                require(counts == want, f"fused parity {layout} {kernel}: "
+                                        f"launches {counts}, want {want}")
+                steps[kernel] = logits[:, 0].float()
+            out[layout] = held_logits(
+                steps["cuda_fused"], steps["cuda"],
+                torch.ones(8, device=dev), f"fused parity {layout} (fp32)",
+                limit=limit)
+            out[layout]["limit"] = limit
+    emit(out)
+    return out
+
+
+def fused(dev, name):
+    """Phase 9: a 32-layer full-width Mistral-7B whose three fine-tunes
+    are compressed with their embeddings; the B=8 decode step on both
+    routes and both layouts; the fused engine over HTTP; then perplexity
+    of one tenant densely fused and through its deltas."""
+    from bitdelta_torch.core.compress import fuse_compressed, student_params
+    from bitdelta_torch.eval.ppl import eval_ppl
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import mistral_7b
+    from bitdelta_torch.serving.stacking import stack_nbytes, to_pair_layout
+
+    import numpy as np
+
+    cfg = mistral_7b()
+    stack, tenant0 = build_world(cfg, dev, seed=41, compress_embeddings=True,
+                                 keep_tenant=True)
+    d32, vocab = cfg.hidden_size // 32, cfg.vocab_size
+    require(stack.params["embed"].ndim == 2
+            and tuple(stack.deltas["embed"].packed.shape) == (3, d32, vocab)
+            and tuple(stack.deltas["lm_head"].packed.shape) == (3, d32, vocab),
+            "fused world: the embed / head deltas are not stacked "
+            "tenant-first over a shared base")
+    report = {"card": name, "layers": cfg.num_layers, "tenants": 3,
+              "stack_bytes": stack_nbytes(stack),
+              "resident_bytes": torch.cuda.memory_allocated()}
+    g = torch.Generator(device=dev).manual_seed(9)
+    tids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], device=dev)
+    prompt = torch.randint(1, vocab, (8, 32), generator=g, device=dev)
+    toks = torch.randint(1, vocab, (8, 1), generator=g, device=dev)
+    step_counts = {}
+    with torch.no_grad():
+        _, cache0 = llama.forward(cfg, stack.params, prompt,
+                                  deltas=stack.deltas, tenant_ids=tids,
+                                  return_cache=True, cache_max_seq=64,
+                                  kernel="cuda")
+        for layout in ("canonical", "pair"):
+            if layout == "pair":
+                t0 = time.perf_counter()
+                to_pair_layout(stack, in_place=True)
+                torch.cuda.synchronize()
+                report["pair_convert_s"] = time.perf_counter() - t0
+            logits = {}
+            for kernel in ("cuda", "cuda_fused"):
+                def step(kernel=kernel):
+                    return llama.decode_step(
+                        cfg, stack.params, toks, cache0, deltas=stack.deltas,
+                        tenant_ids=tids, kernel=kernel)[0]
+
+                step()
+                torch.cuda.synchronize()
+                reset_counts()
+                logits[kernel] = step()[:, 0].float()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in read_counts().items() if v}
+                want = _want_step_counts(cfg.num_layers, layout, kernel)
+                require(counts == want, f"{layout} {kernel} decode step: "
+                                        f"launches {counts}, want {want}")
+                step_counts[(layout, kernel)] = read_counts()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 3
+                dev_ms, top = device_breakdown(
+                    step, f"fused phase {layout} {kernel} step", top=10)
+                report[f"{layout}_{kernel}_step"] = {
+                    "launches": counts, "wall_ms_b8": wall,
+                    "device_ms": dev_ms, "device_busy": dev_ms / wall,
+                    "top_kernels": top}
+            # bf16 over 32 layers: recorded (the 2-layer runs hold limits).
+            report[f"{layout}_fused_vs_unfused_bf16"] = held_logits(
+                logits["cuda_fused"], logits["cuda"],
+                torch.ones(8, device=dev),
+                f"{layout} fused vs unfused step", limit=None)
+    del cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_world", **report})
+    base = {"embed": stack.params["embed"],
+            "lm_head": stack.params["lm_head"],
+            "layers": {n: stack.params["layers"][n]
+                       for n in llama.PROJ_NAMES}}
+    serve_counts, served = serve(cfg, stack, dev, name, path="fused",
+                                 kernel="cuda_fused")
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Perplexity of tenant 0: dense fused weights, then its deltas.
+    tokens = np.random.default_rng(17).integers(
+        0, vocab, 1024 + 512 * FUSED_PPL_WINDOWS)
+    ppl = {"windows": FUSED_PPL_WINDOWS, "context": 1024, "window": 512,
+           "tokens": int(tokens.size)}
+    t0 = time.perf_counter()
+    dense = fuse_compressed(base, tenant0)
+    torch.cuda.synchronize()
+    ppl["fuse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppl["dense"] = eval_ppl(cfg, dense, tokens, kernel="cuda")
+    ppl["dense_s"] = time.perf_counter() - t0
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ppl["deltas"] = eval_ppl(cfg, student_params(base, tenant0), tokens,
+                             deltas=tenant0.deltas, kernel="cuda")
+    ppl["deltas_s"] = time.perf_counter() - t0
+    rel = abs(ppl["deltas"] - ppl["dense"]) / ppl["dense"]
+    ppl.update(rel_diff=rel, tolerance=FUSED_PPL_RTOL)
+    require(all(math.isfinite(ppl[k]) and ppl[k] > 1.0
+                for k in ("dense", "deltas")), f"perplexity {ppl}")
+    # The dense weights are bf16(base + scale * sign); the delta path adds
+    # scale * (x @ sign) to the base's fp32 sums: the two differ by bf16
+    # rounding of the fused weights only.
+    require(rel <= FUSED_PPL_RTOL, f"perplexity dense {ppl['dense']} vs "
+                                   f"deltas {ppl['deltas']}: rel {rel} > "
+                                   f"{FUSED_PPL_RTOL}")
+    served["ppl"] = ppl
+    served["world"] = report
+    emit({"phase": "fused_ppl", **ppl})
+    del base, tenant0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_counts[("canonical", "cuda_fused")], serve_counts, served
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -2099,11 +2452,13 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     report["parity"] = []
-    for label, base_quant, kv_dtype in PARITY_RUNS:
-        report["parity"].append(parity(cfg, dev, label, base_quant,
-                                       kv_dtype))
+    for run in PARITY_RUNS:
+        report["parity"].append(parity(cfg, dev, *run))
         gc.collect()
         torch.cuda.empty_cache()
+    report["parity"].append(fused_step_parity(cfg, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
     report["parity"].append(mixtral_parity(mixtral_8x7b(), dev))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2114,6 +2469,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     canon_counts, mixtral_counts, report["mixtral"] = mixtral(dev, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_canon_counts, fused_counts, report["fused"] = fused(dev, name)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
@@ -2121,7 +2479,9 @@ def main(argv=None):
                    "density": density_counts[kname],
                    "train": train_counts[kname],
                    "mixtral": mixtral_counts[kname],
-                   "mixtral_canonical": canon_counts[kname]}
+                   "mixtral_canonical": canon_counts[kname],
+                   "fused": fused_counts[kname],
+                   "fused_canonical": fused_canon_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

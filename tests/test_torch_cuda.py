@@ -20,7 +20,11 @@ within one bf16 ulp of its own largest |value| (2^-7 of it), since both
 sides compute in fp32 and round once; d_scale to 1e-5 of sum |g * u|.
 The W4 matmul sums in another order than its plain version (1e-4 of the
 output scale); the int8 flash decode folds the scales where the plain
-version dequantizes first (the attention tolerances)."""
+version dequantizes first (the attention tolerances). The fused base +
+delta kernels (rows 9 and 10) sum the exact products of x and W (bf16
+products are exact in fp32) and the ±x delta terms in another order than
+cuBLAS and the plain version, in bf16 and fp32 alike: 1e-4 of the output
+scale; row 10's integer pair sums and epilogue are exact."""
 
 import pytest
 import torch
@@ -309,3 +313,57 @@ def test_cuda_flash_decode_int8_matches_plain(cuda, window, dtype):
     assert tfd.flash_decode_attention.launches == before + 1
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def _fused_inputs(cuda, dtype, bsz, t, k, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((bsz, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda) * 0.02).to(dtype)
+    packed = torch.randint(-2**31, 2**31 - 1, (t, k // 32, n), generator=g,
+                           device=cuda, dtype=torch.int32)
+    scales = torch.rand((t,), generator=g, device=cuda) * 0.01 + 0.001
+    ids = torch.randint(0, t, (bsz,), generator=g, device=cuda)
+    return x, w, packed, scales, ids
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz,k,n", [(8, 4096, 1024), (8, 14336, 4096),
+                                     (11, 1024, 301)])
+def test_cuda_fused_tenant_matches_plain(cuda, dtype, bsz, k, n):
+    # Row 9 (N = 301 leaves a ragged, odd last tile; 11 rows two groups).
+    x, w, packed, scales, ids = _fused_inputs(cuda, dtype, bsz, 3, k, n, 12)
+    before = tbg.fused_tenant_matmul.launches
+    got = tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    want = tbg.fused_tenant_matmul_plain(x, w, packed, scales, ids)
+    torch.cuda.synchronize()
+    assert tbg.fused_tenant_matmul.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    with pytest.raises(ValueError):
+        tbg.fused_tenant_matmul(x, w.to(torch.float16), packed, scales, ids)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz,k,n", [(8, 4096, 1024), (8, 14336, 4096),
+                                     (9, 1040, 768)])
+def test_cuda_fused_base_pair_matches_plain(cuda, dtype, bsz, k, n):
+    # Row 10 (K = 1040 splits into ranges of whole 16-row words only; 9
+    # rows make two row groups). Any colsum works for the comparison.
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((bsz, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda) * 0.02).to(dtype)
+    pairs = torch.randint(-2**31, 2**31 - 1, (3, k // 16, n // 2),
+                          generator=g, device=cuda, dtype=torch.int32)
+    colsum = torch.randint(-k, k + 1, (3, n), generator=g,
+                           device=cuda).to(torch.float32)
+    scales = torch.rand((3,), generator=g, device=cuda) * 0.01 + 0.001
+    ids = torch.randint(0, 3, (bsz,), generator=g, device=cuda)
+    args = [pairs, colsum, scales, ids]
+    before = tbg.fused_base_pair_matmul.launches
+    got = tbg.fused_base_pair_matmul(x, w, *args, out_dtype=torch.float32)
+    want = tbg.fused_base_pair_matmul_plain(x, w, *args)
+    torch.cuda.synchronize()
+    assert tbg.fused_base_pair_matmul.launches == before + 1
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -117,10 +117,16 @@ def test_compress_mixtral_matches_jax(world):
     assert tuple(got.deltas["w2"].scale.shape) == (cfg.num_layers,
                                                    cfg.num_experts)
     _assert_compressed_match(got, jtenants[0])
-    with pytest.raises(NotImplementedError):
-        tmx.compress_mixtral(params_from_numpy(base, "cpu"),
-                             params_from_numpy(fines[0], "cpu"),
-                             compress_embeddings=True)
+    # With compressed embeddings the embed / head become deltas as well,
+    # and the extras keep only the norms.
+    got = tmx.compress_mixtral(params_from_numpy(base, "cpu"),
+                               params_from_numpy(fines[0], "cpu"),
+                               compress_embeddings=True)
+    want = jmx.compress_mixtral(_jtree(base), _jtree(fines[0]),
+                                compress_embeddings=True)
+    assert sorted(got.deltas) == sorted(tmx.MOE_PARTS + ("embed", "lm_head"))
+    assert "embed" not in got.extras and "lm_head" not in got.extras
+    _assert_compressed_match(got, want)
 
 
 def test_quantize_mixtral_base_matches_jax(world):
