@@ -268,199 +268,446 @@ extern "C" int bd_tenant_dense(const void* x, const void* w, const void* ids,
 }
 
 // ---------------------------------------------------------------------------
-// 5. Binary matmul with canonical packing (single-request prefill delta):
-//    Y = scale * (x @ sign(P)),  x (M, K), P (K/32, N) int32 LSB-first.
+// 5 and 6. Binary matmul with canonical packing, and its transpose, on the
+//    tensor cores; one GEMM core with two layouts of the ±1 operand:
+//    row 5 (bd_binary_matmul <- binary_matmul_pallas: the single-request
+//      prefill delta and the trainable matmul's forward):
+//        Y = scale * (x @ sign(P)),    x (M, K), Y (M, N);
+//    row 6 (bd_binary_matmul_t <- binary_matmul_t_pallas: the trainable
+//      matmul's activation gradient in scale distillation):
+//        Y = scale * (g @ sign(P)^T),  g (M, N), Y (M, 32 * K32);
+//    P (K/32, N) int32, LSB-first along K; bit 1 -> +1, bit 0 -> -1.
 //
-// Bound at prefill shapes: operations (2*M*K*N against the bf16 tensor
-// rate; the ±1 operand is exact in bf16) rather than bytes (x + K/32*N
-// words). This first version runs on the CUDA cores: a 64x64 output tile
-// per block, 4x4 outputs per thread, one packed word per column per
-// 32-deep K step. x tiles are staged in shared memory as fp32; each word
-// is unpacked in registers LSB-first along K, and the sign is applied by
-// flipping x's sign bit (bit 1 -> +x, bit 0 -> -x) before an fp32 add, so
-// the sum is the exact ±1 product accumulated in fp32, sequential in K.
+// Bound on the H100 at the prefill and training shapes (M = 500-512):
+// operations, 2*M*K*N against the bf16 tensor rate (±1 is exact in bf16).
+// The work is some 1,400 operations a byte moved, five times the bf16
+// ridge, so only the tensor cores can approach the bound. Design:
+//   * mma.sync m16n8k16, bf16 x bf16 -> fp32 sums: a block owns a 128x128
+//     output tile, 8 warps of 64x32 (4x4 mma tiles, 64 fp32 sums a
+//     thread), and walks the reduction in steps of BG_BK = 64;
+//   * a ring of STAGES shared-memory stages filled by cp.async (16-byte
+//     copies of the x / g tile, 4-byte copies of the packed words, both
+//     zero-filled past a ragged edge), so the loads of step s + STAGES - 1
+//     overlap the math of step s; one __syncthreads a step;
+//   * the ±1 operand never touches device memory: every thread expands
+//     one packed word of the NEXT step into 32 bf16 values in a double-
+//     buffered shared tile (the word's clear bits unzipped once, even bits
+//     to the low half and odd to the high, then one shift and one logic op
+//     per pair of values: 0x3F80 with the sign bit set where the bit is 0)
+//     while the current step's mma run;
+//   * one expansion, two layouts: row 5's word P[kw, n] is 32 consecutive
+//     reduction values of column n, stored as row n of a [BN][BK] tile and
+//     read with ldmatrix; row 6's word is 32 consecutive output columns at
+//     one reduction index, stored in a row of a [BK][BN] tile and read
+//     with ldmatrix.trans. The 16-byte chunks of every tile are XOR-
+//     swizzled by row, so cp.async stores, expansion stores and ldmatrix
+//     reads hit distinct banks;
+//   * fp32 inputs stay exact, without TF32: the wrapper splits x (g) into
+//     three bf16 pieces whose fp32 sum is x, and the kernel adds the three
+//     pieces' products with the same ±1 tile into one fp32 sum. The
+//     tensor cores truncate toward zero as they accumulate, a bias that
+//     grows through the scale gradients of distillation, so fp32 input
+//     sums each step from zero and adds it to the total with a round-to-
+//     nearest add;
+//   * the scale is read on the device and applied once, with a round-to-
+//     nearest product, in the epilogue. Where the output tiles alone leave
+//     SMs idle (k/v: 32 tiles at M = 512) the reduction is split over
+//     blocks; their fp32 partial tiles are added in split order and scaled
+//     by a second kernel (no atomics).
+// mma.sync rather than wgmma: its register fragments have one fixed
+// layout, while a wgmma operand needs a shared-memory descriptor that no
+// compiler could check before the card; wgmma is the next step.
 // ---------------------------------------------------------------------------
 
-constexpr int BM_TILE = 64, BN_TILE = 64;
+constexpr int BG_BM = 128, BG_BN = 128, BG_BK = 64;
+constexpr int BG_THREADS = 256;    // 8 warps: 2 along M x 4 along N
 
-template <typename T>
-__global__ void binary_matmul_kernel(const T* __restrict__ x,
-                                     const uint32_t* __restrict__ packed,
-                                     const float* __restrict__ scale,
-                                     float* __restrict__ out,
-                                     int m, int k, int n) {
-  __shared__ float xs[32][BM_TILE + 1];
-  __shared__ uint32_t ws[BN_TILE];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * BM_TILE, n0 = blockIdx.x * BN_TILE;
-  float acc[4][4];
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+        : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Even bits of x to the low half, odd bits to the high half, in order.
+__device__ __forceinline__ uint32_t unzip_bits(uint32_t x) {
+  uint32_t t;
+  t = (x ^ (x >> 1)) & 0x22222222u; x ^= t ^ (t << 1);
+  t = (x ^ (x >> 2)) & 0x0C0C0C0Cu; x ^= t ^ (t << 2);
+  t = (x ^ (x >> 4)) & 0x00F000F0u; x ^= t ^ (t << 4);
+  t = (x ^ (x >> 8)) & 0x0000FF00u; x ^= t ^ (t << 8);
+  return x;
+}
+
+// Word w's 32 signs as bf16 ±1 in four 16-byte chunks (chunk j holds bits
+// 8j..8j+7, the lower bit of each pair in the lower half), stored at
+// chunks (c0 + j) ^ swz of one tile row.
+__device__ __forceinline__ void expand_word(uint32_t w, uint4* row, int c0,
+                                            int swz) {
+  const uint32_t e = unzip_bits(~w);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = 4 * j + q;                // bits 2p and 2p + 1
+      v[q] = ((e << (15 - p)) & 0x80008000u) | 0x3F803F80u;
+    }
+    row[(c0 + j) ^ swz] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The GEMM core of rows 5 and 6. a: PIECES bf16 pieces (M, lda) of the
+// input, piece_stride apart, zero past column `red`; packed (k32, nw)
+// words; out (M, n_out) fp32, or with `partial` this block's split of the
+// reduction, unscaled, at partial[blockIdx.z].
+template <bool TRANS, int PIECES, int STAGES>
+__device__ __forceinline__ void binary_gemm_tc(
+    const __nv_bfloat16* __restrict__ a, size_t piece_stride,
+    const uint32_t* __restrict__ packed, const float* __restrict__ scale,
+    float* __restrict__ out, float* __restrict__ partial, int m, int red,
+    int lda, int n_out, int k32, int nw, int red_per_split) {
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(
+      as + STAGES * PIECES * BG_BM * BG_BK);
+  __nv_bfloat16* bx = reinterpret_cast<__nv_bfloat16*>(
+      ws + STAGES * BG_THREADS);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp >> 2, warp_n = warp & 3;
+  const int m0 = blockIdx.y * BG_BM, n0 = blockIdx.x * BG_BN;
+  const int k_lo = blockIdx.z * red_per_split;
+  const int k_hi = min(red, k_lo + red_per_split);
+  const int steps = k_hi > k_lo ? (k_hi - k_lo + BG_BK - 1) / BG_BK : 0;
+
+  // Step s's input tile (every piece) and its packed words into stage
+  // s % STAGES. Row 5's words: 2 word rows x 128 columns; row 6's: 4 word
+  // rows (128 output columns) x 64 reduction indices. Only the last split
+  // has a partial step, and its edge is the operand's own.
+  auto load = [&](int s) {
+    const int k0 = k_lo + s * BG_BK;
+    __nv_bfloat16* dst = as + (s % STAGES) * PIECES * BG_BM * BG_BK;
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p) {
+#pragma unroll
+      for (int i = 0; i < BG_BM * BG_BK / 8 / BG_THREADS; ++i) {
+        const int c = tid + i * BG_THREADS;
+        const int r = c >> 3, ch = c & 7;
+        const int gm = m0 + r, gk = k0 + ch * 8;
+        const bool ok = gm < m && gk < lda;
+        const __nv_bfloat16* src =
+            ok ? a + p * piece_stride + (size_t)gm * lda + gk : a;
+        cp_async16(dst + p * BG_BM * BG_BK + r * BG_BK + ((ch ^ (r & 7)) << 3),
+                   src, ok);
+      }
+    }
+    int wr, wc;
+    bool ok;
+    if constexpr (TRANS) {
+      wr = n0 / 32 + (tid >> 6);
+      wc = k0 + (tid & 63);
+      ok = wr < k32 && wc < red;
+    } else {
+      wr = k0 / 32 + (tid >> 7);
+      wc = n0 + (tid & 127);
+      ok = wr < k32 && wc < nw;
+    }
+    cp_async4(ws + (s % STAGES) * BG_THREADS + tid,
+              ok ? packed + (size_t)wr * nw + wc : packed, ok);
+  };
+
+  // Step s's words as the ±1 tile bx[s & 1]: row 5 [BN][BK], row 6
+  // [BK][BN]; one word a thread.
+  auto expand = [&](int s) {
+    const uint32_t w = ws[(s % STAGES) * BG_THREADS + tid];
+    uint4* tile = reinterpret_cast<uint4*>(bx + (s & 1) * BG_BN * BG_BK);
+    if constexpr (TRANS) {
+      const int r = tid & 63;                   // reduction index
+      expand_word(w, tile + r * (BG_BN / 8), (tid >> 6) * 4, r & 7);
+    } else {
+      const int n = tid & 127;                  // output column
+      expand_word(w, tile + n * (BG_BK / 8), (tid >> 7) * 4, n & 7);
+    }
+  };
+
+  float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int k0 = 0; k0 < k; k0 += 32) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM_TILE * 32; i += 256) {
-      const int r = i / 32, kk = i % 32;
-      xs[kk][r] = (m0 + r < m) ? to_f32(x[(size_t)(m0 + r) * k + k0 + kk])
-                               : 0.0f;
+  // fp32 input (PIECES > 1) sums each step into `part` from zero and adds
+  // it to `acc` with one round-to-nearest add, so the tensor cores'
+  // truncation acts on a step's sum, not the whole reduction's.
+  float part[4][4][4];
+  auto compute = [&](int s) {
+    const __nv_bfloat16* a_st = as + (s % STAGES) * PIECES * BG_BM * BG_BK;
+    const __nv_bfloat16* b_st = bx + (s & 1) * BG_BN * BG_BK;
+    const int q = lane >> 3, i8 = lane & 7;
+    if constexpr (PIECES > 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
     }
-    if (threadIdx.x < BN_TILE)
-      ws[threadIdx.x] = (n0 + threadIdx.x < n)
-                            ? packed[(size_t)(k0 / 32) * n + n0 + threadIdx.x]
-                            : 0u;
+#pragma unroll
+    for (int kk = 0; kk < BG_BK / 16; ++kk) {
+      // B fragments of the warp's four 8-column tiles, two per ldmatrix:
+      // matrices (tile 2jp, k 0-7), (2jp, k 8-15), (2jp+1, ...), ...
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t r[4];
+        if constexpr (TRANS) {
+          const int k = kk * 16 + (q & 1) * 8 + i8;
+          const int ch = warp_n * 4 + jp * 2 + (q >> 1);
+          ldsm_x4<true>(r, b_st + k * BG_BN + ((ch ^ i8) << 3));
+        } else {
+          const int n = warp_n * 32 + (jp * 2 + (q >> 1)) * 8 + i8;
+          const int ch = kk * 2 + (q & 1);
+          ldsm_x4<false>(r, b_st + n * BG_BK + ((ch ^ i8) << 3));
+        }
+        bf[2 * jp][0] = r[0];
+        bf[2 * jp][1] = r[1];
+        bf[2 * jp + 1][0] = r[2];
+        bf[2 * jp + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int p = 0; p < PIECES; ++p) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t af[4];
+          const int r = warp_m * 64 + i * 16 + (lane & 15);
+          const int ch = kk * 2 + (lane >> 4);
+          ldsm_x4<false>(af, a_st + p * BG_BM * BG_BK + r * BG_BK +
+                                 ((ch ^ (r & 7)) << 3));
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_16816(PIECES > 1 ? part[i][j] : acc[i][j], af, bf[j][0],
+                      bf[j][1]);
+        }
+      }
+    }
+    if constexpr (PIECES > 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    }
+  };
+
+  // Pipeline: stages 0 .. STAGES-2 in flight, step 0 expanded; then each
+  // step waits for the NEXT step's data (so its words can be expanded),
+  // refills the stage freed by the previous step, expands, and computes.
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 2>();
+  __syncthreads();
+  if (steps > 0) expand(0);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 3>();
     __syncthreads();
-    uint32_t neg[4];
+    if (s + STAGES - 1 < steps) load(s + STAGES - 1);
+    cp_async_commit();
+    if (s + 1 < steps) expand(s + 1);
+    compute(s);
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: accumulator (i, j) holds rows lane/4 (+8) and columns
+  // 2*(lane%4) (+1) of its 16x8 tile.
+  const float sc = scale[0];
+  float* dst = partial ? partial + (size_t)blockIdx.z * m * n_out : out;
+  const bool pair_store = (n_out % 2) == 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) neg[j] = ~ws[tx + 16 * j];
-#pragma unroll 8
-    for (int kk = 0; kk < 32; ++kk) {
-      float xv[4];
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[kk][ty * 4 + i];
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + warp_m * 64 + i * 16 + (lane >> 2) + h * 8;
+      if (row >= m) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t sgn = ((neg[j] >> kk) & 1u) << 31;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i][j] += __uint_as_float(__float_as_uint(xv[i]) ^ sgn);
+        const int col = n0 + warp_n * 32 + j * 8 + (lane & 3) * 2;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (!partial) {
+          v0 = __fmul_rn(v0, sc);
+          v1 = __fmul_rn(v1, sc);
+        }
+        float* o = dst + (size_t)row * n_out + col;
+        if (col + 1 < n_out && pair_store) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (col < n_out) o[0] = v0;
+          if (col + 1 < n_out) o[1] = v1;
+        }
       }
     }
   }
-  const float sc = scale[0];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < n) out[(size_t)row * n + col] = acc[i][j] * sc;
-    }
-  }
 }
 
+template <int PIECES, int STAGES>
+__global__ void __launch_bounds__(BG_THREADS, PIECES == 1 ? 2 : 1)
+binary_matmul_kernel(const __nv_bfloat16* __restrict__ a,
+                     size_t piece_stride,
+                     const uint32_t* __restrict__ packed,
+                     const float* __restrict__ scale,
+                     float* __restrict__ out, float* __restrict__ partial,
+                     int m, int red, int lda, int n_out, int k32, int nw,
+                     int red_per_split) {
+  binary_gemm_tc<false, PIECES, STAGES>(a, piece_stride, packed, scale, out,
+                                        partial, m, red, lda, n_out, k32, nw,
+                                        red_per_split);
+}
+
+template <int PIECES, int STAGES>
+__global__ void __launch_bounds__(BG_THREADS, PIECES == 1 ? 2 : 1)
+binary_matmul_t_kernel(const __nv_bfloat16* __restrict__ a,
+                       size_t piece_stride,
+                       const uint32_t* __restrict__ packed,
+                       const float* __restrict__ scale,
+                       float* __restrict__ out, float* __restrict__ partial,
+                       int m, int red, int lda, int n_out, int k32, int nw,
+                       int red_per_split) {
+  binary_gemm_tc<true, PIECES, STAGES>(a, piece_stride, packed, scale, out,
+                                       partial, m, red, lda, n_out, k32, nw,
+                                       red_per_split);
+}
+
+// out[i] = scale * (sum over splits s, in order, of partial[s][i]).
+__global__ void binary_splits_kernel(const float* __restrict__ partial,
+                                     const float* __restrict__ scale,
+                                     float* __restrict__ out, int splits,
+                                     size_t count) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float acc = 0.0f;
+  for (int s = 0; s < splits; ++s) acc += partial[(size_t)s * count + i];
+  out[i] = __fmul_rn(acc, scale[0]);
+}
+
+template <bool TRANS, int PIECES, int STAGES>
+static int launch_binary(const void* a, const void* packed,
+                         const void* scale, void* out, void* partial, int m,
+                         int red, int lda, int n_out, int k32, int nw,
+                         int splits, int red_per_split, cudaStream_t s) {
+  auto kernel = TRANS ? binary_matmul_t_kernel<PIECES, STAGES>
+                      : binary_matmul_kernel<PIECES, STAGES>;
+  const size_t smem = sizeof(__nv_bfloat16) *
+                          ((size_t)STAGES * PIECES * BG_BM * BG_BK +
+                           2 * BG_BN * BG_BK) +
+                      sizeof(uint32_t) * STAGES * BG_THREADS;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  float* part = splits > 1 ? (float*)partial : nullptr;
+  dim3 grid((n_out + BG_BN - 1) / BG_BN, (m + BG_BM - 1) / BG_BM, splits);
+  kernel<<<grid, BG_THREADS, smem, s>>>(
+      (const __nv_bfloat16*)a, (size_t)m * lda, (const uint32_t*)packed,
+      (const float*)scale, (float*)out, part, m, red, lda, n_out, k32, nw,
+      red_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return (int)err;
+  const size_t count = (size_t)m * n_out;
+  binary_splits_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
+      part, (const float*)scale, (float*)out, splits, count);
+  return (int)cudaGetLastError();
+}
+
+// bf16 input: one piece, 4 stages (100 KB of shared memory, two blocks an
+// SM); fp32 input: its three bf16 pieces, 3 stages (179 KB, one block).
+template <bool TRANS>
+static int dispatch_binary(const void* a, const void* packed,
+                           const void* scale, void* out, void* partial,
+                           int m, int red, int lda, int n_out, int k32,
+                           int nw, int pieces, int splits, int red_per_split,
+                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pieces == 1)
+    return launch_binary<TRANS, 1, 4>(a, packed, scale, out, partial, m, red,
+                                      lda, n_out, k32, nw, splits,
+                                      red_per_split, s);
+  if (pieces == 3)
+    return launch_binary<TRANS, 3, 3>(a, packed, scale, out, partial, m, red,
+                                      lda, n_out, k32, nw, splits,
+                                      red_per_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x: `pieces` bf16 pieces (M, lda), lda >= K a multiple of 8, zero past K;
+// partial: (splits, M, N) fp32 scratch when splits > 1.
 extern "C" int bd_binary_matmul(const void* x, const void* packed,
-                                const void* scale, void* out, int m, int k,
-                                int n, int is_bf16, void* stream) {
-  dim3 grid((n + BN_TILE - 1) / BN_TILE, (m + BM_TILE - 1) / BM_TILE);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    binary_matmul_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)x, (const uint32_t*)packed,
-        (const float*)scale, (float*)out, m, k, n);
-  else
-    binary_matmul_kernel<float><<<grid, 256, 0, s>>>(
-        (const float*)x, (const uint32_t*)packed, (const float*)scale,
-        (float*)out, m, k, n);
-  return (int)cudaGetLastError();
+                                const void* scale, void* out, void* partial,
+                                int m, int k, int n, int lda, int pieces,
+                                int splits, int k_per_split, void* stream) {
+  return dispatch_binary<false>(x, packed, scale, out, partial, m, k, lda, n,
+                                k / 32, n, pieces, splits, k_per_split,
+                                stream);
 }
 
-// ---------------------------------------------------------------------------
-// 6. Transposed binary matmul (the activation gradient of the trainable
-//    binary matmul in scale distillation):
-//    Y = scale * (g @ sign(P)^T),  g (M, N), P (K/32, N) int32 LSB-first
-//    along K, Y (M, K).
-//
-// Bound at the training shapes (M = batch * length = 512): operations,
-// 2*M*N*K against the bf16 tensor rate, as for kernel 5. Output column k
-// reads bit k % 32 of the words P[k / 32, :], so a block owns two word
-// rows (64 output columns) and a 64-row tile of g, and walks N in tiles
-// of 32: the words P[kw, n0:n0+32] are contiguous and load coalesced, the
-// g tile is staged in shared memory as fp32 (transposed, padded so the
-// staging stores hit distinct banks). Each thread keeps 4x4 outputs in
-// registers; each bit flips the sign of g[m, n] (bit 1 -> +g, bit 0 ->
-// -g) before an fp32 add, so the sum is the exact ±1 product accumulated
-// in fp32, sequential in N. The scale is applied once in the epilogue.
-// This first version runs on the CUDA cores, like kernel 5.
-// ---------------------------------------------------------------------------
-
-constexpr int BT_M = 64;       // g rows per block
-constexpr int BT_WORDS = 2;    // word rows per block (64 output columns)
-constexpr int BT_N = 32;       // N per shared-memory tile
-
-template <typename T>
-__global__ void binary_matmul_t_kernel(const T* __restrict__ g,
-                                       const uint32_t* __restrict__ packed,
-                                       const float* __restrict__ scale,
-                                       float* __restrict__ out,
-                                       int m, int k32, int n) {
-  __shared__ float gs[BT_N][BT_M + 1];
-  __shared__ uint32_t ws[BT_WORDS][BT_N];
-
-  // Thread (tx, ty) owns rows m0 + 4*ty + i and columns
-  // 32*(kw0 + j/2) + tx + 16*(j%2), i.e. bit tx or tx + 16 of each word.
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * BT_M, kw0 = blockIdx.x * BT_WORDS;
-  const int k = k32 * 32;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int n0 = 0; n0 < n; n0 += BT_N) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BT_M * BT_N; i += 256) {
-      const int r = i / BT_N, c = i % BT_N;
-      gs[c][r] = (m0 + r < m && n0 + c < n)
-                     ? to_f32(g[(size_t)(m0 + r) * n + n0 + c]) : 0.0f;
-    }
-    if (threadIdx.x < BT_WORDS * BT_N) {
-      const int w = threadIdx.x / BT_N, c = threadIdx.x % BT_N;
-      ws[w][c] = (kw0 + w < k32 && n0 + c < n)
-                     ? packed[(size_t)(kw0 + w) * n + n0 + c] : 0u;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BT_N; ++c) {
-      float gv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) gv[i] = gs[c][ty * 4 + i];
-      const uint32_t neg0 = ~ws[0][c], neg1 = ~ws[1][c];
-      // Bit s of a word moved to bit 31: the sign to XOR into g.
-      uint32_t sgn[4];
-      sgn[0] = (neg0 << (31 - tx)) & 0x80000000u;
-      sgn[1] = (neg0 << (15 - tx)) & 0x80000000u;
-      sgn[2] = (neg1 << (31 - tx)) & 0x80000000u;
-      sgn[3] = (neg1 << (15 - tx)) & 0x80000000u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i][j] += __uint_as_float(__float_as_uint(gv[i]) ^ sgn[j]);
-    }
-  }
-  const float sc = scale[0];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = 32 * (kw0 + j / 2) + tx + 16 * (j % 2);
-      if (col < k) out[(size_t)row * k + col] = acc[i][j] * sc;
-    }
-  }
-}
-
+// g: `pieces` bf16 pieces (M, lda), lda >= N a multiple of 8, zero past N;
+// partial: (splits, M, 32*K32) fp32 scratch when splits > 1.
 extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
-                                  const void* scale, void* out, int m,
-                                  int k32, int n, int is_bf16,
-                                  void* stream) {
-  dim3 grid((k32 + BT_WORDS - 1) / BT_WORDS, (m + BT_M - 1) / BT_M);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    binary_matmul_t_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)g, (const uint32_t*)packed,
-        (const float*)scale, (float*)out, m, k32, n);
-  else
-    binary_matmul_t_kernel<float><<<grid, 256, 0, s>>>(
-        (const float*)g, (const uint32_t*)packed, (const float*)scale,
-        (float*)out, m, k32, n);
-  return (int)cudaGetLastError();
+                                  const void* scale, void* out,
+                                  void* partial, int m, int k32, int n,
+                                  int lda, int pieces, int splits,
+                                  int n_per_split, void* stream) {
+  return dispatch_binary<true>(g, packed, scale, out, partial, m, n, lda,
+                               32 * k32, k32, n, pieces, splits, n_per_split,
+                               stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
 // fp32 scale per (row, position, KV head) (its quantized=True branch).
 //
 // One query token per row attends over its live cache positions
-// [max(len - window, 0), len) with GQA (query head i uses KV head
+// [max(len - window, 0), min(len, S)) with GQA (query head i uses KV head
 // i / (H / KV)) and an fp32 online softmax, masked with -1e30.
 //
 // Bound on the H100: the live K/V bytes (each row reads only its own
@@ -84,9 +84,12 @@ __global__ void flash_decode_kernel(const T* __restrict__ q,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int split = blockIdx.z, n_split = gridDim.z;
+  // A full cache's decode step passes a length of s_max + 1 (its own K/V
+  // write was dropped): the window starts from that length, as in the
+  // plain version, and no key past the cache's last slot is read.
   const int row_hi = lengths[b];
   const int lo = (window > 0 ? max(row_hi - window, 0) : 0) + split * chunk;
-  const int hi = min(row_hi, lo + chunk);
+  const int hi = min(min(row_hi, s_max), lo + chunk);
   const int n_out = g * hd;
 
   for (int i = tid; i < n_out; i += DEC_THREADS)

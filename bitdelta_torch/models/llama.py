@@ -433,6 +433,30 @@ def _final_norm_w(params: Params, tenant_ids):
 # Decoder layer + full forward
 # ---------------------------------------------------------------------------
 
+def write_cache(cache: torch.Tensor, write_pos: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write ``new`` ``(B, Sq, ...)`` into ``cache`` ``(B, S, ...)`` in
+    place, position j of row b at slot ``write_pos[b] + j``.
+
+    JAX's ``.at[rows, idx].set`` drops every write whose slot is ``>= S``
+    (a decode step on a full cache, a prefill bucket longer than the
+    cache). So does this, without a host synchronisation: each position
+    is pointed at slot ``min(slot, S - 1)`` and carries the value that
+    slot ends up with (the in-range write to it, or its old contents),
+    so positions that share a slot all write the same value."""
+    b, sq = new.shape[:2]
+    s = cache.shape[1]
+    dev = cache.device
+    rows = torch.arange(b, device=dev)[:, None]
+    start = write_pos.to(torch.int64)[:, None]
+    slot = torch.clamp(start + torch.arange(sq, device=dev)[None, :],
+                       max=s - 1)
+    src = slot - start                   # the position whose write lands
+    keep = (src < 0).reshape(b, sq, *([1] * (new.dim() - 2)))
+    vals = new[rows, torch.clamp(src, min=0)].to(cache.dtype)
+    cache[rows, slot] = torch.where(keep, cache[rows, slot], vals)
+
+
 def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
                q_positions, kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, kernel: str = "torch", lengths=None,
@@ -484,20 +508,15 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
     quantized = cache_k is not None and cache_k_scale is not None
     kernel_decode = on_card(kernel) and cache_k is not None and sq == 1
     if cache_k is not None:
-        rows = torch.arange(b, device=x.device)[:, None]
-        idx = write_pos.to(torch.int64)[:, None] + torch.arange(
-            sq, device=x.device)[None, :]
-        # JAX's scatter clamps out-of-range slots; so does this write.
-        idx = torch.clamp(idx, max=cache_k.shape[1] - 1)
         if quantized:
             k_store, ks_new = quantize_kv(k)
             v_store, vs_new = quantize_kv(v)
-            cache_k_scale[rows, idx] = ks_new
-            cache_v_scale[rows, idx] = vs_new
+            write_cache(cache_k_scale, write_pos, ks_new)
+            write_cache(cache_v_scale, write_pos, vs_new)
         else:
             k_store, v_store = k, v
-        cache_k[rows, idx] = k_store.to(cache_k.dtype)
-        cache_v[rows, idx] = v_store.to(cache_v.dtype)
+        write_cache(cache_k, write_pos, k_store)
+        write_cache(cache_v, write_pos, v_store)
         k_all, v_all = cache_k, cache_v
         if quantized and not kernel_decode:
             k_all = dequantize_kv(cache_k, cache_k_scale, compute_dtype)

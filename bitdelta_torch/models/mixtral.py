@@ -42,7 +42,7 @@ from .config import ModelConfig
 from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
                     _embed_lookup, _final_norm_w, _layer, _lm_head_logits,
                     _proj, _split_deltas, apply_rope, on_card, rms_norm,
-                    rope_tables)
+                    rope_tables, write_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,12 +281,8 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
     k = apply_rope(k, cos, sin)
 
     if cache_k is not None:
-        rows = torch.arange(b, device=x.device)[:, None]
-        idx = write_pos.to(torch.int64)[:, None] + torch.arange(
-            sq, device=x.device)[None, :]
-        idx = torch.clamp(idx, max=cache_k.shape[1] - 1)
-        cache_k[rows, idx] = k.to(cache_k.dtype)
-        cache_v[rows, idx] = v.to(cache_v.dtype)
+        write_cache(cache_k, write_pos, k)
+        write_cache(cache_v, write_pos, v)
         k_all, v_all = cache_k, cache_v
     else:
         k_all, v_all = k, v

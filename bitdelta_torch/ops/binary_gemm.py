@@ -425,6 +425,84 @@ fused_base_pair_matmul.launches = 0
 # Binary matmul, canonical packing (single-request prefill delta)
 # ---------------------------------------------------------------------------
 
+GEMM_TILE = 128   # output rows and columns per block of rows 5 and 6
+GEMM_STEP = 64    # reduction depth of one pipeline step
+
+
+def _split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as three bf16 pieces ``(3, *x.shape)``: ``hi =
+    bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``. Their
+    fp32 sum ``hi + mid + lo`` is ``x`` bit for bit for normal values
+    (each residual fits the next piece's 8 bits); a zero piece takes x's
+    sign, so -0.0 splits into three -0.0."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    lo = r - mid
+    pieces = torch.stack([hi, mid, lo])
+    pieces = torch.where(pieces == 0, torch.copysign(pieces, x), pieces)
+    return pieces.to(torch.bfloat16)
+
+
+def _gemm_operand(a: torch.Tensor):
+    """Rows 5 and 6's input as the kernel reads it: ``(pieces, M, lda)``
+    bf16, one piece for bf16 input and :func:`_split_bf16x3`'s three for
+    fp32, with ``lda`` the reduction length rounded up to 8 (zero-padded)
+    and a 16-byte aligned start, so every 16-byte copy is aligned."""
+    red = a.shape[1]
+    if a.dtype == torch.float32:
+        pieces = _split_bf16x3(a.contiguous())
+    elif a.dtype == torch.bfloat16:
+        pieces = a.contiguous()[None]
+    else:
+        raise TypeError(f"kernel takes bf16 or fp32, got {a.dtype}")
+    lda = -(-red // 8) * 8
+    if lda != red:
+        pieces = torch.nn.functional.pad(pieces, (0, lda - red))
+    elif pieces.data_ptr() % 16:
+        pieces = pieces.clone()
+    return pieces, lda
+
+
+def _gemm_splits(m: int, n_out: int, red: int, per_sm: int,
+                 device: torch.device):
+    """Reduction splits of rows 5 and 6: where the output tiles alone do
+    not fill the card (``per_sm`` blocks an SM: two for bf16 input, one
+    for fp32's three pieces, by shared memory), as many splits as fill
+    it, each at least 16 steps deep (a shallower split costs more in its
+    second pass than it gains). Returns ``(splits, reduction per
+    split)``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-m // GEMM_TILE) * -(-n_out // GEMM_TILE)
+    steps = -(-red // GEMM_STEP)
+    splits = max(1, min(per_sm * sms // tiles, steps // 16))
+    per = -(-steps // splits) * GEMM_STEP
+    return -(-red // per), per
+
+
+def _launch_binary(fn_name: str, a, packed, scale, n_out: int, dims):
+    """Launch row 5 or 6 (``fn_name``) on ``a`` ``(M, red)``; ``dims``
+    are the entry's (K or K32, N). Returns the fp32 ``(M, n_out)``
+    output."""
+    m, red = a.shape
+    pieces, lda = _gemm_operand(a)
+    pc = packed.contiguous()
+    sc = torch.as_tensor(scale, dtype=torch.float32,
+                         device=a.device).reshape(1).contiguous()
+    splits, per = _gemm_splits(m, n_out, red,
+                               2 if pieces.shape[0] == 1 else 1, a.device)
+    out = torch.empty((m, n_out), dtype=torch.float32, device=a.device)
+    partial = (torch.empty((splits, m, n_out), dtype=torch.float32,
+                           device=a.device) if splits > 1 else None)
+    _build.launch(_LIB, fn_name, [P] * 5 + [I] * 7 + [P],
+                  _build.ptr(pieces), _build.ptr(pc), _build.ptr(sc),
+                  _build.ptr(out),
+                  _build.ptr(partial) if partial is not None else None,
+                  m, *dims, lda, pieces.shape[0], splits, per,
+                  _build.stream(a.device))
+    return out
+
+
 def binary_matmul_plain(x, packed, scale):
     """Plain version (fp32 out): unpack to ±1 and multiply in fp32."""
     from .binary_matmul import binary_matmul as plain
@@ -444,16 +522,7 @@ def binary_matmul(x: torch.Tensor, packed: torch.Tensor,
              f"{tuple(packed.shape)}")
     if not x.is_cuda:
         return binary_matmul_plain(x, packed, scale).to(out_dtype)
-    flag = _cuda_dtype_flag(x)
-    xc = x.contiguous()
-    pc = packed.contiguous()
-    sc = torch.as_tensor(scale, dtype=torch.float32,
-                         device=x.device).reshape(1).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    _build.launch(_LIB, "bd_binary_matmul", [P, P, P, P, I, I, I, I, P],
-                  _build.ptr(xc), _build.ptr(pc), _build.ptr(sc),
-                  _build.ptr(out), m, kdim, n, flag,
-                  _build.stream(x.device))
+    out = _launch_binary("bd_binary_matmul", x, packed, scale, n, (kdim, n))
     binary_matmul.launches += 1
     return out.to(out_dtype)
 
@@ -486,15 +555,8 @@ def binary_matmul_t(g: torch.Tensor, packed: torch.Tensor,
     _require(n_p == n, f"g {tuple(g.shape)} vs packed {tuple(packed.shape)}")
     if not g.is_cuda:
         return binary_matmul_t_plain(g, packed, scale).to(out_dtype)
-    flag = _cuda_dtype_flag(g)
-    gc = g.contiguous()
-    pc = packed.contiguous()
-    sc = torch.as_tensor(scale, dtype=torch.float32,
-                         device=g.device).reshape(1).contiguous()
-    out = torch.empty((m, k32 * 32), dtype=torch.float32, device=g.device)
-    _build.launch(_LIB, "bd_binary_matmul_t", [P, P, P, P, I, I, I, I, P],
-                  _build.ptr(gc), _build.ptr(pc), _build.ptr(sc),
-                  _build.ptr(out), m, k32, n, flag, _build.stream(g.device))
+    out = _launch_binary("bd_binary_matmul_t", g, packed, scale, k32 * 32,
+                         (k32, n))
     binary_matmul_t.launches += 1
     return out.to(out_dtype)
 

@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the Mistral-7B (Mixtral-8x7B for the canonical tenant delta)
    shapes of the path that runs it (the two fused base + delta kernels
-   with bf16 and fp32 x and W), and time the
+   with bf16 and fp32 x and W, the binary matmul and its transpose with
+   bf16 and fp32 input, flash decode also on a full cache, lengths
+   S + 1), and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -285,6 +287,27 @@ def attention_error(got, want, hd):
     tol = 2 ** -7 * want.float().reshape(-1, hd).abs().amax(-1)
     bad = int((diff > tol).sum())
     return diff.max().item(), bad
+
+
+def full_cache_error(fn, plain, q, k, v, hd, **scales):
+    """Row 2 on a full cache: every row's length S + 1 (a decode step
+    whose own K/V write was dropped), without and with a window, each
+    (row, head) held as :func:`attention_error` holds it. Returns the
+    max |err|."""
+    lengths = torch.full((q.shape[0],), k.shape[1] + 1, device=q.device,
+                         dtype=torch.int32)
+    worst = 0.0
+    for window in (None, 100):
+        got = fn(q, k, v, lengths, window=window, **scales)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, lengths, window=window, **scales)
+        torch.cuda.synchronize()
+        err, bad = attention_error(got, want, hd)
+        require(not bad, f"flash decode, lengths S + 1, window {window}: "
+                         f"{bad} (row, head) pairs off by more than 2^-7 of "
+                         f"their max |ref| (max|err| {err})")
+        worst = max(worst, err)
+    return worst
 
 
 def fp32_attention_error(fn, plain, args, window):
@@ -641,6 +664,8 @@ def check_decode(dev, gen, results):
                                  window)
     require(err32 <= 1e-4, f"flash decode fp32: max|err| {err32} > 1e-4")
     q, k, v, _ = sets[0]
+    full_err = full_cache_error(fd.flash_decode_attention,
+                                fd.flash_decode_attention_plain, q, k, v, hd)
     pos = torch.arange(s, device=dev)
     mask = (pos[None] < lengths[:, None])[:, None, None, :]
     kk, vv, mask = _sdpa_inputs(q[:, :, None, :], k, v, mask)
@@ -657,9 +682,10 @@ def check_decode(dev, gen, results):
     b_ms, b_by = bound(nbytes, 4 * h * hd * live)
     results["flash_decode_attention"] = dict(
         row, timing=TIMING, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        fp32_max_abs_err=err32,
-        tolerance="bf16: each (row, head) within 2^-7 of its own max|ref|; "
-                  "fp32 inputs: 1e-4 absolute",
+        fp32_max_abs_err=err32, full_cache_max_abs_err=full_err,
+        tolerance="bf16: each (row, head) within 2^-7 of its own max|ref|, "
+                  "also at lengths S + 1 (a full cache) with and without a "
+                  "window of 100; fp32 inputs: 1e-4 absolute",
         bound_basis="bytes: live K/V rows + q + out (bf16); ops: 4*H*hd "
                     "per live key at the bf16 rate",
         shape="B=8 H=32 KV=8 hd=128 cache 2048, lengths "
@@ -713,6 +739,9 @@ def check_decode_int8(dev, gen, results):
     require(err32 <= 1e-4, f"flash decode int8, fp32 q: max|err| {err32} "
                            f"> 1e-4")
     q, k8, v8, _, ks, vs = sets[0]
+    full_err = full_cache_error(fd.flash_decode_attention,
+                                fd.flash_decode_attention_plain, q, k8, v8,
+                                hd, k_scale=ks, v_scale=vs)
     pos = torch.arange(s, device=dev)
     mask = (pos[None] < lengths[:, None])[:, None, None, :]
     kk, vv, mask = _sdpa_inputs(q[:, :, None, :],
@@ -729,9 +758,10 @@ def check_decode_int8(dev, gen, results):
     b_ms, b_by = bound(nbytes, 4 * h * hd * live)
     results["flash_decode_attention_int8"] = dict(
         row, timing=TIMING, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        fp32_max_abs_err=err32,
+        fp32_max_abs_err=err32, full_cache_max_abs_err=full_err,
         tolerance="bf16 q: each (row, head) within 2^-7 of its own "
-                  "max|ref|; fp32 q: 1e-4 absolute",
+                  "max|ref|, also at lengths S + 1 with and without a "
+                  "window of 100; fp32 q: 1e-4 absolute",
         bound_basis="bytes: live int8 K/V rows and their fp32 scales + q + "
                     "out (bf16); ops: 4*H*hd per live key at the bf16 rate",
         shape="B=8 H=32 KV=8 hd=128 int8 cache 2048 (K/V = quantize_kv of "
@@ -958,26 +988,34 @@ def check_binary(dev, gen, results):
     m = 512
     tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
                          "library_ms", "bound_ms"), 0.0)
-    err, shapes, by = 0.0, [], set()
+    err, err32, shapes, by = 0.0, 0.0, [], set()
     for name, k, n in PROJ_SHAPES:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n),
                                generator=gen, device=dev, dtype=torch.int32)
         scale = torch.tensor(0.003, device=dev)
-        got = bg.binary_matmul(x, packed, scale, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        want = bg.binary_matmul_plain(x, packed, scale)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        tol = 1e-4 * want.abs().max().item()
-        require(e <= tol, f"binary matmul {name}: max|err| {e} > {tol}")
-        err = max(err, e)
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            got = bg.binary_matmul(xd, packed, scale,
+                                   out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            want = bg.binary_matmul_plain(xd, packed, scale)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            require(e <= tol, f"binary matmul {name} {dtype}: max|err| {e} "
+                              f"> {tol}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            else:
+                err32 = max(err32, e)
+        del got, want, xd
         pm1 = unpack_to_pm1(packed, torch.bfloat16)
         row = time_wrapper(
             f"binary matmul {name}",
             lambda i: bg.binary_matmul(x, packed, scale,
                                        out_dtype=torch.float32),
-            1, ("binary_matmul_kernel",),
+            1, ("binary_matmul_kernel", "binary_splits_kernel"),
             plain=lambda i: bg.binary_matmul_plain(x, packed, scale),
             library=lambda i: torch.matmul(x, pm1), iters=5)
         nbytes = m * k * 2 + (k // 32) * n * 4 + m * n * 4
@@ -988,8 +1026,10 @@ def check_binary(dev, gen, results):
         shapes.append({"proj": name, "k": k, "n": n, **row,
                        "max_abs_err": e})
     results["binary_matmul"] = dict(
-        tot, max_abs_err=err, bound_by="+".join(sorted(by)),
-        tolerance="1e-4 * max|ref| (fp32 sums in another order)",
+        tot, max_abs_err=err, fp32_max_abs_err=err32,
+        bound_by="+".join(sorted(by)),
+        tolerance="1e-4 * max|ref| (fp32 sums in another order), bf16 and "
+                  "fp32 x",
         shape="M=512, per prefill layer: 7 projections", timing=TIMING,
         bound_basis="ops: 2*M*K*N at the bf16 rate (±1 is exact in bf16); "
                     "bytes: x bf16 + K/32*N words + fp32 out",
@@ -1032,7 +1072,7 @@ def check_binary_t(dev, gen, results):
         row = time_wrapper(
             f"binary matmul t {name}",
             lambda i: bg.binary_matmul_t(g, packed, scale),
-            1, ("binary_matmul_t_kernel",),
+            1, ("binary_matmul_t_kernel", "binary_splits_kernel"),
             plain=lambda i: bg.binary_matmul_t_plain(g, packed, scale),
             library=lambda i: torch.matmul(g, pm1.T), iters=5)
         del pm1

@@ -104,17 +104,28 @@ def test_cuda_tenant_dense_matches_plain(cuda, dtype):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
+# Rows 5 and 6: M from one row to the training batch; (K, N) a ragged
+# N = 200 (not a multiple of 16), k/v (split reduction) and down_proj.
+BINARY_M = (1, 130, 512)
+BINARY_KN = ((1024, 200), (4096, 1024), (14336, 4096))
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_binary_matmul_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("k,n", BINARY_KN)
+@pytest.mark.parametrize("m", BINARY_M)
+def test_cuda_binary_matmul_matches_plain(cuda, m, k, n, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn((130, 1024), generator=g, device=cuda).to(dtype)
-    packed = torch.randint(-2**31, 2**31 - 1, (32, 200), generator=g,
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n), generator=g,
                            device=cuda, dtype=torch.int32)
     scale = torch.tensor(0.37, device=cuda)
+    before = tbg.binary_matmul.launches
     got = tbg.binary_matmul(x, packed, scale, out_dtype=torch.float32)
     want = tbg.binary_matmul_plain(x, packed, scale)
     torch.cuda.synchronize()
+    assert tbg.binary_matmul.launches == before + 1
+    assert got.shape == (m, n)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
@@ -151,10 +162,13 @@ def test_cuda_flash_prefill_matches_plain(cuda, window, dtype):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_binary_matmul_t_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("k,n", BINARY_KN + ((33 * 32, 200),))
+@pytest.mark.parametrize("m", BINARY_M)
+def test_cuda_binary_matmul_t_matches_plain(cuda, m, k, n, dtype):
+    # K32 = 33 leaves a partial last 128-column output tile.
     g = torch.Generator(device=cuda).manual_seed(5)
-    grad = torch.randn((130, 200), generator=g, device=cuda).to(dtype)
-    packed = torch.randint(-2**31, 2**31 - 1, (33, 200), generator=g,
+    grad = torch.randn((m, n), generator=g, device=cuda).to(dtype)
+    packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n), generator=g,
                            device=cuda, dtype=torch.int32)
     scale = torch.tensor(0.37, device=cuda)
     before = tbg.binary_matmul_t.launches
@@ -162,8 +176,59 @@ def test_cuda_binary_matmul_t_matches_plain(cuda, dtype):
     want = tbg.binary_matmul_t_plain(grad, packed, scale)
     torch.cuda.synchronize()
     assert tbg.binary_matmul_t.launches == before + 1
-    assert got.shape == (130, 33 * 32)
+    assert got.shape == (m, k)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_binary_matmul_takes_odd_n_and_strided_rows(cuda, dtype):
+    # Row 6 with N = 100 (the wrapper pads g's rows to a multiple of 8);
+    # row 5 on a slice of a larger tensor, then on one that starts 2 bytes
+    # off a 16-byte boundary (the wrapper copies it).
+    g = torch.Generator(device=cuda).manual_seed(14)
+    packed = torch.randint(-2**31, 2**31 - 1, (4, 100), generator=g,
+                           device=cuda, dtype=torch.int32)
+    scale = torch.tensor(0.5, device=cuda)
+    grad = torch.randn((70, 100), generator=g, device=cuda).to(dtype)
+    got = tbg.binary_matmul_t(grad, packed, scale, out_dtype=torch.float32)
+    want = tbg.binary_matmul_t_plain(grad, packed, scale)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    big = torch.randn((3 * 70 * 128 + 1,), generator=g, device=cuda).to(dtype)
+    for x in (big[:-1].view(3, 70, 128)[1], big[1:].view(3, 70, 128)[0]):
+        got = tbg.binary_matmul(x, packed, scale, out_dtype=torch.float32)
+        want = tbg.binary_matmul_plain(x, packed, scale)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max(
+            ).item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_decode_on_a_full_cache_matches_plain(cuda, window, int8):
+    # A decode step on a full cache attends with length S + 1 (its own
+    # write dropped): the kernel reads no key past slot S - 1, and the
+    # window starts from S + 1 as in the plain version.
+    g = torch.Generator(device=cuda).manual_seed(15)
+    s = 512
+    q = torch.randn((3, 32, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((3, s, 8, 128), generator=g, device=cuda)
+    v = torch.randn_like(k)
+    scales = {}
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    lengths = torch.tensor([s + 1, s + 1, s], device=cuda)
+    got = tfd.flash_decode_attention(q, k, v, lengths, window=window,
+                                     **scales)
+    want = tfd.flash_decode_attention_plain(q, k, v, lengths, window=window,
+                                            **scales)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[
+        torch.bfloat16]
 
 
 def _grad_close(got, want, rows_of):

@@ -294,6 +294,51 @@ def test_binary_matmul_t_plain_matches_pallas(m, k, n):
                                atol=FLOAT_TOL * np.abs(want).max())
 
 
+def test_split_bf16x3_is_exact():
+    # Rows 5 and 6 take fp32 input as three bf16 pieces; their fp32 sum
+    # must give back x bit for bit, over 60 decades and for signed zeros.
+    rng = np.random.default_rng(12)
+    mant = rng.uniform(1.0, 10.0, 4096)
+    expo = rng.integers(-30, 31, 4096).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], 4096)
+    x = (sign * mant * 10.0 ** expo).astype(np.float32)
+    x = np.concatenate([x, np.float32([0.0, -0.0, 1e-30, -1e30, 1.0, -1.0])])
+    hi, mid, lo = tbg._split_bf16x3(_t(x)).float()
+    got = (hi + mid + lo).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), x.view(np.uint32))
+
+
+def _three_piece(a, packed, scale, trans):
+    """What the card's rows 5 and 6 compute for fp32 input, in plain
+    torch: the three bf16 pieces' products with the ±1 matrix, summed in
+    fp32, scaled once."""
+    from bitdelta_torch.ops.packing import unpack_to_pm1
+
+    pieces = tbg._split_bf16x3(_t(a)).float()
+    signs = unpack_to_pm1(_t(packed), torch.float32)
+    b = signs.T if trans else signs
+    return (pieces[0] @ b + pieces[1] @ b + pieces[2] @ b) * scale
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("m,k,n", [(8, 64, 128), (16, 512, 256),
+                                   (13, 96, 40)])
+def test_three_piece_products_match_pallas(trans, m, k, n):
+    # Within 1e-6 of the output scale: the split is exact, so only the
+    # order of the fp32 sums differs from the TPU kernels' fp32 dot.
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal((m, n if trans else k)).astype(np.float32)
+    packed = np.array(jpack(jnp.asarray(
+        rng.integers(0, 2, (k, n)).astype(bool))))
+    kern = jpb.binary_matmul_t_pallas if trans else jpb.binary_matmul_pallas
+    want = np.array(kern(jnp.asarray(a), jnp.asarray(packed), 0.7,
+                         interpret=True))
+    got = _three_piece(a, packed, 0.7, trans).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
 def _tol(want, dtype):
     rel = FLOAT_TOL if dtype == jnp.float32 else 2.0 ** -7
     return rel * float(np.abs(np.asarray(want, np.float32)).max())
