@@ -18,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 extern "C" const char* bd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -322,54 +324,11 @@ extern "C" int bd_tenant_dense(const void* x, const void* w, const void* ids,
 constexpr int BG_BM = 128, BG_BN = 128, BG_BK = 64;
 constexpr int BG_THREADS = 256;    // 8 warps: 2 along M x 4 along N
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if constexpr (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-        : "memory");
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-        : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 sums.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Even bits of x to the low half, odd bits to the high half, in order.

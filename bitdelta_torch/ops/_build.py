@@ -3,8 +3,9 @@
 Each ``bitdelta_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library
 under ``bitdelta_torch/build/`` (git-ignored) at first use, then loaded
-with ``ctypes``. The library's file name carries a hash of its source, so
-an edited source rebuilds and a stale library is never loaded.
+with ``ctypes``. The library's file name carries a hash of its source and
+of the shared headers (``csrc/*.cuh``), so an edited source or header
+rebuilds and a stale library is never loaded.
 
 Every C entry point takes pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`launch` raises on
@@ -46,8 +47,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # sources include these
+        digest.update(header.read_bytes())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> list:
@@ -121,6 +124,13 @@ def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (a copy of a view
+    that starts mid-vector), for kernels that read it in 16-byte loads."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream(device: torch.device) -> int:

@@ -4,8 +4,10 @@ cache, or an int8 cache with its per-(row, position, KV head) fp32
 scales (``ops/kv_quant.py``), read at 1 byte an element.
 
 :func:`flash_decode_attention` launches ``csrc/flash_decode.cu`` on a
-CUDA tensor and takes :func:`flash_decode_attention_plain` on a CPU
-tensor; launches are counted in ``flash_decode_attention.launches``.
+CUDA tensor (``flash_decode_split_kernel`` over splits of 64 live keys,
+then ``flash_decode_merge_kernel``) and takes
+:func:`flash_decode_attention_plain` on a CPU tensor; launches are
+counted in ``flash_decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .kv_quant import dequantize_kv
 
 _NEG_INF = -1e30
 _LIB = "flash_decode"
-_SPLIT_KEYS = 256   # live keys per block; longer rows split over blocks
+_SPLIT_KEYS = 64    # live keys per block (the kernel's DEC_CHUNK)
 
 
 def _live_range(lengths: torch.Tensor, window: Optional[int], s: int):
@@ -95,13 +97,16 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
             raise TypeError("K/V scales must be fp32")
     elif not (q.dtype == k.dtype == v.dtype):
         raise TypeError("kernel takes q/k/v of one dtype, bf16 or fp32")
-    if (nheads // n_kv) * hd > 8 * 128:
-        raise ValueError("kernel holds at most 1024 (G * hd) outputs a block")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    if hd not in (64, 128) or nheads // n_kv not in (1, 2, 4, 8):
+        raise ValueError("kernel takes head_dim 64 or 128 and 1, 2, 4 or 8 "
+                         "query heads a KV head")
+    qc, kc, vc = (_build.aligned16(t) for t in (q, k, v))
     ksc = k_scale.contiguous() if quantized else None
     vsc = v_scale.contiguous() if quantized else None
     lens = lengths.to(torch.int32).contiguous()
-    live = min(s, window) if window else s      # most keys a row can see
+    # Splits for the most keys a row can see; the kernel reads the lengths
+    # on the device, and splits past a row's live keys exit at once.
+    live = min(s, window) if window else s
     n_split = -(-live // _SPLIT_KEYS)
     part_acc = torch.empty((bsz, nheads, n_split, hd), dtype=torch.float32,
                            device=q.device)

@@ -4,6 +4,9 @@
 :func:`flash_prefill_attention` launches ``csrc/flash_prefill.cu`` on a
 CUDA tensor and takes :func:`flash_prefill_attention_plain` on a CPU
 tensor; launches are counted in ``flash_prefill_attention.launches``.
+bf16 input runs ``flash_prefill_tc_kernel`` on the tensor cores (P
+rounded to bf16 for the P·V product), fp32 input the CUDA-core
+``flash_prefill_fp32_kernel``: a choice by dtype, made before the launch.
 When a gradient is to be taken, the call goes through an autograd
 Function whose backward is the JAX package's blockwise recompute
 (``_blockwise_backward``), in plain torch as JAX runs it in XLA.
@@ -75,9 +78,11 @@ def _forward(q, k, v, lengths, window):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.bfloat16, torch.float32):
         raise TypeError("kernel takes q/k/v of one dtype, bf16 or fp32")
+    if q.dtype == torch.bfloat16 and hd not in (64, 128):
+        raise ValueError("the bf16 kernel takes head_dim 64 or 128")
     if hd > 128 or hd % 4:
         raise ValueError("kernel takes head_dim <= 128, a multiple of 4")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qc, kc, vc = (_build.aligned16(t) for t in (q, k, v))
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((bsz, sq, nheads * hd), dtype=q.dtype, device=q.device)
     _build.launch(_LIB, "bd_flash_prefill",

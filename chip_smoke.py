@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    shapes of the path that runs it (the two fused base + delta kernels
    with bf16 and fp32 x and W, the binary matmul and its transpose with
    bf16 and fp32 input, flash decode also on a full cache, lengths
-   S + 1), and time the
+   S + 1, and timed at uniform lengths of 128, 512 and 2048 keys; flash
+   prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
+   timed), and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -96,6 +98,7 @@ import torch
 
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3 bandwidth
 PEAK_BF16_S = 989e12          # H100 SXM dense bf16/fp16 tensor rate
+PEAK_FP32_S = 67e12           # H100 SXM fp32 outside the tensor cores
 L2_BYTES = 50e6
 TRACE_TRIES = 3              # profiler traces taken before one counts as lost
 
@@ -151,6 +154,10 @@ PATHS = {
     "fused_canonical": ("fused_tenant_matmul", "tenant_delta_matmul",
                         "flash_decode_attention"),
 }
+# The CUDA kernels behind rows 2 and 4 (profiler filters, kernels line).
+DECODE_KERNELS = ("flash_decode_split_kernel", "flash_decode_merge_kernel")
+PREFILL_TC_KERNEL = "flash_prefill_tc_kernel"       # bf16, tensor cores
+PREFILL_FP32_KERNEL = "flash_prefill_fp32_kernel"   # fp32, CUDA cores
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
                ("gate_proj", 4096, 14336), ("up_proj", 4096, 14336),
@@ -186,9 +193,9 @@ def read_counts():
     return {name: wrapper(name).launches for name in KERNELS}
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, peak_ops=PEAK_BF16_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_BF16_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -673,7 +680,7 @@ def check_decode(dev, gen, results):
     row = time_wrapper(
         "flash decode",
         lambda i: fd.flash_decode_attention(*sets[i], window=window),
-        len(sets), ("flash_decode_kernel", "merge_splits_kernel"),
+        len(sets), DECODE_KERNELS,
         plain=lambda i: fd.flash_decode_attention_plain(*sets[i],
                                                         window=window),
         library=lambda i: F.scaled_dot_product_attention(q4, kk, vv,
@@ -750,7 +757,7 @@ def check_decode_int8(dev, gen, results):
     q4 = q[:, :, None, :]
     row = time_wrapper(
         "flash decode int8", lambda i: kernel(*sets[i]), len(sets),
-        ("flash_decode_kernel", "merge_splits_kernel"),
+        DECODE_KERNELS,
         plain=lambda i: plain(*sets[i]),
         library=lambda i: F.scaled_dot_product_attention(q4, kk, vv,
                                                          attn_mask=mask))
@@ -769,6 +776,35 @@ def check_decode_int8(dev, gen, results):
         library="torch.nn.functional.scaled_dot_product_attention on the "
                 "dequantized bf16 cache (padded, boolean mask; the "
                 "dequantization is not timed)")
+
+
+def check_decode_lengths(dev, gen, results):
+    """Row 2 at uniform lengths of 128, 512 and 2048 keys (B=8, a bf16
+    cache of 2048 slots), each with its bound: the time should follow the
+    live bytes."""
+    from bitdelta_torch.ops import flash_decode as fd
+
+    bsz, h, kvh, hd, s = 8, 32, 8, 128, 2048
+    for n in (128, 512, 2048):
+        lengths = torch.full((bsz,), n, device=dev, dtype=torch.int32)
+        set_bytes = bsz * n * kvh * hd * 2 * 2
+        sets = []
+        for _ in range(n_sets(set_bytes, cap=8)):
+            q = torch.randn((bsz, h, hd), generator=gen, device=dev).to(
+                torch.bfloat16)
+            k = torch.randn((bsz, s, kvh, hd), generator=gen, device=dev).to(
+                torch.bfloat16)
+            sets.append((q, k, torch.randn_like(k), lengths))
+        ms, kernel_ms = device_ms(
+            lambda i: fd.flash_decode_attention(*sets[i]), len(sets),
+            f"flash decode, uniform length {n}", DECODE_KERNELS)
+        b_ms, b_by = bound(set_bytes + 2 * bsz * h * hd * 2,
+                           4 * h * hd * bsz * n)
+        results[f"flash_decode_attention_uniform_{n}"] = dict(
+            ms=ms, kernel_ms=kernel_ms, bound_ms=b_ms, bound_by=b_by,
+            timing=TIMING, shape=f"B=8 H=32 KV=8 hd=128 bf16 cache 2048, "
+                                 f"every length {n}, no window")
+        del sets
 
 
 def int4pack_ms(x, packed, scale):
@@ -961,16 +997,38 @@ def check_prefill(dev, gen, results):
     row = time_wrapper(
         "flash prefill",
         lambda i: fp.flash_prefill_attention(*sets[i], window=window),
-        len(sets), ("flash_prefill_kernel",),
+        len(sets), (PREFILL_TC_KERNEL,),
         plain=lambda i: fp.flash_prefill_attention_plain(*sets[i],
                                                          window=window),
         library=lambda i: F.scaled_dot_product_attention(q4, kk, vv,
                                                          attn_mask=m4))
     nbytes = sq * h * hd * 2 * 2 + int(lengths.sum()) * kvh * hd * 2 * 2
     b_ms, b_by = bound(nbytes, 4 * hd * h * visible)
+    # The fp32 branch (its own CUDA-core kernel) at the same shape.
+    a32 = [t.float() for t in sets[0][:3]] + [lengths]
+    q32, kk32, vv32 = q4.float(), kk.float(), vv.float()
+    row32 = time_wrapper(
+        "flash prefill fp32",
+        lambda i: fp.flash_prefill_attention(*a32, window=window), 1,
+        (PREFILL_FP32_KERNEL,),
+        plain=lambda i: fp.flash_prefill_attention_plain(*a32,
+                                                         window=window),
+        library=lambda i: F.scaled_dot_product_attention(q32, kk32, vv32,
+                                                         attn_mask=m4))
+    b32_ms, b32_by = bound(2 * nbytes, 4 * hd * h * visible, PEAK_FP32_S)
+    results["flash_prefill_attention_fp32"] = dict(
+        row32, timing=TIMING, bound_ms=b32_ms, bound_by=b32_by,
+        max_abs_err=err32, kernel=PREFILL_FP32_KERNEL,
+        bound_basis="ops: 4*hd per visible (query, key) pair and head at "
+                    "the fp32 CUDA-core rate (67 TFLOP/s); bytes: q + live "
+                    "K/V + out (fp32)",
+        shape="as flash_prefill_attention, q/k/v in fp32",
+        library="torch.nn.functional.scaled_dot_product_attention in fp32 "
+                "(boolean mask)")
+    del a32, q32, kk32, vv32
     results["flash_prefill_attention"] = dict(
         row, timing=TIMING, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-        fp32_max_abs_err=err32,
+        fp32_max_abs_err=err32, kernel=PREFILL_TC_KERNEL,
         tolerance="bf16: each (query row, head) within 2^-7 of its own "
                   "max|ref|; fp32 inputs: 1e-4 absolute",
         bound_basis="ops: 4*hd per visible (query, key) pair and head at the "
@@ -1194,7 +1252,7 @@ def check_grads(dev, gen, results):
                 "flash prefill train shape",
                 lambda i: fp.flash_prefill_attention(q, k, v, full,
                                                      window=window),
-                1, ("flash_prefill_kernel",),
+                1, (PREFILL_TC_KERNEL,),
                 plain=lambda i: fp.flash_prefill_attention_plain(
                     q, k, v, full, window=window),
                 library=lambda i: F.scaled_dot_product_attention(
@@ -1223,7 +1281,8 @@ def kernel_checks(dev):
                   functools.partial(check_fused, name="fused_tenant_matmul"),
                   functools.partial(check_fused,
                                     name="fused_base_pair_matmul"),
-                  check_decode, check_decode_int8, check_w4, check_dense,
+                  check_decode, check_decode_int8, check_decode_lengths,
+                  check_w4, check_dense,
                   check_prefill, check_binary, check_binary_t, check_grads):
         check(dev, gen, results)
         torch.cuda.empty_cache()
@@ -1356,11 +1415,13 @@ def _post(url, body):
 
 
 def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
-          n_generate=12, max_new=32, kernel="cuda"):
+          n_generate=12, max_new=32, kernel="cuda", http_rounds=1):
     """Serve ``stack`` over HTTP and through ``Engine.generate`` (the
     counted run of ``path``), then time prefill and one decode step.
     ``model``: the decoder module (llama by default); ``kernel``: the
-    engine's route (``"cuda_fused"`` for the fused decode projections)."""
+    engine's route (``"cuda_fused"`` for the fused decode projections);
+    ``http_rounds``: rounds of one request a tenant over HTTP (each gives
+    a first-token time)."""
     from bitdelta_torch.serving.engine import Engine, Request
     from bitdelta_torch.serving.server import (ByteTokenizer, ServingApp,
                                                TenantInfo, make_http_server)
@@ -1396,7 +1457,7 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
             require(json.loads(r.read()) == {"models": names},
                     "/models answered wrongly")
         ttft, per_req = [], []
-        for i, tenant in enumerate(names):
+        for i, tenant in enumerate(names * http_rounds):
             lines, first_s, total_s = _post(url, {
                 "prompt": f"Request {i}: tell tenant {tenant} a story.",
                 "tenant": tenant, "max_new_tokens": 16})
@@ -2529,8 +2590,15 @@ def main(argv=None):
         entry.update(_timing_keys(res))
         if kname == "flash_decode_attention":
             # Row 2's int8-cache branch, checked and timed on its own.
+            entry["kernel"] = " + ".join(DECODE_KERNELS)
             entry["int8"] = _timing_keys(
                 checks["flash_decode_attention_int8"])
+        if kname == "flash_prefill_attention":
+            # Row 4: bf16 on the tensor cores; the fp32 branch on its own.
+            entry["kernel"] = PREFILL_TC_KERNEL
+            entry["fp32"] = dict(
+                _timing_keys(checks["flash_prefill_attention_fp32"]),
+                kernel=PREFILL_FP32_KERNEL)
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -12,12 +12,14 @@ Tolerances: the pair kernel repeats the plain version's integer sums and
 fp32 epilogue op for op (4 ulp of the cancelling epilogue terms); the
 canonical tenant delta kernel matches its plain version exactly; the fp32 kernels
 sum in another order (1e-4 of the output scale); the attention kernels
-return bf16 (2e-2 absolute, about two bf16 ulps at these magnitudes) or
-fp32 (1e-4 absolute, sums in another order). Gradients through the
-autograd Functions are held against autograd of the plain versions: in
-fp32 to 1e-4 of each tensor's largest |value|; in bf16 each (row, head)
-within one bf16 ulp of its own largest |value| (2^-7 of it), since both
-sides compute in fp32 and round once; d_scale to 1e-5 of sum |g * u|.
+return bf16 (2e-2 absolute, about two bf16 ulps at these magnitudes;
+the tensor-core flash prefill also rounds P to bf16, about 2^-9 of a
+row's scale) or fp32 (1e-4 absolute, sums in another order). Gradients
+through the autograd Functions are held against autograd of the plain
+versions: in fp32 to 1e-4 of each tensor's largest |value|; in bf16
+each (row, head) within one bf16 ulp of its own largest |value| (2^-7
+of it), since both sides compute in fp32 and round once; d_scale to
+1e-5 of sum |g * u|.
 The W4 matmul sums in another order than its plain version (1e-4 of the
 output scale); the int8 flash decode folds the scales where the plain
 version dequantizes first (the attention tolerances). The fused base +
@@ -432,3 +434,104 @@ def test_cuda_fused_base_pair_matches_plain(cuda, dtype, bsz, k, n):
     torch.cuda.synchronize()
     assert tbg.fused_base_pair_matmul.launches == before + 1
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# Row 4 on the tensor cores (bf16) and its fp32 CUDA-core branch: query
+# lengths off the 64-row tile, Sk > Sq, a row of length 0, a row shorter
+# than Sq, one past Sq, and a window narrower than a key tile.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq", [8, 24, 136, 512])
+def test_cuda_flash_prefill_tiles_match_plain(cuda, sq, dtype, hd, window):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    sk = sq + 40
+    q = torch.randn((4, sq, 8, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((4, sk, 2, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([sq, 0, sq // 2 + 3, sk], device=cuda)
+    before = tfp.flash_prefill_attention.launches
+    got = tfp.flash_prefill_attention(q, k, v, lengths, window=window)
+    want = tfp.flash_prefill_attention_plain(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert tfp.flash_prefill_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (4, sq, 8 * hd)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    for row, n in enumerate(lengths.tolist()):
+        assert not got[row, n:].any(), "padding query rows must be zeros"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_flash_prefill_one_hot_values_land_in_their_columns(cuda,
+                                                                 window):
+    # V's row for key j is the unit vector of column j % hd, so each output
+    # column sums the probabilities of its own keys: a P fragment paired
+    # with the wrong keys moves mass to another column. Held per (row,
+    # head) to 2^-7 of its largest value: P and the output are rounded to
+    # bf16 once each (about 2^-9).
+    g = torch.Generator(device=cuda).manual_seed(17)
+    sq, hd = 136, 128
+    q = torch.randn((2, sq, 8, hd), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k = torch.randn((2, sq, 2, hd), generator=g, device=cuda).to(
+        torch.bfloat16)
+    eye = torch.eye(hd, device=cuda)[torch.arange(sq, device=cuda) % hd]
+    v = eye[None, :, None, :].expand(2, sq, 2, hd).to(torch.bfloat16)
+    lengths = torch.tensor([sq, 100], device=cuda)
+    got = tfp.flash_prefill_attention(q, k, v, lengths, window=window)
+    want = tfp.flash_prefill_attention_plain(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert _grad_close(got, want, hd)
+    assert not got[1, 100:].any()
+
+
+def _decode_cache(cuda, kind, bsz, s, hd, seed):
+    """q and a (B, S, 8, hd) cache for row 2: ``kind`` is the q dtype and
+    the cache's (``"int8"`` with either q dtype)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qdt = torch.float32 if kind.endswith("fp32") else torch.bfloat16
+    q = torch.randn((bsz, 32, hd), generator=g, device=cuda).to(qdt)
+    k = torch.randn((bsz, s, 8, hd), generator=g, device=cuda)
+    v = torch.randn_like(k)
+    if kind.startswith("int8"):
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return q, k, v, dict(k_scale=ks, v_scale=vs)
+    return q, k.to(qdt), v.to(qdt), {}
+
+
+# Row 2: lengths around the 64-key split (0, 1, 63 ... 129), a full
+# 2048-key row, and S + 1 (a full cache's step); caches of 2048 and 8192
+# slots; bf16, fp32 and int8 (with bf16 or fp32 q) caches.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("s", [2048, 8192])
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8_bf16", "int8_fp32"])
+def test_cuda_flash_decode_split_plan_matches_plain(cuda, kind, s, window):
+    lens = [0, 1, 63, 64, 65, 127, 128, 129, 2048, s + 1]
+    q, k, v, scales = _decode_cache(cuda, kind, len(lens), s, 128, 18)
+    lengths = torch.tensor(lens, device=cuda)
+    before = tfd.flash_decode_attention.launches
+    got = tfd.flash_decode_attention(q, k, v, lengths, window=window,
+                                     **scales)
+    want = tfd.flash_decode_attention_plain(q, k, v, lengths, window=window,
+                                            **scales)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_attention.launches == before + 1
+    assert got.dtype == q.dtype
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[
+        q.dtype]
+    assert not got[0].any(), "a row with no live key gives zeros"
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8_bf16"])
+def test_cuda_flash_decode_head_dim_64_matches_plain(cuda, kind):
+    q, k, v, scales = _decode_cache(cuda, kind, 4, 512, 64, 19)
+    lengths = torch.tensor([512, 65, 1, 300], device=cuda)
+    got = tfd.flash_decode_attention(q, k, v, lengths, **scales)
+    want = tfd.flash_decode_attention_plain(q, k, v, lengths, **scales)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[
+        q.dtype]
