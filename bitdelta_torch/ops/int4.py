@@ -5,7 +5,10 @@ exists in device memory.
 
 :func:`w4_matmul` launches ``csrc/int4_gemm.cu`` on a CUDA tensor and
 takes :func:`w4_matmul_plain` on a CPU tensor; launches are counted in
-``w4_matmul.launches``.
+``w4_matmul.launches``. The kernel is chosen by x's dtype before the
+launch: bf16 x runs ``w4_matmul_tc_kernel`` (nibbles turned into bf16 in
+registers, fed to the tensor cores), fp32 x ``w4_matmul_fp32_kernel`` (on
+the CUDA cores).
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ from ._build import I, P
 
 _LIB = "int4_gemm"
 _GROUP = 128          # K rows per scale group the kernel takes
-_BLOCK_N = 128        # columns per block of the kernel
-_TARGET_BLOCKS = 528  # four blocks per SM of the H100's 132
+_BLOCK_N = 128        # columns per block of either kernel
+_TARGET_BLOCKS = 528  # four blocks on each of the H100's 132 SMs
 MAX_M = 64
 
 
@@ -34,9 +37,11 @@ def w4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 
 def _splits(n: int, n_groups: int) -> int:
     """K ranges (of whole groups) per column tile, so that the grid holds
-    about _TARGET_BLOCKS blocks."""
+    at most _TARGET_BLOCKS blocks: one wave, with no second wave of a few
+    blocks (rounding up ran row 8's bf16 kernel 17% slower a layer on the
+    H100, PERF.md)."""
     tiles = -(-n // _BLOCK_N)
-    return max(1, min(n_groups, -(-_TARGET_BLOCKS // tiles)))
+    return max(1, min(n_groups, _TARGET_BLOCKS // tiles))
 
 
 def w4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -64,7 +69,7 @@ def w4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"kernel takes bf16 or fp32 x, got {x.dtype}")
     if packed.dtype != torch.int32 or scale.dtype != torch.float32:
         raise TypeError("packed must be int32 and scale fp32")
-    xc = x.contiguous()
+    xc = _build.aligned16(x)          # the bf16 kernel copies 16 bytes
     pc = packed.contiguous()
     sc = scale.contiguous()
     n_split = _splits(n, kdim // _GROUP)

@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    bf16 and fp32 input, flash decode also on a full cache, lengths
    S + 1, and timed at uniform lengths of 128, 512 and 2048 keys; flash
    prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
-   timed), and time the
+   timed; the W4 matmul's bf16 tensor-core kernel and its fp32
+   CUDA-core kernel each timed), and time the
    kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -158,6 +159,10 @@ PATHS = {
 DECODE_KERNELS = ("flash_decode_split_kernel", "flash_decode_merge_kernel")
 PREFILL_TC_KERNEL = "flash_prefill_tc_kernel"       # bf16, tensor cores
 PREFILL_FP32_KERNEL = "flash_prefill_fp32_kernel"   # fp32, CUDA cores
+# The CUDA kernels behind row 8, by x's dtype, and its K-split sum.
+W4_TC_KERNEL = "w4_matmul_tc_kernel"                 # bf16, tensor cores
+W4_FP32_KERNEL = "w4_matmul_fp32_kernel"             # fp32, CUDA cores
+W4_SPLITS_KERNEL = "w4_sum_splits_kernel"
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
                ("gate_proj", 4096, 14336), ("up_proj", 4096, 14336),
@@ -835,7 +840,8 @@ def int4pack_ms(x, packed, scale):
 
 def check_w4(dev, gen, results):
     """Row 8 at the seven Mistral-7B projections with M = 8 (a decode
-    step's rows), and at M = 1 and 64 on down_proj, bf16 and fp32 x."""
+    step's rows), and at M = 1 and 64 on down_proj, bf16 and fp32 x; the
+    bf16 tensor-core kernel and the fp32 CUDA-core kernel timed apart."""
     from bitdelta_torch.ops import int4 as i4
     from bitdelta_torch.research.quantized_base import (Int4Weight,
                                                         dequantize_int4,
@@ -864,7 +870,9 @@ def check_w4(dev, gen, results):
     m = 8
     tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
                          "library_ms", "bound_ms", "int4pack_ms"), 0.0)
-    err, err32, shapes, by, notes = 0.0, 0.0, [], set(), set()
+    tot32 = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                           "library_ms", "bound_ms"), 0.0)
+    err, err32, shapes, by, by32, notes = 0.0, 0.0, [], set(), set(), set()
     for name, k, n in PROJ_SHAPES:
         set_bytes = k * n // 2 + (k // 128) * n * 4
         sets = []
@@ -880,10 +888,9 @@ def check_w4(dev, gen, results):
         row = time_wrapper(
             f"w4 {name}",
             lambda i: i4.w4_matmul(*sets[i], out_dtype=torch.float32),
-            len(sets), ("w4_matmul_kernel", "w4_sum_splits_kernel"),
+            len(sets), (W4_TC_KERNEL, W4_SPLITS_KERNEL),
             plain=lambda i: i4.w4_matmul_plain(*sets[i]),
             library=lambda i: torch.matmul(x0, w_deq))
-        del w_deq
         row["int4pack_ms"], note = int4pack_ms(*sets[0])
         notes.add(note)
         nbytes = m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
@@ -892,9 +899,26 @@ def check_w4(dev, gen, results):
         for key in tot:
             tot[key] = (None if tot[key] is None or row[key] is None
                         else tot[key] + row[key])
+        # The fp32 branch (its own CUDA-core kernel) on set 0.
+        x32, w32 = x0.float(), w_deq.float()
+        del w_deq
+        row32 = time_wrapper(
+            f"w4 fp32 {name}",
+            lambda i: i4.w4_matmul(x32, *sets[0][1:],
+                                   out_dtype=torch.float32),
+            1, (W4_FP32_KERNEL, W4_SPLITS_KERNEL),
+            plain=lambda i: i4.w4_matmul_plain(x32, *sets[0][1:]),
+            library=lambda i: torch.matmul(x32, w32), iters=5)
+        del x32, w32
+        row32["bound_ms"], b32_by = bound(nbytes + m * k * 2, 2 * m * k * n,
+                                          PEAK_FP32_S)
+        by32.add(b32_by)
+        for key in tot32:
+            tot32[key] += row32[key]
         shapes.append({"proj": name, "k": k, "n": n,
                        "splits": i4._splits(n, k // 128), **row,
-                       "max_abs_err": e, "fp32_max_abs_err": e32})
+                       "max_abs_err": e, "fp32_max_abs_err": e32,
+                       "fp32": row32})
         del sets
     other_m = []
     k, n = 14336, 4096
@@ -906,14 +930,21 @@ def check_w4(dev, gen, results):
         ms, kern = device_ms(lambda i: i4.w4_matmul(x, w.packed, w.scale,
                                                     out_dtype=torch.float32),
                              1, f"w4 down_proj M={m2}",
-                             ("w4_matmul_kernel", "w4_sum_splits_kernel"))
+                             (W4_TC_KERNEL, W4_SPLITS_KERNEL))
         b_ms, b_by = bound(m2 * k * 2 + k * n // 2 + (k // 128) * n * 4
                            + m2 * n * 4, 2 * m2 * k * n)
         other_m.append({"proj": "down_proj", "m": m2, "ms": ms,
                         "kernel_ms": kern, "bound_ms": b_ms, "bound_by": b_by,
                         "max_abs_err": e, "fp32_max_abs_err": e32})
+    results["w4_matmul_fp32"] = dict(
+        tot32, max_abs_err=err32, bound_by="+".join(sorted(by32)),
+        kernel=W4_FP32_KERNEL, timing=TIMING,
+        bound_basis="ops: 2*M*K*N at the fp32 CUDA-core rate (67 "
+                    "TFLOP/s); bytes: x fp32 + words + scales + fp32 out",
+        shape="as w4_matmul, x in fp32",
+        library="torch.matmul(x, dequantized matrix), both fp32")
     results["w4_matmul"] = dict(
-        tot, max_abs_err=err, fp32_max_abs_err=err32,
+        tot, max_abs_err=err, fp32_max_abs_err=err32, kernel=W4_TC_KERNEL,
         bound_by="+".join(sorted(by)),
         tolerance="1e-4 * max|ref| (fp32 sums in another order), bf16 and "
                   "fp32 x",
@@ -1562,7 +1593,7 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
         step_device_ms, step_top = device_breakdown(one_step,
-                                                   "decode step")
+                                                   "decode step", top=16)
     report.update(
         card=name, layers=cfg.num_layers, kernel=kernel,
         kv_dtype=kv_dtype or "bf16",
@@ -2593,6 +2624,11 @@ def main(argv=None):
             entry["kernel"] = " + ".join(DECODE_KERNELS)
             entry["int8"] = _timing_keys(
                 checks["flash_decode_attention_int8"])
+        if kname == "w4_matmul":
+            # Row 8: bf16 on the tensor cores; the fp32 branch on its own.
+            entry["kernel"] = W4_TC_KERNEL
+            entry["fp32"] = dict(_timing_keys(checks["w4_matmul_fp32"]),
+                                 kernel=W4_FP32_KERNEL)
         if kname == "flash_prefill_attention":
             # Row 4: bf16 on the tensor cores; the fp32 branch on its own.
             entry["kernel"] = PREFILL_TC_KERNEL

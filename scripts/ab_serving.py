@@ -7,6 +7,7 @@ Run from the repository root on a machine with a card and nvcc::
     python3 scripts/ab_serving.py out/parent . . out/parent
     python3 scripts/ab_serving.py --fused out/parent . . out/parent
     python3 scripts/ab_serving.py --submit out/parent . . out/parent
+    python3 scripts/ab_serving.py --density out/parent . . out/parent
 
 Each argument is the root of a tree that holds the port
 (``bitdelta_torch/``); the runs go in the order given (alternate the
@@ -17,17 +18,20 @@ repository's ``chip_smoke.py`` (the same harness for every tree) on the
 tree's package: a full-width 32-layer Mistral-7B with three synthetic
 tenants behind ``Engine`` and the HTTP server (with ``--fused``, the
 tenants compressed with their embeddings and served on
-``kernel="cuda_fused"``, as ``chip_smoke.py``'s phase 9 serves them).
-It prints one JSON line of the end-to-end numbers: first token over
-HTTP (four rounds of one request a tenant; the very first request warms
-the process up), ``generate`` tok/s, the 60- and 500-token ``submit``
-times and the 500-token prefill's device time, and a B=8 decode step's
-wall and device time. With ``--submit`` (before ``--fused``) a run skips
-the HTTP phase and gives quartiles of many samples instead: 40
-single-request ``submit`` calls of a 45-token prompt (the first-token
-path's prefill, bucket 64) with one's device time, 30 B=8 decode
-steps, each timed alone, and the host cost of one flash-decode wrapper
-call (500 calls back to back on one-key rows, five times).
+``kernel="cuda_fused"``, as ``chip_smoke.py``'s phase 9 serves them;
+with ``--density``, the base quantized to W4 and served with the int8
+KV cache, as phase 4b serves it). It prints one JSON line of the
+end-to-end numbers: first token over HTTP (four rounds of one request a
+tenant; the very first request warms the process up), ``generate``
+tok/s, the 60- and 500-token ``submit`` times and the 500-token
+prefill's device time, and a B=8 decode step's wall and device time
+with its leading kernels by device time. With ``--submit`` (before
+``--fused``) a run skips the HTTP phase and gives quartiles of many
+samples instead: 40 single-request ``submit`` calls of a 45-token
+prompt (the first-token path's prefill, bucket 64) with one's device
+time, 30 B=8 decode steps, each timed alone, and the host cost of one
+flash-decode wrapper call (500 calls back to back on one-key rows, five
+times).
 """
 
 import json
@@ -49,14 +53,17 @@ cs.build()
 dev = torch.device("cuda")
 cfg = mistral_7b()
 fused = sys.argv[2] == "cuda_fused"
+density = sys.argv[3] == "density"
 world = cs.build_world(cfg, dev, seed=41 if fused else 0,
-                       compress_embeddings=fused)
+                       compress_embeddings=fused,
+                       base_quant="int4" if density else None)
+path = "fused" if fused else "density" if density else "serving"
 _, rep = cs.serve(cfg, world, dev, torch.cuda.get_device_name(0),
-                  path="fused" if fused else "serving", kernel=sys.argv[2],
-                  http_rounds=4)
+                  path=path, kernel=sys.argv[2],
+                  kv_dtype="int8" if density else None, http_rounds=4)
 keys = ("http_ttft_ms", "generate_tok_s", "submit_prefill_ms",
         "prefill_500_device_ms", "decode_step_ms_b8",
-        "decode_step_device_ms")
+        "decode_step_device_ms", "decode_step_top_kernels")
 print("AB " + json.dumps({k: rep[k] for k in keys}), flush=True)
 """
 
@@ -129,28 +136,31 @@ print("AB " + json.dumps(out), flush=True)
 
 
 def main(argv):
-    route, run = "cuda", RUN
+    route, run, world = "cuda", RUN, "bf16"
     if argv[:1] == ["--submit"]:
         run, argv = RUN_SUBMIT, argv[1:]
     if argv[:1] == ["--fused"]:
         route, argv = "cuda_fused", argv[1:]
+    elif argv[:1] == ["--density"] and run is RUN:
+        world, argv = "density", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for i, root in enumerate(argv):
         root = Path(root).resolve()
         proc = subprocess.run([sys.executable, "-c", run, str(HARNESS),
-                               route], cwd=root,
+                               route, world], cwd=root,
                               capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith("AB ")]
         if proc.returncode or not lines:
             print(json.dumps({"run": i, "tree": str(root), "route": route,
-                              "failed": proc.returncode,
+                              "world": world, "failed": proc.returncode,
                               "stderr": proc.stderr[-3000:]}), flush=True)
             return 1
         print(json.dumps({"run": i, "tree": str(root), "route": route,
-                          **json.loads(lines[-1][3:])}), flush=True)
+                          "world": world, **json.loads(lines[-1][3:])}),
+              flush=True)
     return 0
 
 

@@ -323,12 +323,14 @@ def _w4_inputs(cuda, m, k, n, dtype, seed):
     return x, w
 
 
+# N = 1030: rows of 4120 bytes, not a multiple of 16 (narrow copies).
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("n", [1024, 14336])
+@pytest.mark.parametrize("n", [1024, 1030, 14336])
+@pytest.mark.parametrize("k", [128, 4096, 14336])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 8, 64])
-def test_cuda_w4_matmul_matches_plain(cuda, m, dtype, n):
-    x, w = _w4_inputs(cuda, m, 4096, n, dtype, seed=9)
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64])
+def test_cuda_w4_matmul_matches_plain(cuda, m, dtype, k, n):
+    x, w = _w4_inputs(cuda, m, k, n, dtype, seed=9)
     before = ti.w4_matmul.launches
     got = ti.w4_matmul(x, w.packed, w.scale, out_dtype=torch.float32)
     want = ti.w4_matmul_plain(x, w.packed, w.scale)
@@ -336,6 +338,61 @@ def test_cuda_w4_matmul_matches_plain(cuda, m, dtype, n):
     assert ti.w4_matmul.launches == before + 1
     assert got.shape == (m, n) and got.dtype == torch.float32
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# One nonzero nibble at (kk, nn) and x one-hot in kk: y is that nibble
+# times its scale in column nn alone, exactly. A misplaced fragment or a
+# wrong K permutation moves the value to another column or drops it.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,row", [(1, 0), (8, 5), (9, 8), (64, 37)])
+@pytest.mark.parametrize("n", [1024, 1030])
+@pytest.mark.parametrize("kk,nn,nib", [(0, 0, 7), (5, 3, -8), (130, 17, 3),
+                                       (1023, -1, -1), (777, 514, 5),
+                                       (4, 1, 1), (11, 6, -3)])
+def test_cuda_w4_matmul_one_hot(cuda, dtype, m, row, n, kk, nn, nib):
+    from bitdelta_torch.research.quantized_base import _pack_nibbles
+
+    k, nn = 1024, nn % n                   # nn = -1: the last column
+    q = torch.zeros((k, n), dtype=torch.int32, device=cuda)
+    q[kk, nn] = nib
+    scale = torch.full((k // 128, n), 0.5, device=cuda)
+    scale[kk // 128, nn] = 0.375
+    x = torch.zeros((m, k), dtype=dtype, device=cuda)
+    x[row, kk] = 1.5
+    got = ti.w4_matmul(x, _pack_nibbles(q), scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = torch.zeros((m, n), device=cuda)
+    want[row, nn] = nib * 0.375 * 1.5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n", [(8, 1024), (3, 1030), (64, 4096)])
+def test_cuda_w4_matmul_is_deterministic(cuda, dtype, m, n):
+    x, w = _w4_inputs(cuda, m, 4096, n, dtype, seed=11)
+    first = ti.w4_matmul(x, w.packed, w.scale, out_dtype=torch.float32)
+    second = ti.w4_matmul(x, w.packed, w.scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,want,not_want", [
+    (torch.bfloat16, "w4_matmul_tc_kernel", "w4_matmul_fp32_kernel"),
+    (torch.float32, "w4_matmul_fp32_kernel", "w4_matmul_tc_kernel")])
+def test_cuda_w4_matmul_kernel_by_dtype(cuda, dtype, want, not_want):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w = _w4_inputs(cuda, 8, 4096, 1024, dtype, seed=12)
+    ti.w4_matmul(x, w.packed, w.scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ti.w4_matmul(x, w.packed, w.scale)
+        torch.cuda.synchronize()
+    names = " ".join(evt.key for evt in prof.key_averages())
+    assert want in names and not_want not in names, names
 
 
 @pytest.mark.requires_cuda
