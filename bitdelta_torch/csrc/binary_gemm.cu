@@ -18,6 +18,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include <cooperative_groups.h>
+
 #include "tensor_core.cuh"
 
 extern "C" const char* bd_error_string(int code) {
@@ -34,106 +38,741 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 // 1. Pair-packed tenant delta at decode:
 //    Y[b, n] = scale[ids[b]] * (x[b] @ sign(P[ids[b]]))[n]
 //
-// Bound on the H100: the packed words of the rows' tenants (1 bit per
-// weight) against 3.35 TB/s. x arrives already quantized (plain torch,
-// as JAX runs it in XLA) to a non-negative 12-bit grid, so the kernel
-// keeps the TPU kernel's integer formulation and agrees with the plain
-// version to fp32 rounding of the epilogue only:
-//   * one thread per pair-word column j and row b; KS thread rows split
-//     the K/16 words of that column and reduce through shared memory;
-//   * row b's xq (K values, uint16) sits in shared memory and is read as
-//     a warp-wide broadcast; the pair words are read coalesced along j;
-//   * each word: 16 shift/and/multiply-adds on 0x00010001 masks add two
-//     columns at once. Each half sums at most 16 * 4095 < 2^16, so the
-//     halves never carry into each other and split exactly with an
-//     unsigned shift; the integer sums are exact for any K here;
-//   * epilogue y = 2*a1*S + (a2*colsum - a1*sxq) written in natural
-//     column order (low half -> g*256 + r, high half -> g*256 + 128 + r),
-//     with explicit round-to-nearest ops so no FMA contraction separates
-//     it from the plain version.
+// Bound on the H100: the packed words of the rows' distinct tenants (1 bit
+// per weight) against 3.35 TB/s; a Mistral-7B projection with 3 tenants
+// holds 1.5-22 MB of them (0.5-6.6 us). A call is two launches (one more
+// for each further PAIR_SLAB rows) and nothing else, and the integer sums
+// S = sum_k bit_k * xq_k are exact:
+//
+// pair_prep_kernel, a cluster of PAIR_PREP_BLOCKS blocks per row b: JAX's
+// x grid (``_pair_quantize``). min and max in fp32; step = max((max - min) /
+// 4095, 1e-30) by IEEE division; xq = rint((x - min) / step) (round half
+// to even, as torch.round and jnp.round); sxq = sum xq in integers; a1 =
+// alpha * step, a2 = alpha * min, alpha = scale[ids[b]]. Bit for bit what
+// the plain version computes. xq goes out as its 12 bit planes: for each
+// 32 K, twelve 32-bit words (word p holds plane p, bit i for K + i, from
+// one warp ballot each, 48 bytes stored at once); K past the end is zero.
+// The prep launches the main kernel as its programmatic dependent
+// (griddepcontrol), so the main kernel's start, its tenant bookkeeping
+// and its first word copies overlap the prep.
+//
+// pair_delta_tc_kernel, on the tensor cores' 1-bit MMA
+// (mma.sync.m16n8k256.row.col.s32.b1.b1.s32.and.popc, 256 K a step):
+// A (16 output columns x 256 K) is the sign bits themselves, B (256 K x
+// 8) bit planes of x, D = popc(A & B) exact in s32. A row g of m-tile mt
+// is the low column of the warp's pair column MT*g + mt, row g + 8 its
+// high column; lane (g, t) holds K 32t .. 32t + 31 (a0, a1) and 128 +
+// 32t .. (a2, a3), and a pair word holds 16 K of both columns, so one
+// byte permute of two words makes each A register: a0 = prmt(w[2t],
+// w[2t+1], 0x5410) (the low halves), a1 = prmt(.., 0x7632) (the high
+// halves), a2 / a3 from words 8 + 2t and 9 + 2t. B's 8 columns are bit
+// planes of the block's rows: in group r4 of 4 row slots, tile pp (0..5)
+// column 2i + e is plane 2pp + e of slot 4*r4 + i, so lane t's
+// accumulators hold planes of its own slot 4*r4 + t and
+// S = sum_p 2^p * D_p is added up in registers with constant shifts.
+// tests/test_torch_pair_numerics.py models the fragments and the
+// arithmetic on the CPU.
+//
+// A launch takes a slab of up to PAIR_SLAB rows (a call launches one a
+// slab, so any B). A block owns PAIR_BJ = 128 pair columns (256 outputs),
+// up to pair_rows<MT>() rows of one tenant (the slab's d-th distinct
+// tenant's q-th group of rows) and one of n_split K ranges of whole chunks;
+// it multiplies that tenant's words against those rows only, so each
+// active tenant's words are read once (once per group of rows where a
+// tenant has more). n_split is the least power of two that gives the
+// card PAIR_BLOCKS_PER_SM live blocks a multiprocessor. A
+// PAIR_STAGES-deep cp.async ring of 16-byte copies, coalesced along the
+// columns, brings each stage's words and bit planes into shared memory.
+// The K splits of a (tile, z) form one thread block cluster: each block
+// leaves its integer sums in its shared memory, and after a cluster
+// barrier block q adds every block's sums (distributed shared memory,
+// exact, in rank order) for its 256 / n_split columns and runs row 1's
+// epilogue y = 2*a1*S + (a2*colsum - a1*sxq) with round-to-nearest ops,
+// as the plain version, in natural column order. No global atomics, no
+// zeroed scratch.
 // ---------------------------------------------------------------------------
 
-constexpr int PAIR_TX = 64;   // pair-word columns per block
-constexpr int PAIR_KS = 4;    // thread rows splitting the K words
+constexpr int PAIR_Q_LEVELS = 4095;
+constexpr int PAIR_PLANES = 12;       // bits of the x grid
+constexpr int PAIR_PREP_THREADS = 512;
+constexpr int PAIR_PREP_BLOCKS = 8;   // a cluster of blocks a row
+constexpr int PAIR_BJ = 128;          // pair-word columns a block
+constexpr int PAIR_CHUNK = 256;       // K of one 1-bit MMA
+constexpr int PAIR_KC = 2;            // chunks a ring stage
+constexpr int PAIR_STAGES = 4;        // stages in the cp.async ring
+constexpr int PAIR_XCHUNK = PAIR_PLANES * 32;     // x bytes a row and chunk
+constexpr int PAIR_XSTRIDE = PAIR_KC * PAIR_XCHUNK + 64;  // a shared x slot
+// A shared word row: 128 words and 16 bytes, so that lanes reading word
+// rows 2t (t = 0..3) land in distinct banks.
+constexpr int PAIR_WROW = PAIR_BJ * 4 + 16;
+constexpr int PAIR_WORD_BYTES = PAIR_KC * 16 * PAIR_WROW;
+constexpr int PAIR_SLAB = 64;        // rows a main-kernel launch takes
+constexpr int PAIR_MAX_SPLITS = 8;    // a portable cluster
+constexpr int PAIR_BLOCKS_PER_SM = 1; // live blocks the K split aims at
+static_assert(PAIR_BJ == 128, "a tile is one 256-column pair group");
+static_assert(512 / 4 >= PAIR_SLAB, "a block's threads cover a slab's ids");
 
-__global__ void pair_delta_kernel(const int* __restrict__ xq,
-                                  const uint32_t* __restrict__ pairs,
-                                  const int* __restrict__ ids,
-                                  const float* __restrict__ a1,
-                                  const float* __restrict__ a2,
-                                  const float* __restrict__ sxq,
-                                  const float* __restrict__ colsum,
-                                  float* __restrict__ out,
-                                  int k16, int n2) {
-  extern __shared__ unsigned short xs[];          // K = 16 * k16 values
-  __shared__ int red_lo[PAIR_KS][PAIR_TX];
-  __shared__ int red_hi[PAIR_KS][PAIR_TX];
-
-  const int b = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * PAIR_TX + tx;
-  const int k = k16 * 16;
-  const int n = n2 * 2;
-
-  for (int i = ty * PAIR_TX + tx; i < k; i += PAIR_TX * PAIR_KS)
-    xs[i] = static_cast<unsigned short>(xq[(size_t)b * k + i]);
-  __syncthreads();
-
-  const int t = ids[b];
-  const uint32_t* p = pairs + (size_t)t * k16 * n2;
-  int acc_lo = 0, acc_hi = 0;
-  if (j < n2) {
-    for (int kw = ty; kw < k16; kw += PAIR_KS) {
-      const uint32_t w = p[(size_t)kw * n2 + j];
-      const unsigned short* xk = xs + kw * 16;
-      uint32_t inner = 0;
-#pragma unroll
-      for (int s = 0; s < 16; ++s)
-        inner += ((w >> s) & 0x00010001u) * static_cast<uint32_t>(xk[s]);
-      acc_lo += static_cast<int>(inner & 0xFFFFu);
-      acc_hi += static_cast<int>(inner >> 16);
-    }
-  }
-  red_lo[ty][tx] = acc_lo;
-  red_hi[ty][tx] = acc_hi;
-  __syncthreads();
-  if (ty != 0 || j >= n2) return;
-  int s_lo = 0, s_hi = 0;
-#pragma unroll
-  for (int i = 0; i < PAIR_KS; ++i) {
-    s_lo += red_lo[i][tx];
-    s_hi += red_hi[i][tx];
-  }
-  const int g = j / 128, r = j % 128;
-  const int n_lo = g * 256 + r, n_hi = n_lo + 128;
-  const float c1 = a1[b], c2 = a2[b];
-  const float two_a1 = __fmul_rn(2.0f, c1);
-  const float off = __fmul_rn(c1, sxq[b]);
-  const float* cs = colsum + (size_t)t * n;
-  out[(size_t)b * n + n_lo] = __fadd_rn(
-      __fmul_rn(two_a1, static_cast<float>(s_lo)),
-      __fsub_rn(__fmul_rn(c2, cs[n_lo]), off));
-  out[(size_t)b * n + n_hi] = __fadd_rn(
-      __fmul_rn(two_a1, static_cast<float>(s_hi)),
-      __fsub_rn(__fmul_rn(c2, cs[n_hi]), off));
+// Rows a block takes with MT m-tiles a warp: 16 / MT (4, 8 or 16), in
+// groups of 4 (6 n8 tiles of B each).
+template <int MT>
+__host__ __device__ constexpr int pair_rows() {
+  return 16 / MT;
 }
 
-extern "C" int bd_pair_delta(const void* xq, const void* pairs,
-                             const void* ids, const void* a1, const void* a2,
-                             const void* sxq, const void* colsum, void* out,
-                             int bsz, int k16, int n2, void* stream) {
-  dim3 grid((n2 + PAIR_TX - 1) / PAIR_TX, bsz);
-  dim3 block(PAIR_TX, PAIR_KS);
-  size_t smem = (size_t)k16 * 16 * sizeof(unsigned short);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(pair_delta_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  pair_delta_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const int*)xq, (const uint32_t*)pairs, (const int*)ids,
-      (const float*)a1, (const float*)a2, (const float*)sxq,
-      (const float*)colsum, (float*)out, k16, n2);
-  return (int)cudaGetLastError();
+// A ring stage: the words, then pair_rows row slots of bit planes.
+template <int MT>
+__host__ __device__ constexpr int pair_stage_bytes() {
+  return PAIR_WORD_BYTES + pair_rows<MT>() * PAIR_XSTRIDE;
+}
+
+__device__ __forceinline__ int load_id(const void* ids, int ids64, int i) {
+  return ids64 ? static_cast<int>(static_cast<const long long*>(ids)[i])
+               : static_cast<const int*>(ids)[i];
+}
+
+// The 32 values of K step c of a row, as fp32 (16-byte loads where the
+// row is aligned).
+template <typename T>
+__device__ __forceinline__ void load_step(const T* __restrict__ xr, int c,
+                                          bool vec, float (&v)[32]) {
+  if (vec) {
+    constexpr int PER = 16 / sizeof(T);
+    const uint4* p = reinterpret_cast<const uint4*>(xr + 32 * c);
+#pragma unroll
+    for (int q = 0; q < 32 / PER; ++q) {
+      const uint4 w = __ldg(p + q);
+      const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int u = 0; u < PER; ++u) v[q * PER + u] = to_f32(e[u]);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 32; ++u) v[u] = to_f32(xr[32 * c + u]);
+  }
+}
+
+// Row b's grid, bit planes and coefficients, by a cluster of
+// PAIR_PREP_BLOCKS blocks that each take a range of its 32-K steps: their
+// min, max and sum of xq meet through distributed shared memory (exact
+// in any order: the sums are integers), and the cluster's first block
+// writes the coefficients. The second pass reads the block's range of x
+// again (from L2: the first pass has just read it). The main kernel is
+// launched as its programmatic dependent: it may start at once, and
+// waits for this grid's results only where it reads them.
+template <typename T>
+__global__ void __launch_bounds__(PAIR_PREP_THREADS)
+pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
+                 const float* __restrict__ scales,
+                 const void* __restrict__ ids, int ids64,
+                 uint32_t* __restrict__ planes, float* __restrict__ coef,
+                 int bsz, int k, int n_chunks) {
+  namespace cg = cooperative_groups;
+  constexpr int NW = PAIR_PREP_THREADS / 32;
+  __shared__ float red_lo[NW], red_hi[NW];
+  __shared__ int red_sum[NW];
+  __shared__ float blk_lo, blk_hi;
+  __shared__ int blk_sum;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / PAIR_PREP_BLOCKS;
+  const int part = blockIdx.x % PAIR_PREP_BLOCKS;   // the cluster rank
+  const T* xr = x + (size_t)b * x_stride;
+  // This block's 32-K steps (the padded tail past k included).
+  const int n_steps = n_chunks * 8;
+  const int j0 = part * n_steps / PAIR_PREP_BLOCKS;
+  const int j1 = (part + 1) * n_steps / PAIR_PREP_BLOCKS;
+
+  float lo = __int_as_float(0x7f800000), hi = __int_as_float(0xff800000);
+  for (int j = j0 + tid; j < j1 && j < k / 32; j += PAIR_PREP_THREADS) {
+    float v[32];
+    load_step(xr, j, x_vec, v);
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      lo = fminf(lo, v[u]);
+      hi = fmaxf(hi, v[u]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    red_lo[warp] = lo;
+    red_hi[warp] = hi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < NW; ++w) {
+      lo = fminf(lo, red_lo[w]);
+      hi = fmaxf(hi, red_hi[w]);
+    }
+    blk_lo = lo;
+    blk_hi = hi;
+    blk_sum = 0;
+  }
+  cluster.sync();
+  float los[PAIR_PREP_BLOCKS], his[PAIR_PREP_BLOCKS];
+#pragma unroll
+  for (int r = 0; r < PAIR_PREP_BLOCKS; ++r) {
+    los[r] = *cluster.map_shared_rank(&blk_lo, r);
+    his[r] = *cluster.map_shared_rank(&blk_hi, r);
+  }
+  lo = los[0];
+  hi = his[0];
+#pragma unroll
+  for (int r = 1; r < PAIR_PREP_BLOCKS; ++r) {
+    lo = fminf(lo, los[r]);
+    hi = fmaxf(hi, his[r]);
+  }
+  float step = __fdiv_rn(__fsub_rn(hi, lo), (float)PAIR_Q_LEVELS);
+  step = step < 1e-30f ? 1e-30f : step;          // clamp(min=1e-30)
+
+  // 32 K a warp at a time, one value a lane; plane p of them is a ballot.
+  int sum = 0;
+  uint32_t* row = planes + (size_t)b * n_chunks * PAIR_XCHUNK / 4;
+  for (int j = j0 + warp; j < j1; j += NW) {
+    const int kk = 32 * j + lane;
+    int q = 0;
+    if (kk < k) {
+      q = __float2int_rn(__fdiv_rn(__fsub_rn(to_f32(xr[kk]), lo), step));
+    }
+    sum += q;
+    uint32_t w[PAIR_PLANES];
+#pragma unroll
+    for (int p = 0; p < PAIR_PLANES; ++p)
+      w[p] = __ballot_sync(0xffffffffu, (q >> p) & 1);
+    if (lane == 0) {
+      uint4* dst = reinterpret_cast<uint4*>(row + (size_t)j * PAIR_PLANES);
+#pragma unroll
+      for (int p = 0; p < PAIR_PLANES; p += 4)
+        dst[p / 4] = make_uint4(w[p], w[p + 1], w[p + 2], w[p + 3]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  if (lane == 0) red_sum[warp] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) total += red_sum[w];
+    atomicAdd(cluster.map_shared_rank(&blk_sum, 0), total);
+  }
+  cluster.sync();                      // every block's sum has landed
+  if (part == 0 && tid == 0) {
+    const float alpha = scales[load_id(ids, ids64, b)];
+    coef[b] = __fmul_rn(alpha, step);                 // a1
+    coef[bsz + b] = __fmul_rn(alpha, lo);             // a2
+    coef[2 * bsz + b] = __int2float_rn(blk_sum);      // sxq
+  }
+}
+
+// The current device and its multiprocessors (cached a device).
+static cudaError_t current_device(int* dev, int* sms) {
+  static std::atomic<int> cache[64];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 64 && (*sms = cache[*dev].load()) > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+  if (err == cudaSuccess && *dev < 64) cache[*dev].store(*sms);
+  return err;
+}
+
+// fn's dynamic shared memory limit set to bytes, once a device (bit dev of
+// done marks it set).
+static cudaError_t smem_limit_once(const void* fn, int bytes, int dev,
+                                   std::atomic<unsigned long long>& done) {
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <typename T>
+static cudaError_t launch_pair_prep(const void* x, int x_stride, int vec,
+                                    const void* scales, const void* ids,
+                                    int ids64, uint8_t* planes, float* coef,
+                                    int bsz, int k, int n_chunks,
+                                    cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(PAIR_PREP_BLOCKS * bsz);
+  cfg.blockDim = dim3(PAIR_PREP_THREADS);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = PAIR_PREP_BLOCKS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const T* xt = static_cast<const T*>(x);
+  const float* sc = static_cast<const float*>(scales);
+  uint32_t* pl = reinterpret_cast<uint32_t*>(planes);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pair_prep_kernel<T>, xt, x_stride, vec, sc, ids, ids64, pl,
+      coef, bsz, k, n_chunks);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// d += popc(a & b): a 16x256 bits (row), b 256x8 bits (col), s32 sums.
+__device__ __forceinline__ void bmma_16_8_256(int (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+
+// The lane's MT adjacent pair words at shared address a.
+template <int MT>
+__device__ __forceinline__ void lds_words(uint32_t (&w)[MT], uint32_t a) {
+  if constexpr (MT == 4) {
+    const uint4 v = lds128(a);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (MT == 2) {
+    const uint2 v = lds64(a);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    w[0] = lds32(a);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+// Copy the words of chunks ch .. ch + nch - 1 into a ring stage; word rows
+// past k16 (a K that is not a multiple of 256) are zero.
+__device__ __forceinline__ void pair_load_words(
+    uint8_t* st, const uint32_t* __restrict__ words, int ch, int nch,
+    int k16, int n2, int tid, int threads) {
+  constexpr int WCH = PAIR_BJ / 4;             // 16-byte chunks a word row
+  for (int i = tid; i < 16 * nch * WCH; i += threads) {
+    const int r = i / WCH, c = i % WCH;
+    const int kw = 16 * ch + r;
+    const bool ok = kw < k16;
+    cp_async16(st + r * PAIR_WROW + 16 * c,
+               words + (ok ? (size_t)kw * n2 + 4 * c : 0), ok);
+  }
+}
+
+// Copy the bit planes of the same chunks for the block's rows (slot i
+// holds row rows[i]; slots past n_rows are zero) into the stage.
+template <int MT>
+__device__ __forceinline__ void pair_load_x(
+    uint8_t* st, const uint8_t* __restrict__ planes, const int* rows,
+    int n_rows, int ch, int nch, int n_chunks, int tid, int threads) {
+  uint8_t* xs = st + PAIR_WORD_BYTES;
+  const int xch = nch * PAIR_XCHUNK / 16;      // 16-byte copies a slot
+  for (int i = tid; i < pair_rows<MT>() * xch; i += threads) {
+    const int r = i / xch, c = i % xch;
+    const bool ok = r < n_rows;
+    cp_async16(xs + r * PAIR_XSTRIDE + 16 * c,
+               planes + (ok ? ((size_t)rows[r] * n_chunks + ch)
+                              * PAIR_XCHUNK + 16 * c : 0),
+               ok);
+  }
+}
+
+// The ring over the block's chunks with G groups of 4 row slots in use,
+// then the warp's sums into part[i][c] (row slot i, c = h*128 + jj). The
+// accumulators of tile (r4, pp) hold, in lane t, planes 2pp (c0, c2) and
+// 2pp + 1 (c1, c3) of slot 4*r4 + t for the low (c0, c1) and high (c2,
+// c3) column: S = sum over pp of D << 2pp + D' << (2pp + 1).
+template <int MT, int G>
+__device__ __forceinline__ void pair_block_sums(
+    uint8_t* smem, const uint8_t* __restrict__ planes,
+    const uint32_t* __restrict__ words, const int* rows, int n_rows,
+    int ch0, int ch1, int n_chunks, int k16, int n2) {
+  constexpr int THREADS = 512 / MT;
+  constexpr int STAGE = pair_stage_bytes<MT>();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wcol = warp * 8 * MT + MT * g;     // the lane's first column
+  // B of tile (r4, pp), lane g: slot 4*r4 + g/2, plane 2pp + g%2 of the
+  // chunk's 32-K words t (b0) and t + 4 (b1).
+  const int xoff = (g / 2) * PAIR_XSTRIDE + (g % 2) * 4
+                   + tq * PAIR_PLANES * 4;
+  const uint32_t smem_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n_st = (ch1 - ch0 + PAIR_KC - 1) / PAIR_KC;
+
+  int acc[MT][6 * G][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 6 * G; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  for (int s = 0; s < n_st; ++s) {
+    cp_async_wait<PAIR_STAGES - 2>();          // stage s has landed
+    __syncthreads();                           // and stage s - 1 is read
+    {
+      const int nx = s + PAIR_STAGES - 1;
+      if (nx < n_st) {
+        const int ch = ch0 + nx * PAIR_KC;
+        uint8_t* st = smem + (nx % PAIR_STAGES) * STAGE;
+        pair_load_words(st, words, ch, min(PAIR_KC, ch1 - ch), k16, n2,
+                        tid, THREADS);
+        pair_load_x<MT>(st, planes, rows, n_rows, ch,
+                        min(PAIR_KC, ch1 - ch), n_chunks, tid, THREADS);
+      }
+      cp_async_commit();
+    }
+    const uint32_t st = smem_s + (s % PAIR_STAGES) * STAGE;
+    const int nch = min(PAIR_KC, ch1 - (ch0 + s * PAIR_KC));
+#pragma unroll
+    for (int cc = 0; cc < PAIR_KC; ++cc) {
+      if (cc >= nch) break;
+      // Word rows 2t, 2t + 1, 8 + 2t, 9 + 2t of the chunk.
+      const uint32_t ws = st + (cc * 16 + 2 * tq) * PAIR_WROW + 4 * wcol;
+      uint32_t w[4][MT];
+      lds_words<MT>(w[0], ws);
+      lds_words<MT>(w[1], ws + PAIR_WROW);
+      lds_words<MT>(w[2], ws + 8 * PAIR_WROW);
+      lds_words<MT>(w[3], ws + 9 * PAIR_WROW);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = __byte_perm(w[0][mt], w[1][mt], 0x5410);
+        a[mt][1] = __byte_perm(w[0][mt], w[1][mt], 0x7632);
+        a[mt][2] = __byte_perm(w[2][mt], w[3][mt], 0x5410);
+        a[mt][3] = __byte_perm(w[2][mt], w[3][mt], 0x7632);
+      }
+      const uint32_t xs =
+          st + PAIR_WORD_BYTES + xoff + cc * PAIR_XCHUNK;
+#pragma unroll
+      for (int r4 = 0; r4 < G; ++r4)
+#pragma unroll
+        for (int pp = 0; pp < 6; ++pp) {
+          const uint32_t xa = xs + r4 * 4 * PAIR_XSTRIDE + pp * 8;
+          const uint32_t b0 = lds32(xa);
+          const uint32_t b1 = lds32(xa + 4 * PAIR_PLANES * 4);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            bmma_16_8_256(acc[mt][r4 * 6 + pp], a[mt], b0, b1);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the ring is free
+
+  int* part = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int jj = wcol + mt;
+#pragma unroll
+    for (int r4 = 0; r4 < G; ++r4) {
+      const int i = 4 * r4 + tq;
+      if (i >= n_rows) continue;
+      int s_lo = 0, s_hi = 0;
+#pragma unroll
+      for (int pp = 0; pp < 6; ++pp) {
+        const int* d = acc[mt][r4 * 6 + pp];
+        s_lo += (d[0] << (2 * pp)) + (d[1] << (2 * pp + 1));
+        s_hi += (d[2] << (2 * pp)) + (d[3] << (2 * pp + 1));
+      }
+      part[i * 256 + jj] = s_lo;
+      part[i * 256 + 128 + jj] = s_hi;
+    }
+  }
+}
+
+// pair_block_sums with G the least power of two >= g4 (row slots past the
+// block's rows hold zeros).
+template <int MT, int G = 1>
+__device__ __forceinline__ void pair_block_dispatch(
+    int g4, uint8_t* smem, const uint8_t* __restrict__ planes,
+    const uint32_t* __restrict__ words, const int* rows, int n_rows,
+    int ch0, int ch1, int n_chunks, int k16, int n2) {
+  if constexpr (4 * G < pair_rows<MT>()) {
+    if (g4 > G) {
+      pair_block_dispatch<MT, 2 * G>(g4, smem, planes, words, rows, n_rows,
+                                     ch0, ch1, n_chunks, k16, n2);
+      return;
+    }
+  }
+  pair_block_sums<MT, G>(smem, planes, words, rows, n_rows, ch0, ch1,
+                         n_chunks, k16, n2);
+}
+
+// Block (tile, split, z): z = d + n_d * q, the d-th distinct tenant (in
+// order of first occurrence) and its q-th group of pair_rows rows.
+// 512 threads an SM at the least: at most 128 registers a thread.
+template <int MT>
+__global__ void __launch_bounds__(512 / MT, MT)
+pair_delta_tc_kernel(const uint8_t* __restrict__ planes,
+                     const uint32_t* __restrict__ pairs,
+                     const void* __restrict__ ids, int ids64,
+                     const float* __restrict__ coef,
+                     const float* __restrict__ colsum,
+                     float* __restrict__ out, int bsz, int row0, int slab,
+                     int k, int n2, int n_d) {
+  namespace cg = cooperative_groups;
+  constexpr int THREADS = 512 / MT;
+  constexpr int STAGE = pair_stage_bytes<MT>();
+  constexpr int ROWS = pair_rows<MT>();
+  extern __shared__ __align__(16) uint8_t smem_pair[];
+  __shared__ int sid[PAIR_SLAB], rows[ROWS];
+  __shared__ unsigned mask[PAIR_SLAB / 32];
+  __shared__ float sa1[ROWS], sa2[ROWS], ssxq[ROWS];
+  __shared__ float scs[256];
+  __shared__ int s_tenant, s_rows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int d = blockIdx.z % n_d, q = blockIdx.z / n_d;
+  const int n_split = gridDim.y;
+  const int n = 2 * n2, k16 = (k + 15) / 16;
+  const int n_chunks = (k + PAIR_CHUNK - 1) / PAIR_CHUNK;
+  const int slice = 256 / n_split;             // this block's outputs
+  const int c0 = split * slice;
+
+  // The slab's d-th distinct tenant and its rows (rows[] holds them as
+  // rows of the batch).
+  if (tid < slab) sid[tid] = load_id(ids, ids64, row0 + tid);
+  __syncthreads();
+  bool first = tid < slab;
+  for (int j = 0; first && j < tid; ++j) first = sid[j] != sid[tid];
+  if (warp < PAIR_SLAB / 32) {
+    const unsigned m = __ballot_sync(0xffffffffu, first);
+    if (lane == 0) mask[warp] = m;
+  }
+  if (tid == 0) s_tenant = -1;
+  __syncthreads();
+  if (first) {
+    int rank = __popc(mask[warp] & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += __popc(mask[w]);
+    if (rank == d) s_tenant = sid[tid];
+  }
+  __syncthreads();
+  const int t = s_tenant;
+  if (t < 0) return;                           // the whole cluster
+  const bool mine = tid < slab && sid[tid] == t;
+  if (warp < PAIR_SLAB / 32) {
+    const unsigned m = __ballot_sync(0xffffffffu, mine);
+    if (lane == 0) mask[warp] = m;
+  }
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < PAIR_SLAB / 32; ++w) count += __popc(mask[w]);
+  const int n_rows = min(ROWS, count - q * ROWS);
+  if (n_rows <= 0) return;                     // the whole cluster
+  if (mine) {
+    int rank = __popc(mask[warp] & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += __popc(mask[w]);
+    rank -= q * ROWS;
+    if (rank >= 0 && rank < ROWS) rows[rank] = row0 + tid;
+  }
+
+  // The words need nothing of the prep: their first stages go out before
+  // the wait for its grid; x, the coefficients and colsum after it.
+  const int ch0 = (int)((long long)split * n_chunks / n_split);
+  const int ch1 = (int)((long long)(split + 1) * n_chunks / n_split);
+  const int n_st = (ch1 - ch0 + PAIR_KC - 1) / PAIR_KC;
+  const uint32_t* words =
+      pairs + (size_t)t * k16 * n2 + (size_t)tile * PAIR_BJ;
+#pragma unroll
+  for (int s = 0; s < PAIR_STAGES - 1; ++s)
+    if (s < n_st) {
+      const int ch = ch0 + s * PAIR_KC;
+      pair_load_words(smem_pair + s * STAGE, words, ch,
+                      min(PAIR_KC, ch1 - ch), k16, n2, tid, THREADS);
+    }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();                             // rows are set
+  for (int i = tid; i < n_rows; i += THREADS) {
+    const int r = rows[i];
+    cp_async4(sa1 + i, coef + r);
+    cp_async4(sa2 + i, coef + bsz + r);
+    cp_async4(ssxq + i, coef + 2 * bsz + r);
+  }
+  for (int c = tid; c < slice; c += THREADS)
+    cp_async4(scs + c, colsum + (size_t)t * n + tile * 256 + c0 + c);
+#pragma unroll
+  for (int s = 0; s < PAIR_STAGES - 1; ++s) {
+    if (s < n_st) {
+      const int ch = ch0 + s * PAIR_KC;
+      pair_load_x<MT>(smem_pair + s * STAGE, planes, rows, n_rows, ch,
+                      min(PAIR_KC, ch1 - ch), n_chunks, tid, THREADS);
+    }
+    cp_async_commit();                         // group 0 holds them all
+  }
+
+  pair_block_dispatch<MT>((n_rows + 3) / 4, smem_pair, planes, words, rows,
+                          n_rows, ch0, ch1, n_chunks, k16, n2);
+  int* part = reinterpret_cast<int*>(smem_pair);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int* remote[PAIR_MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < PAIR_MAX_SPLITS; ++r)
+    remote[r] = cluster.map_shared_rank(part, r < n_split ? r : 0);
+  // Four outputs a thread at a time, their remote loads issued together.
+  constexpr int EU = 4;
+  for (int it0 = tid; it0 < n_rows * slice; it0 += EU * THREADS) {
+    int sum[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const int it = min(it0 + u * THREADS, n_rows * slice - 1);
+      const int i = it / slice, c = it % slice;
+      int v[PAIR_MAX_SPLITS];
+#pragma unroll
+      for (int r = 0; r < PAIR_MAX_SPLITS; ++r)
+        v[r] = r < n_split ? remote[r][i * 256 + c0 + c] : 0;
+      sum[u] = 0;
+#pragma unroll
+      for (int r = 0; r < PAIR_MAX_SPLITS; ++r) sum[u] += v[r];
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const int it = it0 + u * THREADS;
+      if (it >= n_rows * slice) break;
+      const int i = it / slice, c = it % slice;
+      const float two_a1 = __fmul_rn(2.0f, sa1[i]);
+      const float off = __fmul_rn(sa1[i], ssxq[i]);
+      out[(size_t)rows[i] * n + tile * 256 + c0 + c] =
+          __fadd_rn(__fmul_rn(two_a1, static_cast<float>(sum[u])),
+                    __fsub_rn(__fmul_rn(sa2[i], scs[c]), off));
+    }
+  }
+  cluster.sync();                              // the sums stay until read
+}
+
+// K ranges a column tile (one cluster): the least power of two that gives
+// the card PAIR_BLOCKS_PER_SM live blocks a multiprocessor, at most
+// PAIR_MAX_SPLITS and the chunks.
+static int pair_splits(int live, int n_chunks, int sms) {
+  const int cap = n_chunks < PAIR_MAX_SPLITS ? n_chunks : PAIR_MAX_SPLITS;
+  int splits = 1;
+  while (splits * live < PAIR_BLOCKS_PER_SM * sms && splits * 2 <= cap)
+    splits *= 2;
+  return splits;
+}
+
+// The main kernel over rows row0 .. row0 + slab - 1 (t tenants).
+template <int MT>
+static cudaError_t launch_pair_tc(const uint8_t* planes, const void* pairs,
+                                  const void* ids, int ids64,
+                                  const float* coef, const void* colsum,
+                                  void* out, int bsz, int row0, int slab,
+                                  int k, int n2, int t, int dev, int sms,
+                                  cudaStream_t s) {
+  static std::atomic<unsigned long long> limit_set{0};
+  constexpr int smem = pair_stage_bytes<MT>() * PAIR_STAGES;
+  static_assert(smem >= pair_rows<MT>() * 256 * 4,
+                "the sums of the block's rows fit in the ring");
+  cudaError_t err = smem_limit_once((const void*)pair_delta_tc_kernel<MT>,
+                                    smem, dev, limit_set);
+  if (err != cudaSuccess) return err;
+  const int n_d = slab < t ? slab : t;      // distinct tenants, at most
+  const int groups = (slab + pair_rows<MT>() - 1) / pair_rows<MT>();
+  const int n_split = pair_splits(n_d * (n2 / PAIR_BJ),
+                                  (k + PAIR_CHUNK - 1) / PAIR_CHUNK, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n2 / PAIR_BJ, n_split, n_d * groups);
+  cfg.blockDim = dim3(512 / MT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, pair_delta_tc_kernel<MT>, planes,
+                           (const uint32_t*)pairs, ids, ids64, coef,
+                           (const float*)colsum, (float*)out, bsz, row0,
+                           slab, k, n2, n_d);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Bytes of scratch a call takes (the wrapper allocates them): x's bit
+// planes (ceil(k / 256) * 384 a row), then (a1, a2, sxq) of every row.
+extern "C" long long bd_pair_delta_scratch_bytes(int bsz, int k) {
+  return (long long)bsz * ((k + PAIR_CHUNK - 1) / PAIR_CHUNK) * PAIR_XCHUNK
+         + 3LL * bsz * 4;
+}
+
+// buf: bd_pair_delta_scratch_bytes(bsz, k) bytes; t: tenants in the stack.
+// The prep, then the main kernel once a slab of PAIR_SLAB rows: each slab
+// after the first waits for the one before (a programmatic dependent that
+// nothing triggers early), so the prep has ended before any slab reads.
+extern "C" int bd_pair_delta(const void* x, int x_stride, int x_bf16,
+                             const void* pairs, const void* colsum,
+                             const void* scales, const void* ids, int ids64,
+                             void* buf, void* out, int bsz, int k, int n2,
+                             int t, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_chunks = (k + PAIR_CHUNK - 1) / PAIR_CHUNK;
+  if (bsz < 1 || k < 32 || k % 32 != 0 || n2 < PAIR_BJ || n2 % PAIR_BJ != 0
+      || t < 1 || ((uintptr_t)pairs % 16) != 0 || ((uintptr_t)buf % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  uint8_t* planes = static_cast<uint8_t*>(buf);
+  float* coef = reinterpret_cast<float*>(planes + (size_t)bsz * n_chunks
+                                                  * PAIR_XCHUNK);
+  const int esize = x_bf16 ? 2 : 4;
+  const int vec = ((uintptr_t)x % 16) == 0
+                  && ((size_t)x_stride * esize) % 16 == 0;
+  err = x_bf16 ? launch_pair_prep<__nv_bfloat16>(x, x_stride, vec, scales,
+                                                 ids, ids64, planes, coef,
+                                                 bsz, k, n_chunks, s)
+               : launch_pair_prep<float>(x, x_stride, vec, scales, ids,
+                                         ids64, planes, coef, bsz, k,
+                                         n_chunks, s);
+  // MT m-tiles a warp: a block holds 16 / MT rows of one tenant.
+  for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += PAIR_SLAB) {
+    const int slab = bsz - row0 < PAIR_SLAB ? bsz - row0 : PAIR_SLAB;
+    if (slab <= 4)
+      err = launch_pair_tc<4>(planes, pairs, ids, ids64, coef, colsum, out,
+                              bsz, row0, slab, k, n2, t, dev, sms, s);
+    else if (slab <= 8)
+      err = launch_pair_tc<2>(planes, pairs, ids, ids64, coef, colsum, out,
+                              bsz, row0, slab, k, n2, t, dev, sms, s);
+    else
+      err = launch_pair_tc<1>(planes, pairs, ids, ids64, coef, colsum, out,
+                              bsz, row0, slab, k, n2, t, dev, sms, s);
+  }
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------

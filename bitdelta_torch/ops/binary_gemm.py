@@ -32,6 +32,9 @@ each kernel on the H100 and what its design does about it.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import _build
@@ -63,13 +66,19 @@ def _pair_quantize(x: torch.Tensor, scales: torch.Tensor,
                    tenant_ids: torch.Tensor):
     """Quantize rows to the non-negative PAIR_Q_LEVELS affine grid and
     fold the tenant scale into the two dequantization coefficients (plain
-    torch, as JAX runs it in XLA; ``torch.round`` is half-to-even like
-    ``jnp.round``). Returns ``(xq (B, K) int32, sxq (B,), a1 (B,),
-    a2 (B,))`` with ``a1 = alpha * step``, ``a2 = alpha * xmin``."""
+    torch, as JAX's source writes it; ``torch.round`` is half-to-even
+    like ``jnp.round``; every division IEEE, on the CPU and the card
+    alike). The pair kernel's prep launch computes the same values.
+    Returns ``(xq (B, K) int32, sxq (B,), a1 (B,), a2 (B,))`` with
+    ``a1 = alpha * step``, ``a2 = alpha * xmin``."""
     xf = x.to(torch.float32)
     xmin = xf.min(dim=1).values
     xmax = xf.max(dim=1).values
-    step = torch.clamp((xmax - xmin) / PAIR_Q_LEVELS, min=1e-30)
+    # A tensor divisor: on a CUDA tensor PyTorch divides by a Python
+    # scalar as a multiply by its reciprocal, which can put the step one
+    # ulp off the IEEE quotient (the CPU's and the kernel's).
+    levels = torch.full_like(xmax, PAIR_Q_LEVELS)
+    step = torch.clamp((xmax - xmin) / levels, min=1e-30)
     xq = torch.round((xf - xmin[:, None]) / step[:, None]).to(torch.int32)
     sxq = xq.sum(dim=1).to(torch.float32)
     alpha = scales.to(torch.float32)[tenant_ids]
@@ -116,6 +125,15 @@ def tenant_delta_matmul_pair_plain(x, packed_pairs, colsum, scales,
     return _pair_reassemble(y_lo, y_hi)
 
 
+@functools.lru_cache(maxsize=256)
+def _pair_scratch_bytes(bsz: int, kdim: int) -> int:
+    """Scratch bytes of one pair kernel call, as its library lays them
+    out (x's bit planes and each row's coefficients)."""
+    fn = _build.library(_LIB).bd_pair_delta_scratch_bytes
+    fn.argtypes, fn.restype = [I, I], ctypes.c_longlong
+    return fn(bsz, kdim)
+
+
 def tenant_delta_matmul_pair(x: torch.Tensor, packed_pairs: torch.Tensor,
                              colsum: torch.Tensor, scales: torch.Tensor,
                              tenant_ids: torch.Tensor, *, out_dtype=None
@@ -124,7 +142,14 @@ def tenant_delta_matmul_pair(x: torch.Tensor, packed_pairs: torch.Tensor,
     pair-packed layout. x ``(B, K)``; packed_pairs ``(T, K//16, N//2)``;
     colsum ``(T, N)`` fp32 = 2*popcount - K; scales ``(T,)``;
     tenant_ids ``(B,)``. Returns ``(B, N)`` in ``out_dtype`` (default
-    x.dtype)."""
+    x.dtype).
+
+    On a CUDA tensor it launches two kernels and nothing else: the x prep
+    (``pair_prep_kernel``) and the 1-bit tensor-core product with its
+    epilogue (``pair_delta_tc_kernel``, once for each 64 rows). It takes
+    any B rows of bf16 or fp32 x (unit column stride), K a multiple of 32,
+    N a multiple of 256, contiguous int32 pairs and fp32 colsum and scales,
+    int32 or int64 ids, and raises on anything else."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     t, k16, nhalf = packed_pairs.shape
@@ -136,17 +161,34 @@ def tenant_delta_matmul_pair(x: torch.Tensor, packed_pairs: torch.Tensor,
         return tenant_delta_matmul_pair_plain(
             x, packed_pairs, colsum, scales, tenant_ids).to(out_dtype)
     _require(nhalf % (PAIR_BLOCK // 2) == 0, "N must be a multiple of 256")
-    _require(kdim * 2 <= 200 * 1024, f"K={kdim} too large for the kernel")
-    xq, sxq, a1, a2 = _pair_quantize(x, scales, tenant_ids)
-    # The kernel writes fp32 (B, N) in natural column order.
+    _require(kdim % 32 == 0, f"K={kdim} must be a multiple of 32")
+    _require(x.stride(1) == 1, "x needs a unit column stride")
+    _require(packed_pairs.dtype == torch.int32
+             and packed_pairs.is_contiguous()
+             and packed_pairs.data_ptr() % 16 == 0,
+             "pairs must be contiguous int32 at a 16-byte aligned address")
+    _require(colsum.dtype == torch.float32 and colsum.is_contiguous(),
+             "colsum must be contiguous fp32")
+    _require(tuple(scales.shape) == (t,) and scales.dtype == torch.float32
+             and scales.is_contiguous(), f"scales must be fp32 ({t},)")
+    _require(tuple(tenant_ids.shape) == (bsz,)
+             and tenant_ids.dtype in (torch.int32, torch.int64)
+             and tenant_ids.is_contiguous(),
+             f"tenant_ids must be int32 or int64 ({bsz},)")
+    _require(all(a.device == x.device for a in
+                 (packed_pairs, colsum, scales, tenant_ids)),
+             "every input must be on x's device")
+    is_bf16 = _cuda_dtype_flag(x)
+    buf = torch.empty(_pair_scratch_bytes(bsz, kdim), dtype=torch.uint8,
+                      device=x.device)
     out = torch.empty((bsz, nhalf * 2), dtype=torch.float32, device=x.device)
-    pairs = packed_pairs.contiguous()
-    ids = tenant_ids.to(torch.int32).contiguous()
-    cs = colsum.to(torch.float32).contiguous()
-    _build.launch(_LIB, "bd_pair_delta", [P] * 8 + [I, I, I, P],
-                  _build.ptr(xq), _build.ptr(pairs), _build.ptr(ids),
-                  _build.ptr(a1), _build.ptr(a2), _build.ptr(sxq),
-                  _build.ptr(cs), _build.ptr(out), bsz, k16, nhalf,
+    _build.launch(_LIB, "bd_pair_delta", [P, I, I] + [P] * 4 + [I, P, P]
+                  + [I] * 4 + [P],
+                  _build.ptr(x), x.stride(0), is_bf16,
+                  _build.ptr(packed_pairs), _build.ptr(colsum),
+                  _build.ptr(scales), _build.ptr(tenant_ids),
+                  int(tenant_ids.dtype == torch.int64), _build.ptr(buf),
+                  _build.ptr(out), bsz, kdim, nhalf, t,
                   _build.stream(x.device))
     tenant_delta_matmul_pair.launches += 1
     return out.to(out_dtype)

@@ -8,9 +8,9 @@ that has only the port's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the pair kernel repeats the plain version's integer sums and
-fp32 epilogue op for op (4 ulp of the cancelling epilogue terms); the
-canonical tenant delta kernel matches its plain version exactly; the fp32 kernels
+Tolerances: the pair kernel (its x prep, integer sums and fp32 epilogue)
+and the canonical tenant delta kernel match their plain versions
+exactly; the fp32 kernels
 sum in another order (1e-4 of the output scale); the attention kernels
 return bf16 (2e-2 absolute, about two bf16 ulps at these magnitudes;
 the tensor-core flash prefill also rounds P to bf16, about 2^-9 of a
@@ -28,6 +28,8 @@ products are exact in fp32) and the ±x delta terms in another order than
 cuBLAS and the plain version, in bf16 and fp32 alike: 1e-4 of the output
 scale; row 10's integer pair sums and epilogue are exact."""
 
+import time
+
 import pytest
 import torch
 
@@ -41,6 +43,21 @@ from bitdelta_torch.ops.kv_quant import quantize_kv
 
 # Output tolerance of the attention kernels per working dtype.
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _trace(run):
+    """torch.profiler's event averages of ``run()`` on the card. The window
+    opens 10 ms before the work and closes 10 ms after it: the profiler
+    drops device records near its edges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        out = run()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    return out, prof.key_averages()
 
 
 @pytest.fixture
@@ -65,10 +82,209 @@ def test_cuda_pair_delta_matches_plain(cuda):
     got = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
     want = tbg.tenant_delta_matmul_pair_plain(x, *args)
     torch.cuda.synchronize()
-    xf = x.float()
-    term = 1.1 * (xf.amax(1) - xf.amin(1)).max().item() * 1024
-    assert (got - want).abs().max().item() <= 4 * torch.finfo(
-        torch.float32).eps * term
+    assert torch.equal(got, want)
+
+
+def _pair_inputs(cuda, bsz, t, k, n, seed, ids=None, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pairs = torch.randint(-2**31, 2**31 - 1, (t, k // 16, n // 2),
+                          generator=g, device=cuda, dtype=torch.int32)
+    colsum = torch.randint(-k, k + 1, (t, n), generator=g,
+                           device=cuda).to(torch.float32)
+    scales = torch.rand((t,), generator=g, device=cuda) * 0.01 + 0.001
+    x = torch.randn((bsz, k), generator=g, device=cuda).to(dtype)
+    if ids is None:
+        ids = torch.randint(0, t, (bsz,), generator=g, device=cuda)
+    else:
+        ids = torch.tensor(ids, device=cuda)
+    return x, [pairs, colsum, scales, ids]
+
+
+# Row 1 at the Mistral-7B projections (q/o, k/v, gate/up, down) and the
+# N = 32000 head, every row count from one to two MMA row tiles.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz", [1, 3, 8, 11, 16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4096, 32000)])
+def test_cuda_pair_delta_exact_at_mistral_shapes(cuda, bsz, k, n):
+    x, args = _pair_inputs(cuda, bsz, 3, k, n, seed=bsz + k + n)
+    before = tbg.tenant_delta_matmul_pair.launches
+    got = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    want = tbg.tenant_delta_matmul_pair_plain(x, *args)
+    torch.cuda.synchronize()
+    assert tbg.tenant_delta_matmul_pair.launches == before + 1
+    assert got.shape == (bsz, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+# Tenant patterns: all rows on one tenant, every row its own, more
+# tenants than rows, int32 ids, fp32 x, up to 64 rows, a tenant with more
+# rows than a block takes (35 of 40), K = 32 and K = 4128 (a 256-K chunk
+# cut short).
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,t,k,n,ids,dtype", [
+    (8, 3, 4096, 1024, [1] * 8, torch.bfloat16),
+    (8, 8, 4096, 1024, list(range(8)), torch.bfloat16),
+    (3, 7, 4096, 4096, [6, 0, 6], torch.bfloat16),
+    (16, 16, 4096, 14336, list(range(15, -1, -1)), torch.bfloat16),
+    (11, 5, 1024, 512, None, torch.float32),
+    (33, 4, 2048, 768, None, torch.bfloat16),
+    (64, 9, 1024, 512, None, torch.float32),
+    (5, 2, 32, 256, [1, 0, 1, 1, 0], torch.bfloat16),
+    (8, 3, 4128, 1024, None, torch.bfloat16),
+    (40, 2, 1024, 512, [1] * 35 + [0] * 5, torch.bfloat16)])
+def test_cuda_pair_delta_tenant_patterns(cuda, bsz, t, k, n, ids, dtype):
+    x, args = _pair_inputs(cuda, bsz, t, k, n, seed=bsz * t + k, ids=ids,
+                           dtype=dtype)
+    got = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    got32 = tbg.tenant_delta_matmul_pair(x, *args[:3],
+                                         args[3].to(torch.int32),
+                                         out_dtype=torch.float32)
+    want = tbg.tenant_delta_matmul_pair_plain(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got32, want)
+
+
+# One set sign bit at (kk, nn) of one tenant over all-clear words: the
+# output moves from the all-clear output in column nn of that tenant's
+# rows alone, and equals the plain version. A misplaced fragment, a wrong
+# K permutation or a lost half moves it elsewhere.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kk,nn", [(0, 0), (15, 128), (16, 255), (31, 1),
+                                   (4095, 4095), (2049, 3000), (7, 2175)])
+def test_cuda_pair_delta_one_hot_bit(cuda, kk, nn):
+    from bitdelta_torch.ops.packing import pack_signs, repack_pairs
+
+    k, n, t = 4096, 4096, 3
+    g = torch.Generator(device=cuda).manual_seed(kk + nn)
+    signs = torch.zeros((t, k, n), dtype=torch.bool, device=cuda)
+    clear = repack_pairs(pack_signs(signs))
+    signs[1, kk, nn] = True
+    one = repack_pairs(pack_signs(signs))
+    colsum = torch.zeros((t, n), device=cuda)
+    scales = torch.tensor([0.5, 0.25, 0.75], device=cuda)
+    x = torch.randn((8, k), generator=g, device=cuda).to(torch.bfloat16)
+    ids = torch.tensor([0, 1, 2, 1, 0, 1, 2, 2], device=cuda)
+    y0 = tbg.tenant_delta_matmul_pair(x, clear, colsum, scales, ids,
+                                      out_dtype=torch.float32)
+    y1 = tbg.tenant_delta_matmul_pair(x, one, colsum, scales, ids,
+                                      out_dtype=torch.float32)
+    want = tbg.tenant_delta_matmul_pair_plain(x, one, colsum, scales, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, want)
+    moved = (y1 != y0).nonzero().tolist()
+    rows = [b for b in range(8) if ids[b] == 1
+            and tbg._pair_quantize(x[b:b + 1], scales, ids[b:b + 1])[0][
+                0, kk] != 0]
+    assert moved == [[b, nn] for b in rows]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,k,n", [(8, 4096, 1024), (16, 14336, 4096)])
+def test_cuda_pair_delta_is_deterministic(cuda, bsz, k, n):
+    # The K splits of a column tile add their integer sums through
+    # distributed shared memory in rank order: no atomics, so equal.
+    x, args = _pair_inputs(cuda, bsz, 3, k, n, seed=31)
+    first = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    second = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_pair_delta_launches_its_two_kernels_only(cuda):
+    x, args = _pair_inputs(cuda, 8, 3, 4096, 1024, seed=32)
+    tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    _, events = _trace(lambda: tbg.tenant_delta_matmul_pair(
+        x, *args, out_dtype=torch.float32))
+    names = sorted(evt.key for evt in events
+                   if getattr(evt, "device_time_total",
+                              getattr(evt, "cuda_time_total", 0)) > 0)
+    assert len(names) == 2, names
+    assert "pair_prep_kernel" in names[0] + names[1]
+    assert "pair_delta_tc_kernel" in names[0] + names[1]
+
+
+# More rows than one main-kernel launch takes (64): Mistral at 65 and 128
+# slots (a tenant across the slab boundary), Mixtral's routed rows at 33
+# slots (66 rows over 2 tenants x 8 experts, w1 / w3 and w2 shapes), and
+# one row at K = 200704 (the prep's longest row range). Exact, and the
+# profiler sees the prep once and the main kernel once a slab.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,t,k,n", [(65, 3, 4096, 4096),
+                                       (128, 3, 4096, 14336),
+                                       (66, 16, 4096, 14336),
+                                       (66, 16, 14336, 4096),
+                                       (1, 2, 200704, 256)])
+def test_cuda_pair_delta_exact_past_one_launch(cuda, bsz, t, k, n):
+    ids = [b % t for b in range(bsz)] if t == 3 else None
+    x, args = _pair_inputs(cuda, bsz, t, k, n, seed=bsz + t, ids=ids)
+    want = tbg.tenant_delta_matmul_pair_plain(x, *args)
+    got, events = _trace(lambda: tbg.tenant_delta_matmul_pair(
+        x, *args, out_dtype=torch.float32))
+    assert torch.equal(got, want)
+    counts = {}
+    for evt in events:
+        for name in ("pair_prep_kernel", "pair_delta_tc_kernel"):
+            if name in evt.key:
+                counts[name] = counts.get(name, 0) + evt.count
+    assert counts == {"pair_prep_kernel": 1,
+                      "pair_delta_tc_kernel": -(-bsz // 64)}
+
+
+@pytest.mark.requires_cuda
+def test_cuda_pair_delta_refuses_what_it_does_not_take(cuda):
+    x, args = _pair_inputs(cuda, 8, 3, 1024, 512, seed=33)
+    pairs, colsum, scales, ids = args
+    bad = [
+        (x.to(torch.float16), args),
+        (x, [pairs, colsum.to(torch.bfloat16), scales, ids]),
+        (x, [pairs, colsum, scales, ids.to(torch.int16)]),
+        (x, [pairs[:, :, ::2], colsum[:, ::2], scales, ids]),
+        (x[:, :1008], [pairs[:, :63].contiguous(), colsum, scales, ids]),
+        (x.t().contiguous().t(), args),
+    ]
+    before = tbg.tenant_delta_matmul_pair.launches
+    for xb, ab in bad:
+        with pytest.raises((ValueError, TypeError)):
+            tbg.tenant_delta_matmul_pair(xb, *ab, out_dtype=torch.float32)
+    assert tbg.tenant_delta_matmul_pair.launches == before
+
+
+# The plain prep on the card against the plain prep on the CPU: the step
+# divides by a device tensor (IEEE), where a Python scalar divisor becomes
+# a multiply by its reciprocal on the card. Rows with ties (an exact
+# 0..4095 range and half-integer values), a constant row, a range of one
+# ulp, +-1e30, ordinary values, and rows where the scalar form and the
+# IEEE quotient differ.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_pair_quantize_matches_the_cpu(cuda, dtype):
+    g = torch.Generator().manual_seed(34)
+    k = 4096
+    ties = torch.randint(0, 4095, (k,), generator=g).float() + 0.5
+    ties[:2] = torch.tensor([0.0, 4095.0])
+    tiny = torch.ones(k)
+    tiny[::7] = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+    rows = [ties, torch.full((k,), -3.25), tiny,
+            torch.randn((k,), generator=g) * 1e30]
+    rows += list(torch.randn((60, k), generator=g)
+                 * torch.rand((60, 1), generator=g) * 10)
+    x = torch.stack(rows).to(dtype)
+    scales = torch.rand((3,), generator=g) + 0.1
+    ids = torch.randint(0, 3, (x.shape[0],), generator=g)
+    cpu = tbg._pair_quantize(x, scales, ids)
+    card = tbg._pair_quantize(x.to(cuda), scales.to(cuda), ids.to(cuda))
+    for c, d in zip(cpu, card):
+        assert torch.equal(c, d.cpu())
+    # The form this replaced differs on the card (reported, not required).
+    xf = x.to(cuda).float()
+    rng = xf.max(1).values - xf.min(1).values
+    old = torch.clamp(rng / tbg.PAIR_Q_LEVELS, min=1e-30)
+    new = torch.clamp(rng / torch.full_like(rng, tbg.PAIR_Q_LEVELS),
+                      min=1e-30)
+    print("pair step: scalar-divisor rows off the IEEE quotient:",
+          int((old != new).sum()), "of", rng.numel())
 
 
 @pytest.mark.requires_cuda
@@ -383,15 +599,10 @@ def test_cuda_w4_matmul_is_deterministic(cuda, dtype, m, n):
     (torch.bfloat16, "w4_matmul_tc_kernel", "w4_matmul_fp32_kernel"),
     (torch.float32, "w4_matmul_fp32_kernel", "w4_matmul_tc_kernel")])
 def test_cuda_w4_matmul_kernel_by_dtype(cuda, dtype, want, not_want):
-    from torch.profiler import ProfilerActivity, profile
-
     x, w = _w4_inputs(cuda, 8, 4096, 1024, dtype, seed=12)
     ti.w4_matmul(x, w.packed, w.scale)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ti.w4_matmul(x, w.packed, w.scale)
-        torch.cuda.synchronize()
-    names = " ".join(evt.key for evt in prof.key_averages())
+    _, events = _trace(lambda: ti.w4_matmul(x, w.packed, w.scale))
+    names = " ".join(evt.key for evt in events)
     assert want in names and not_want not in names, names
 
 
