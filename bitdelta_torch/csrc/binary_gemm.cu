@@ -9,16 +9,19 @@
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
 //   bd_tenant_delta    <- ::tenant_delta_matmul_pallas
 //   bd_fused_tenant    <- ::fused_tenant_matmul_pallas
-//   bd_fused_base_pair <- ::fused_base_pair_matmul_pallas
+//   bd_fused_base_pair_tc <- ::fused_base_pair_matmul_pallas (bf16)
+//   bd_fused_base_pair    <- the same, fp32 x and W
 //
 // Every entry launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
@@ -185,7 +188,8 @@ pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
   const int j1 = (part + 1) * n_steps / PAIR_PREP_BLOCKS;
 
   float lo = __int_as_float(0x7f800000), hi = __int_as_float(0xff800000);
-  for (int j = j0 + tid; j < j1 && j < k / 32; j += PAIR_PREP_THREADS) {
+  const int full = k / 32;                       // whole 32-K steps
+  for (int j = j0 + tid; j < j1 && j < full; j += PAIR_PREP_THREADS) {
     float v[32];
     load_step(xr, j, x_vec, v);
 #pragma unroll
@@ -193,6 +197,13 @@ pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
       lo = fminf(lo, v[u]);
       hi = fmaxf(hi, v[u]);
     }
+  }
+  // A K that is a multiple of 16 only (row 10): the 16 values past the
+  // last whole step, one a thread of the block that owns that step.
+  if (full >= j0 && full < j1 && tid < k - 32 * full) {
+    const float v = to_f32(xr[32 * full + tid]);
+    lo = fminf(lo, v);
+    hi = fmaxf(hi, v);
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
@@ -1323,18 +1334,23 @@ extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
 // bound this first version. Design:
 //   * one block per (64-column tile, row); CT_KS thread rows split the
 //     K/32 words of each column and reduce through shared memory;
-//   * the row's xq (|xq| <= 2^14, int16: K = 14336 takes 28 KB) sits in
-//     shared memory and is read as a broadcast, eight values per 16-byte
-//     load; the words are read coalesced along N;
-//   * the sum of bit * xq is exact in int32 (|sum| <= K * 2^14 < 2^31 for
-//     K < 131072, asserted by the wrapper); the epilogue forms
-//     2 * S - sum(xq) in int64, converts once and applies the tenant scale
-//     and xscale with explicit round-to-nearest products, so it agrees with
-//     the plain version bit for bit.
+//   * the row's xq (|xq| <= 2^14, int16) goes through shared memory in
+//     chunks of up to CT_KCHUNK values (32 KB; the shared memory is one
+//     chunk, or the row where it is shorter), each read as a broadcast, eight
+//     values per 16-byte load; the words are read coalesced along N; so
+//     any K that is a multiple of 32 is taken;
+//   * the sum of bit * xq over a chunk is exact in int32 (a thread's
+//     share is at most CT_KCHUNK * 2^14 = 2^28 in magnitude); past one
+//     chunk the chunks and the thread rows are added in int64, and
+//     2 * S - sum(xq) always is, with sxq summed in int64 by the
+//     wrapper; the epilogue converts once and applies
+//     the tenant scale and xscale with explicit round-to-nearest
+//     products, so it agrees with the plain version bit for bit.
 // ---------------------------------------------------------------------------
 
-constexpr int CT_TX = 64;    // columns per block
-constexpr int CT_KS = 4;     // thread rows splitting the K words
+constexpr int CT_TX = 64;          // columns per block
+constexpr int CT_KS = 4;           // thread rows splitting the K words
+constexpr int CT_KCHUNK = 16384;   // xq values staged at a time
 
 __device__ __forceinline__ int lo16(uint32_t v) {
   return static_cast<int>(static_cast<short>(v & 0xFFFFu));
@@ -1343,103 +1359,123 @@ __device__ __forceinline__ int hi16(uint32_t v) {
   return static_cast<int>(v) >> 16;
 }
 
+// CHUNKED: K > CT_KCHUNK, the row staged a chunk at a time and the sums
+// added in int64; otherwise the whole row at once, the sums in int32
+// (|S| <= CT_KCHUNK * 2^14 = 2^28), with fewer registers.
+template <bool CHUNKED>
 __global__ void tenant_delta_kernel(const short* __restrict__ xq,
                                     const uint32_t* __restrict__ packed,
                                     const int* __restrict__ ids,
                                     const float* __restrict__ scales,
                                     const float* __restrict__ xscale,
-                                    const int* __restrict__ sxq,
+                                    const long long* __restrict__ sxq,
                                     float* __restrict__ out,
                                     int k32, int n) {
-  extern __shared__ uint4 xs4[];                 // K int16 values
-  __shared__ int red[CT_KS][CT_TX];
+  using Sum = typename std::conditional<CHUNKED, long long, int>::type;
+  extern __shared__ uint4 xs4[];                 // a chunk of int16 xq
+  __shared__ Sum red[CT_KS][CT_TX];
 
   const int b = blockIdx.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int j = blockIdx.x * CT_TX + tx;
   const int tid = ty * CT_TX + tx;
 
-  // K is a multiple of 32, so the row is a whole number of uint4s.
+  // K is a multiple of 32, so the row and each chunk are whole uint4s.
   const uint4* src = reinterpret_cast<const uint4*>(xq + (size_t)b * k32 * 32);
-  for (int i = tid; i < k32 * 4; i += CT_TX * CT_KS) xs4[i] = src[i];
-  __syncthreads();
-
   const uint32_t* p = packed + (size_t)ids[b] * k32 * n;
-  int acc = 0;
-  if (j < n) {
-    for (int kw = ty; kw < k32; kw += CT_KS) {
-      const uint32_t w = p[(size_t)kw * n + j];
-      const uint4* xk = xs4 + kw * 4;
+  constexpr int STEP = CHUNKED ? CT_KCHUNK / 32 : 1 << 30;
+  Sum acc = 0;
+  for (int w0 = 0; w0 < k32; w0 += STEP) {
+    const int nw = CHUNKED ? min(STEP, k32 - w0) : k32;
+    if (CHUNKED) __syncthreads();                // the last chunk is read
+    for (int i = tid; i < nw * 4; i += CT_TX * CT_KS)
+      xs4[i] = src[(size_t)w0 * 4 + i];
+    __syncthreads();
+    int part = 0;
+    if (j < n) {
+      for (int kw = ty; kw < nw; kw += CT_KS) {
+        const uint32_t w = p[(size_t)(w0 + kw) * n + j];
+        const uint4* xk = xs4 + kw * 4;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const uint4 v = xk[q];
-        const uint32_t parts[4] = {v.x, v.y, v.z, v.w};
+        for (int q = 0; q < 4; ++q) {
+          const uint4 v = xk[q];
+          const uint32_t parts[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const int s = q * 8 + h * 2;
-          acc += static_cast<int>((w >> s) & 1u) * lo16(parts[h]);
-          acc += static_cast<int>((w >> (s + 1)) & 1u) * hi16(parts[h]);
+          for (int h = 0; h < 4; ++h) {
+            const int s = q * 8 + h * 2;
+            part += static_cast<int>((w >> s) & 1u) * lo16(parts[h]);
+            part += static_cast<int>((w >> (s + 1)) & 1u) * hi16(parts[h]);
+          }
         }
       }
     }
+    acc += part;
   }
   red[ty][tx] = acc;
   __syncthreads();
   if (ty != 0 || j >= n) return;
-  int s = 0;
+  long long s = 0;
 #pragma unroll
   for (int i = 0; i < CT_KS; ++i) s += red[i][tx];
-  const long long d = 2LL * s - static_cast<long long>(sxq[b]);
+  const long long d = 2LL * s - sxq[b];
   const float alpha = scales[ids[b]];
   out[(size_t)b * n + j] =
       __fmul_rn(__fmul_rn(alpha, __ll2float_rn(d)), xscale[0]);
 }
 
+// sxq: (bsz,) int64, the sum of each row's xq.
 extern "C" int bd_tenant_delta(const void* xq, const void* packed,
                                const void* ids, const void* scales,
                                const void* xscale, const void* sxq, void* out,
                                int bsz, int k32, int n, void* stream) {
   dim3 grid((n + CT_TX - 1) / CT_TX, bsz);
   dim3 block(CT_TX, CT_KS);
-  size_t smem = (size_t)k32 * 32 * sizeof(short);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(tenant_delta_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  tenant_delta_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const short*)xq, (const uint32_t*)packed, (const int*)ids,
-      (const float*)scales, (const float*)xscale, (const int*)sxq,
-      (float*)out, k32, n);
+  // Shared memory for one chunk, or the whole row where it is shorter
+  // (at most 32 KB: no attribute to set).
+  const int staged = k32 * 32 < CT_KCHUNK ? k32 * 32 : CT_KCHUNK;
+  const size_t smem = (size_t)staged * sizeof(short);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k32 * 32 > CT_KCHUNK)
+    tenant_delta_kernel<true><<<grid, block, smem, s>>>(
+        (const short*)xq, (const uint32_t*)packed, (const int*)ids,
+        (const float*)scales, (const float*)xscale, (const long long*)sxq,
+        (float*)out, k32, n);
+  else
+    tenant_delta_kernel<false><<<grid, block, smem, s>>>(
+        (const short*)xq, (const uint32_t*)packed, (const int*)ids,
+        (const float*)scales, (const float*)xscale, (const long long*)sxq,
+        (float*)out, k32, n);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// 9 and 10. Fused base + tenant delta at decode (one kernel each):
+// 9 and 10. Fused base + tenant delta at decode:
 //    Y[b] = x[b] @ W + scale[ids[b]] * (x[b] @ sign(P[ids[b]]))
 //
 // Row 9 (bd_fused_tenant) takes the canonical layout P (T, K/32, N) and
 // adds the delta as ±x in fp32 for each bit, as the TPU kernel's float
-// dot with ±1 does (no x grid). Row 10 (bd_fused_base_pair) takes the
-// pair layout (T, K/16, N/2) and x quantized by the wrapper to row 1's
-// per-row 12-bit grid; the delta is row 1's exact integer pair sums and
-// its fp32 epilogue. The base product x @ W is computed in the kernel's
-// own body in both, fp32 sums of the products of x and W in their dtype
-// (bf16 products are exact in fp32).
+// dot with ±1 does (no x grid). Row 10 takes the pair layout (T, K/16,
+// N/2) and row 1's per-row 12-bit x grid; its delta is row 1's exact
+// integer pair sums and fp32 epilogue. bf16 x and W take row 10's
+// tensor-core kernel (bd_fused_base_pair_tc, section 10 below); this
+// section holds row 9 and row 10's fp32 kernel (bd_fused_base_pair),
+// which takes x already quantized by the wrapper and which only fp32
+// parity checks send. Both compute the base product in their own body,
+// fp32 sums of the products of x and W in their dtype.
 //
 // Bound on the H100: at decode (B = 8 rows) each W element has B uses,
 // so the bytes are the K*N*2 of the bf16 base plus the words of the
-// distinct tenants (1/16 of the base each), against 3.35 TB/s; the work
-// is about 2*B*K*N multiply-adds for the base and as many again for the
-// delta, which on CUDA cores (this first version; no tensor cores) is of
-// the same order as the bytes' time. Design, for both:
+// distinct tenants (1/16 of the base each), against 3.35 TB/s; these
+// CUDA-core kernels do about 2*B*K*N multiply-adds for the base and as
+// many again for the delta, of the same order as the bytes' time.
+// Design, for both:
 //   * W is read ONCE for all the rows: one block per 256-column tile (two
 //     adjacent columns a thread, 128 threads along N, so each warp's W
 //     loads are contiguous) and per group of up to FUSED_ROWS rows; the
 //     block keeps every row's sums in registers and, for each W element
 //     it loads, does one fused multiply-add per row;
 //   * x (and row 10's xq) of all the block's rows is staged in shared
-//     memory in K chunks of FUSED_TK (a whole row set does not fit: 8 rows
-//     of K = 14336 in bf16 are 229 KB) and read as a broadcast;
+//     memory in K chunks of FUSED_TK and read as a broadcast;
 //   * each row adds its delta from its own tenant's words (a row's word
 //     load for a tenant another row already read hits the L1);
 //   * K is split across blocks so that k_proj / v_proj (N = 1024: 4 column
@@ -1754,23 +1790,16 @@ extern "C" int bd_fused_base_pair(const void* x, const void* xq,
                                   const void* a2, const void* sxq,
                                   const void* colsum, void* part_base,
                                   void* part_s, void* out, int bsz, int k,
-                                  int n2, int splits, int is_bf16,
-                                  void* stream) {
+                                  int n2, int splits, void* stream) {
   // K per split in whole 16-row words.
   const int k_per_split = (((k + splits - 1) / splits) + 15) / 16 * 16;
   dim3 grid((n2 + 2 * FUSED_THREADS - 1) / (2 * FUSED_THREADS),
             (bsz + FUSED_ROWS - 1) / FUSED_ROWS, splits);
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    fused_pair_kernel<__nv_bfloat16><<<grid, FUSED_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const int*)xq, (const __nv_bfloat16*)w,
-        (const uint32_t*)pairs, (const int*)ids, (float*)part_base,
-        (int*)part_s, bsz, k, n2, k_per_split);
-  else
-    fused_pair_kernel<float><<<grid, FUSED_THREADS, 0, s>>>(
-        (const float*)x, (const int*)xq, (const float*)w,
-        (const uint32_t*)pairs, (const int*)ids, (float*)part_base,
-        (int*)part_s, bsz, k, n2, k_per_split);
+  fused_pair_kernel<float><<<grid, FUSED_THREADS, 0, s>>>(
+      (const float*)x, (const int*)xq, (const float*)w,
+      (const uint32_t*)pairs, (const int*)ids, (float*)part_base,
+      (int*)part_s, bsz, k, n2, k_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int count = bsz * n2 * 2;
@@ -1779,4 +1808,657 @@ extern "C" int bd_fused_base_pair(const void* x, const void* xq,
       (const float*)a1, (const float*)a2, (const float*)sxq,
       (const float*)colsum, (float*)out, n2 * 2, splits, count);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 10 on the tensor cores (bf16 x and W): bd_fused_base_pair_tc
+//    Y[b] = x[b] @ W + scale[ids[b]] * (x[b] @ sign(P[ids[b]]))
+// replaces bitdelta_tpu/ops/pallas_binary_gemm.py
+// ::fused_base_pair_matmul_pallas: W (K, N) natural layout, P the pair
+// layout (T, K/16, N/2), the delta on row 1's per-row 12-bit x grid, its
+// integer sums exact, row 1's fp32 epilogue 2*a1*S + (a2*colsum -
+// a1*sxq), then one __fadd_rn(base, delta).
+//
+// Bound on the H100: bytes. A Mistral-7B layer at B = 8 over 3 tenants
+// reads its bf16 base once (436 MB) and the distinct tenants' words and
+// colsums (82 MB): 0.155 ms at 3.35 TB/s, against 7 GFLOP of base and
+// delta products (7 us at the bf16 rate). So W has to stream at the
+// memory rate, read once for all the rows, with the products hidden
+// under it. A call is two launches (one more for each further FP_SLAB
+// rows) and nothing else:
+//
+// * the x prep is row 1's pair_prep_kernel (bit planes, a1, a2, sxq, in
+//   bd_pair_delta_scratch_bytes' layout); it launches the main kernel as
+//   its programmatic dependent, and W, x and the words need nothing of
+//   it, so the main kernel's first ring stages stream while the prep
+//   runs: it waits for the prep only before the planes and coefficients;
+// * fused_pair_tc_kernel<NT>: a block owns FP_BJ pair columns (2 * FP_BJ
+//   natural columns: the low halves, then the high halves of one
+//   128-column pair group), every row of the slab (NT n8 tiles, up to
+//   FP_SLAB) and one K split. A warp owns 8 pair columns, one m16 tile
+//   whose row g is the low natural column of pair column 8 * warp + g
+//   and row g + 8 its high column, the rows of row 1's 1-bit A fragment
+//   for the same pair column; so both products' D fragments hold the
+//   same two columns in each lane;
+// * the base runs on the bf16 tensor cores (mma.sync.m16n8k16, fp32
+//   sums) with W as the A operand, taken from shared memory by
+//   ldmatrix.trans (W is (K, N) row-major: a shared row is 8 natural
+//   columns of one K), and the slab's rows as the n8 side (x by
+//   ldmatrix). Each FP_KS-deep stage sums into a fresh fp32 accumulator
+//   that is then added to the running sum: the tensor cores truncate as
+//   they accumulate;
+// * the delta runs on the 1-bit MMA (m16n8k256 .and.popc) with row 1's
+//   fragments: A the sign bits by one byte permute a register, B the
+//   prep's bit planes. A stage is half a 256-K chunk, so an MMA takes
+//   two tenants at once: tenant j's words in A's first 128 K, tenant
+//   j + 1's in its second, and B the same planes twice, each masked to
+//   the row slots of its tenant (a slot holds one row, a row one tenant,
+//   so each D column counts its own tenant's bits only). Row slots are
+//   the slab's rows ordered by tenant (order of first occurrence), so a
+//   group of 4 slots mostly holds one tenant; the MMAs of a group run
+//   only for the tenants it holds, and each distinct tenant's words are
+//   read once. A stage holds the words of FP_DT tenants: a slab with more
+//   walks its K range once more for each further FP_DT (words and planes
+//   only). Each group's popcounts are weighted by their planes and added
+//   in registers, exact;
+// * an FP_STAGES-deep ring brings each stage into shared memory: the W
+//   rows by TMA (two 2-D boxes, the tile's low and high columns, issued
+//   by one thread and completing on the stage's mbarrier, with the
+//   64-byte swizzle so that ldmatrix reads them free of bank conflicts),
+//   the x rows, words and planes by 16-byte cp.async copies (rows
+//   padded likewise); K past the end is zero. A stage is small (25 KB at
+//   8 rows), so four blocks live on a multiprocessor and the K splits
+//   grow to fill them: on the H100 the number of blocks streaming at
+//   once, not the ring's depth, sets the rate (scripts/sweep_fused_pair.py,
+//   PERF.md);
+// * the K splits of a column tile form one thread block cluster: each
+//   block leaves its fp32 base partials and its integer pair sums in
+//   its shared memory; after a cluster barrier, block q adds, for its
+//   64 / n_split columns, every block's partials in rank order (the base
+//   in fp32, S in integers: no atomics, the result does not depend on
+//   scheduling), runs the epilogue and writes natural column order. The
+//   split count is the largest power of two (at most FP_MAX_SPLITS)
+//   that keeps the grid within 3.5 blocks a multiprocessor (of the 4
+//   that fit at 8 rows): at B = 8, k/v_proj (N = 1024: 16 tiles of 32
+//   pair columns) run 8 splits, q/o/down_proj 4, gate/up_proj 2, the
+//   best of each in scripts/sweep_fused_pair.py;
+// * any B: a launch takes a slab of up to FP_SLAB rows, and each slab
+//   reads W once (one more pass over W for each further slab).
+//
+// tests/test_torch_fused_pair_numerics.py models the fragments, the
+// slots, the meeting of the two products in the epilogue and the
+// cluster's sum on the CPU.
+// ---------------------------------------------------------------------------
+
+constexpr int FP_BJ = 32;                  // pair columns a block
+constexpr int FP_WARPS = FP_BJ / 8;        // a warp: 8 pair columns
+constexpr int FP_THREADS = FP_WARPS * 32;
+constexpr int FP_COLS = 2 * FP_BJ;         // natural columns a block
+constexpr int FP_KS = 128;                 // K a ring stage
+constexpr int FP_STAGES = 2;               // stages in the ring
+constexpr int FP_SLAB = 32;                // rows a main-kernel launch takes
+constexpr int FP_DT = 4;                   // tenants' words a stage holds
+constexpr int FP_MAX_SPLITS = 8;           // a portable cluster
+constexpr int FP_HALF_BLOCKS_PER_SM = 7;   // the split's aim: 3.5 an SM
+constexpr int FP_WBOX = FP_KS * FP_BJ * 2; // bytes of a W box (one run)
+constexpr int FP_XROW = FP_KS * 2 + 16;    // bytes of a shared x row
+constexpr int FP_PROW = FP_BJ * 4 + 16;    // bytes of a shared word row
+constexpr int FP_PSLOT = 4 * PAIR_PLANES * 4 + 16;  // a slot's planes
+constexpr int FP_HALF = 4 * PAIR_PLANES * 4;        // plane bytes a stage
+static_assert(128 % FP_BJ == 0, "a tile lies in one pair group");
+static_assert(FP_KS * 2 == PAIR_CHUNK, "a stage is half a 1-bit chunk");
+static_assert(FP_DT % 2 == 0, "an MMA takes two tenants");
+static_assert(FP_THREADS >= FP_SLAB, "a thread a row of the slab");
+static_assert(FP_BJ * 2 == 64, "a W box row is one 64-byte swizzle span");
+
+// Byte offsets in a ring stage (1024-byte aligned, as the W boxes'
+// swizzle needs): the W boxes (the low run, then the high run), x rows,
+// words, planes.
+template <int NT>
+struct FpStage {
+  static constexpr int X = 2 * FP_WBOX;
+  static constexpr int WORDS = X + NT * 8 * FP_XROW;
+  static constexpr int PLANES = WORDS + FP_DT * (FP_KS / 16) * FP_PROW;
+  static constexpr int BYTES =
+      (PLANES + NT * 8 * FP_PSLOT + 1023) / 1024 * 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait for phase ``parity`` of a barrier; a wait past about 2^32 cycles
+// (seconds) traps, so a lost copy fails the launch instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// A TMA copy of the box at (column c0, row r0) of a 2-D tensor map into
+// shared memory, completing on barrier bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int r0, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
+         "r"(bar) : "memory");
+}
+
+// W rows k0 .. k0 + FP_KS - 1 at the tile's columns (natural nlo ..
+// nlo + FP_BJ - 1, then nlo + 128 ..), two TMA boxes issued by one
+// thread (rows past k come as zeros), and the slab's x at the same K.
+template <int NT>
+__device__ __forceinline__ void fp_load_base(
+    uint8_t* st, const CUtensorMap* wmap, uint32_t bar,
+    const __nv_bfloat16* __restrict__ x, int x_stride, int row0, int slab,
+    int k0, int k, int nlo) {
+  if (threadIdx.x == 0) {
+    const uint32_t dst =
+        static_cast<uint32_t>(__cvta_generic_to_shared(st));
+    // The stage was read (ldmatrix) before the block's last barrier.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, 2 * FP_WBOX);
+    tma_load_2d(dst, wmap, nlo, k0, bar);
+    tma_load_2d(dst + FP_WBOX, wmap, nlo + 128, k0, bar);
+  }
+  uint8_t* xs = st + FpStage<NT>::X;
+  constexpr int XCH = FP_KS * 2 / 16;          // 16-byte copies an x row
+  for (int i = threadIdx.x; i < NT * 8 * XCH; i += FP_THREADS) {
+    const int r = i / XCH, c = i % XCH;
+    const bool ok = r < slab && k0 + 8 * c < k;
+    cp_async16(xs + r * FP_XROW + 16 * c,
+               x + (ok ? (size_t)(row0 + r) * x_stride + k0 + 8 * c : 0),
+               ok);
+  }
+}
+
+// Word rows kw0 .. kw0 + 7 of the pass's tenants at the tile's pair
+// columns (rows past k16 zero).
+__device__ __forceinline__ void fp_load_words(
+    uint8_t* ws, const uint32_t* __restrict__ pairs, const int* tenants,
+    int count, int kw0, int k16, int n2, int pc0) {
+  constexpr int CH = FP_BJ * 4 / 16;           // 16-byte copies a row
+  for (int i = threadIdx.x; i < count * 8 * CH; i += FP_THREADS) {
+    const int j = i / (8 * CH), r = (i / CH) % 8, c = i % CH;
+    const int kw = kw0 + r;
+    const bool ok = kw < k16;
+    cp_async16(ws + (j * 8 + r) * FP_PROW + 16 * c,
+               pairs + (ok ? ((size_t)tenants[j] * k16 + kw) * n2 + pc0
+                                 + 4 * c : 0), ok);
+  }
+}
+
+// The planes of half chunk h (its four 32-K groups) for each row slot
+// (slots past the slab zero).
+template <int NT>
+__device__ __forceinline__ void fp_load_planes(
+    uint8_t* ps, const uint8_t* __restrict__ planes, const int* slot_row,
+    int slab, int row0, int h, int n_chunks) {
+  constexpr int CH = FP_HALF / 16;
+  for (int i = threadIdx.x; i < NT * 8 * CH; i += FP_THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < slab;
+    cp_async16(ps + r * FP_PSLOT + 16 * c,
+               planes + (ok ? ((size_t)(row0 + slot_row[r]) * n_chunks
+                               + h / 2) * PAIR_XCHUNK + (h % 2) * FP_HALF
+                              + 16 * c : 0), ok);
+  }
+}
+
+// Block (tile, split): FP_BJ pair columns, every row of the slab row0 ..
+// row0 + slab - 1, one K range. 128 threads, at most two blocks an SM.
+template <int NT>
+__global__ void __launch_bounds__(FP_THREADS)
+fused_pair_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __nv_bfloat16* __restrict__ x, int x_stride,
+                     const uint8_t* __restrict__ planes,
+                     const uint32_t* __restrict__ pairs,
+                     const void* __restrict__ ids, int ids64,
+                     const float* __restrict__ coef,
+                     const float* __restrict__ colsum,
+                     float* __restrict__ out, int bsz, int row0, int slab,
+                     int k, int n2) {
+  namespace cg = cooperative_groups;
+  constexpr int ROWS = NT * 8;                 // row slots
+  constexpr int G = ROWS / 4;                  // groups of 4 slots
+  using S = FpStage<NT>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t wbar[FP_STAGES];
+  __shared__ int sid[ROWS], first[ROWS], sd[ROWS];
+  __shared__ int slot_row[ROWS], slot_d[ROWS], d_tenant[ROWS];
+  __shared__ unsigned gmask[G];
+  __shared__ float sa1[ROWS], sa2[ROWS], ssxq[ROWS];
+  __shared__ int s_nd;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int n = 2 * n2, k16 = k / 16;
+  const int n_chunks = (k + PAIR_CHUNK - 1) / PAIR_CHUNK;
+  const int pc0 = blockIdx.x * FP_BJ;          // the tile's first pair column
+  const int nlo = (pc0 / 128) * 256 + pc0 % 128;
+  const int n_st = (k + FP_KS - 1) / FP_KS;
+  const int h0 = (int)((long long)split * n_st / n_split);
+  const int n_h = (int)((long long)(split + 1) * n_st / n_split) - h0;
+  // The ring from the first 1024-byte boundary (the allocation has 1024
+  // bytes to spare); stage s's W boxes complete on wbar[s].
+  uint8_t* smem_fp = smem_raw + ((1024u - static_cast<uint32_t>(
+      __cvta_generic_to_shared(smem_raw)) % 1024u) % 1024u);
+  const uint32_t bar0 =
+      static_cast<uint32_t>(__cvta_generic_to_shared(wbar));
+  const CUtensorMap* wmp = &wmap;
+  if (tid == 0) {
+    for (int st = 0; st < FP_STAGES; ++st) mbar_init(bar0 + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+
+  // Slots: the slab's rows ordered by their tenant's rank d among the
+  // distinct tenants (order of first occurrence), then by row.
+  if (tid < slab) sid[tid] = load_id(ids, ids64, row0 + tid);
+  __syncthreads();
+  if (tid < slab) {
+    int f = 0;
+    while (sid[f] != sid[tid]) ++f;
+    first[tid] = f;
+  }
+  __syncthreads();
+  if (tid < slab) {
+    int d = 0;
+    for (int j = 0; j < first[tid]; ++j) d += first[j] == j;
+    sd[tid] = d;
+  }
+  __syncthreads();
+  if (tid < slab) {
+    int slot = 0;
+    for (int j = 0; j < slab; ++j)
+      slot += sd[j] < sd[tid] || (sd[j] == sd[tid] && j < tid);
+    slot_row[slot] = tid;
+    slot_d[slot] = sd[tid];
+    if (first[tid] == tid) d_tenant[sd[tid]] = sid[tid];
+  } else if (tid < ROWS) {
+    slot_d[tid] = -1;                          // slots past the slab
+  }
+  __syncthreads();
+  if (tid < G) {
+    unsigned m = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (slot_d[4 * tid + i] >= 0) m |= 1u << slot_d[4 * tid + i];
+    gmask[tid] = m;
+  }
+  if (tid == 0) {
+    int nd = 0;
+    for (int j = 0; j < slab; ++j) nd += first[j] == j;
+    s_nd = nd;
+  }
+  __syncthreads();
+  const int nd = s_nd;
+  const int n_items = (nd + FP_DT - 1) / FP_DT * n_h;
+
+  // Item it: pass it / n_h (tenants FP_DT * pass ..), half chunk h0 +
+  // it % n_h. W, x and the words need nothing of the prep.
+  auto load_inputs = [&](int it) {
+    const int pass = it / n_h, h = h0 + it % n_h;
+    uint8_t* st = smem_fp + (it % FP_STAGES) * S::BYTES;
+    if (pass == 0)
+      fp_load_base<NT>(st, wmp, bar0 + 8 * (it % FP_STAGES), x, x_stride,
+                       row0, slab, h * FP_KS, k, nlo);
+    fp_load_words(st + S::WORDS, pairs, d_tenant + pass * FP_DT,
+                  min(FP_DT, nd - pass * FP_DT), h * (FP_KS / 16), k16, n2,
+                  pc0);
+  };
+  auto load_planes = [&](int it) {
+    uint8_t* st = smem_fp + (it % FP_STAGES) * S::BYTES;
+    fp_load_planes<NT>(st + S::PLANES, planes, slot_row, slab, row0,
+                       h0 + it % n_h, n_chunks);
+  };
+#pragma unroll
+  for (int s = 0; s < FP_STAGES - 1; ++s)
+    if (s < n_items) load_inputs(s);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (tid < slab) {
+    sa1[tid] = coef[row0 + tid];
+    sa2[tid] = coef[bsz + row0 + tid];
+    ssxq[tid] = coef[2 * bsz + row0 + tid];
+  }
+#pragma unroll
+  for (int s = 0; s < FP_STAGES - 1; ++s) {
+    if (s < n_items) load_planes(s);
+    cp_async_commit();                         // group 0 holds them all
+  }
+
+  const uint32_t smem_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_fp));
+  // ldmatrix.trans of W: lane l gives row i = (l / 16) * 8 + l % 8 of the
+  // k16 step in the low (l / 8 even) or high box, at the warp's 16-byte
+  // chunk: a0 (rows g, K 2t..), a1 (rows g + 8), a2 (K 2t + 8..), a3. A
+  // box row is 64 bytes, its chunk c stored at c ^ ((row / 2) % 4) (the
+  // 64-byte swizzle), which leaves the 8 rows of a matrix in 8 distinct
+  // bank groups; (row / 2) % 4 = (l % 8) / 2 at every k16 step.
+  const uint32_t w_lane = ((lane / 8) % 2) * FP_WBOX
+                          + ((lane / 16) * 8 + lane % 8) * FP_BJ * 2
+                          + ((warp ^ ((lane % 8) / 2)) * 16);
+  // ldmatrix of x: lane l gives row l % 8 of an n8 tile at K 8 * (l / 8)
+  // of two k16 steps: b0, b1 of the first, b0, b1 of the second.
+  const uint32_t x_lane = (lane % 8) * FP_XROW + (lane / 8) * 16;
+  // The 1-bit B of tile (r4, pp): slot 4 * r4 + g / 2, plane 2pp + g % 2
+  // of 32-K group tq; the 1-bit A: word rows 2tq, 2tq + 1 of pair column
+  // 8 * warp + g.
+  const uint32_t p_lane = (g / 2) * FP_PSLOT + (g % 2) * 4
+                          + tq * PAIR_PLANES * 4;
+  const uint32_t a_lane = 2 * tq * FP_PROW + (8 * warp + g) * 4;
+
+  float tot[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[nt][e] = 0.0f;
+  int s_lo[G], s_hi[G];
+#pragma unroll
+  for (int r4 = 0; r4 < G; ++r4) s_lo[r4] = s_hi[r4] = 0;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<FP_STAGES - 2>();            // item it has landed
+    __syncthreads();                           // and item it - 1 is read
+    {
+      const int nx = it + FP_STAGES - 1;
+      if (nx < n_items) {
+        load_inputs(nx);
+        load_planes(nx);
+      }
+      cp_async_commit();
+    }
+    const uint8_t* stp = smem_fp + (it % FP_STAGES) * S::BYTES;
+    const uint32_t st = smem_s + (it % FP_STAGES) * S::BYTES;
+    const int pass = it / n_h;
+    if (pass == 0) {
+      // The base: FP_KS / 16 MMAs a tile into a fresh accumulator.
+      mbar_wait(bar0 + 8 * (it % FP_STAGES), (it / FP_STAGES) & 1);
+      float acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < FP_KS / 16; kk += 2) {
+        uint32_t a0[4], a1[4];
+        ldsm_x4<true>(a0, stp + kk * 16 * FP_BJ * 2 + w_lane);
+        ldsm_x4<true>(a1, stp + (kk + 1) * 16 * FP_BJ * 2 + w_lane);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t b[4];
+          ldsm_x4<false>(b, stp + S::X + nt * 8 * FP_XROW + kk * 32
+                            + x_lane);
+          mma_16816(acc[nt], a0, b[0], b[1]);
+          mma_16816(acc[nt], a1, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tot[nt][e] = __fadd_rn(tot[nt][e], acc[nt][e]);
+    }
+    // The delta: the pass's tenants' A fragments (the first 128 K of
+    // m16n8k256), then each group of slots against the tenants it holds,
+    // two tenants an MMA.
+    const int dp = pass * FP_DT;
+    uint32_t aw[FP_DT][2];
+#pragma unroll
+    for (int j = 0; j < FP_DT; ++j) {
+      const uint32_t wa = st + S::WORDS + j * 8 * FP_PROW + a_lane;
+      const uint32_t w0 = lds32(wa), w1 = lds32(wa + FP_PROW);
+      aw[j][0] = __byte_perm(w0, w1, 0x5410);   // low column, K 32t ..
+      aw[j][1] = __byte_perm(w0, w1, 0x7632);   // high column
+    }
+#pragma unroll
+    for (int r4 = 0; r4 < G; ++r4) {
+      const unsigned gm = (gmask[r4] >> dp) & ((1u << FP_DT) - 1u);
+      if (gm == 0u) continue;                  // the same in every lane
+      const int my_d = slot_d[4 * r4 + g / 2];  // B column g's slot
+      uint32_t bp[6];
+#pragma unroll
+      for (int pp = 0; pp < 6; ++pp)
+        bp[pp] = lds32(st + S::PLANES + r4 * 4 * FP_PSLOT + p_lane + pp * 8);
+      int iacc[6][4];
+#pragma unroll
+      for (int pp = 0; pp < 6; ++pp)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) iacc[pp][e] = 0;
+#pragma unroll
+      for (int jp = 0; jp < FP_DT; jp += 2) {
+        if (((gm >> jp) & 3u) == 0u) continue;
+        const uint32_t m0 = my_d == dp + jp ? 0xffffffffu : 0u;
+        const uint32_t m1 = my_d == dp + jp + 1 ? 0xffffffffu : 0u;
+        const uint32_t a[4] = {aw[jp][0], aw[jp][1], aw[jp + 1][0],
+                               aw[jp + 1][1]};
+#pragma unroll
+        for (int pp = 0; pp < 6; ++pp)
+          bmma_16_8_256(iacc[pp], a, bp[pp] & m0, bp[pp] & m1);
+      }
+      // c0 / c2: plane 2pp of slot 4 * r4 + tq, low / high column; c1 /
+      // c3: plane 2pp + 1.
+#pragma unroll
+      for (int pp = 0; pp < 6; ++pp) {
+        s_lo[r4] += (iacc[pp][0] << (2 * pp)) + (iacc[pp][1] << (2 * pp + 1));
+        s_hi[r4] += (iacc[pp][2] << (2 * pp)) + (iacc[pp][3] << (2 * pp + 1));
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the ring is free
+
+  // The two products meet in shared memory: base[row][c] (base D: lane
+  // (g, tq) holds rows 8nt + 2tq, + 1) and S[row][c] (delta: slot 4r4 +
+  // tq, its row slot_row[..]); c < FP_BJ the low columns, then the high.
+  float* pb = reinterpret_cast<float*>(smem_fp);
+  int* ps = reinterpret_cast<int*>(smem_fp + ROWS * FP_COLS * 4);
+  const int c_lo = 8 * warp + g, c_hi = FP_BJ + 8 * warp + g;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = nt * 8 + 2 * tq + e;
+      pb[r * FP_COLS + c_lo] = tot[nt][e];
+      pb[r * FP_COLS + c_hi] = tot[nt][2 + e];
+    }
+#pragma unroll
+  for (int r4 = 0; r4 < G; ++r4) {
+    const int slot = 4 * r4 + tq;
+    if (slot < slab) {
+      const int r = slot_row[slot];
+      ps[r * FP_COLS + c_lo] = s_lo[r4];
+      ps[r * FP_COLS + c_hi] = s_hi[r4];
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* rb[FP_MAX_SPLITS];
+  const int* rs[FP_MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < FP_MAX_SPLITS; ++r) {
+    rb[r] = cluster.map_shared_rank(pb, r < n_split ? r : 0);
+    rs[r] = cluster.map_shared_rank(ps, r < n_split ? r : 0);
+  }
+  const int slice = FP_COLS / n_split, c0 = split * slice;
+  for (int it = tid; it < slab * slice; it += FP_THREADS) {
+    const int i = it / slice, c = c0 + it % slice;
+    float vb[FP_MAX_SPLITS];
+    int vs[FP_MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < FP_MAX_SPLITS; ++r) {
+      vb[r] = r < n_split ? rb[r][i * FP_COLS + c] : 0.0f;
+      vs[r] = r < n_split ? rs[r][i * FP_COLS + c] : 0;
+    }
+    float base = vb[0];
+    int sum = vs[0];
+#pragma unroll
+    for (int r = 1; r < FP_MAX_SPLITS; ++r)
+      if (r < n_split) {                       // in rank order
+        base = __fadd_rn(base, vb[r]);
+        sum += vs[r];
+      }
+    const int col = c < FP_BJ ? nlo + c : nlo + 128 + (c - FP_BJ);
+    const float two_a1 = __fmul_rn(2.0f, sa1[i]);
+    const float off = __fmul_rn(sa1[i], ssxq[i]);
+    const float delta = __fadd_rn(
+        __fmul_rn(two_a1, static_cast<float>(sum)),
+        __fsub_rn(__fmul_rn(sa2[i], colsum[(size_t)sid[i] * n + col]), off));
+    out[(size_t)(row0 + i) * n + col] = __fadd_rn(base, delta);
+  }
+  cluster.sync();                              // the partials stay until read
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime.
+static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static std::atomic<void*> cached{nullptr};
+  void* fn = cached.load();
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                         12000, cudaEnableDefault,
+                                         &found) != cudaSuccess
+        || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    cached.store(fn);
+  }
+  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+}
+
+// W (k, n) bf16 row-major as TMA boxes of FP_KS rows x FP_BJ columns with
+// the 64-byte swizzle; rows past k read as zeros.
+static cudaError_t w_tensor_map(CUtensorMap* map, const void* w, int k,
+                                int n) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
+  const cuuint32_t box[2] = {FP_BJ, FP_KS};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The main kernel over rows row0 .. row0 + slab - 1: K splits, the
+// largest power of two (at most FP_MAX_SPLITS and the stages) that keeps
+// the grid within FP_HALF_BLOCKS_PER_SM / 2 blocks a multiprocessor, and
+// within one wave of resident blocks.
+template <int NT>
+static cudaError_t launch_fused_pair_tc(
+    const CUtensorMap& wmap, const void* x, int x_stride,
+    const uint8_t* planes, const void* pairs, const void* ids, int ids64,
+    const float* coef, const void* colsum, void* out, int bsz, int row0,
+    int slab, int k, int n2, int dev, int sms, cudaStream_t s) {
+  static std::atomic<unsigned long long> limit_set{0};
+  static std::atomic<int> live_cache{0};
+  constexpr int smem = FpStage<NT>::BYTES * FP_STAGES + 1024;
+  static_assert(smem >= NT * 8 * FP_COLS * 8,
+                "the partials of the block's rows fit in the ring");
+  const void* fn = (const void*)fused_pair_tc_kernel<NT>;
+  cudaError_t err = smem_limit_once(fn, smem, dev, limit_set);
+  if (err != cudaSuccess) return err;
+  int live = live_cache.load();
+  if (live == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&live, fn,
+                                                        FP_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    live = live < 1 ? 1 : live;
+    live_cache.store(live);
+  }
+  const int tiles = n2 / FP_BJ;
+  const int n_st = (k + FP_KS - 1) / FP_KS;
+  const int cap = n_st < FP_MAX_SPLITS ? n_st : FP_MAX_SPLITS;
+  const int aim = (FP_HALF_BLOCKS_PER_SM < 2 * live ? FP_HALF_BLOCKS_PER_SM
+                                                    : 2 * live) * sms;
+  int splits = 1;
+  while (splits * 2 <= cap && 2 * tiles * splits * 2 <= aim) splits *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits, 1);
+  cfg.blockDim = dim3(FP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, fused_pair_tc_kernel<NT>, wmap,
+                           (const __nv_bfloat16*)x, x_stride, planes,
+                           (const uint32_t*)pairs, ids, ids64, coef,
+                           (const float*)colsum, (float*)out, bsz, row0,
+                           slab, k, n2);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// bf16 x (bsz, k) with row stride x_stride, W (k, 2 * n2) bf16, pairs
+// (t, k / 16, n2) int32, colsum (t, 2 * n2) and scales (t,) fp32; buf:
+// bd_pair_delta_scratch_bytes(bsz, k) bytes; out (bsz, 2 * n2) fp32. The
+// prep, then the main kernel once a slab of FP_SLAB rows (each slab after
+// the first waits for the one before).
+extern "C" int bd_fused_base_pair_tc(const void* x, int x_stride,
+                                     const void* w, const void* pairs,
+                                     const void* colsum, const void* scales,
+                                     const void* ids, int ids64, void* buf,
+                                     void* out, int bsz, int k, int n2,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n_chunks = (k + PAIR_CHUNK - 1) / PAIR_CHUNK;
+  if (bsz < 1 || k < 16 || k % 16 != 0 || n2 < 128 || n2 % 128 != 0
+      || x_stride % 8 != 0 || ((uintptr_t)x % 16) != 0
+      || ((uintptr_t)w % 16) != 0 || ((uintptr_t)pairs % 16) != 0
+      || ((uintptr_t)buf % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  uint8_t* planes = static_cast<uint8_t*>(buf);
+  float* coef = reinterpret_cast<float*>(planes + (size_t)bsz * n_chunks
+                                                  * PAIR_XCHUNK);
+  CUtensorMap wmap;
+  err = w_tensor_map(&wmap, w, k, 2 * n2);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_pair_prep<__nv_bfloat16>(x, x_stride, 1, scales, ids, ids64,
+                                        planes, coef, bsz, k, n_chunks, s);
+  for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += FP_SLAB) {
+    const int slab = bsz - row0 < FP_SLAB ? bsz - row0 : FP_SLAB;
+    if (slab <= 8)
+      err = launch_fused_pair_tc<1>(wmap, x, x_stride, planes, pairs, ids,
+                                    ids64, coef, colsum, out, bsz, row0,
+                                    slab, k, n2, dev, sms, s);
+    else if (slab <= 16)
+      err = launch_fused_pair_tc<2>(wmap, x, x_stride, planes, pairs, ids,
+                                    ids64, coef, colsum, out, bsz, row0,
+                                    slab, k, n2, dev, sms, s);
+    else
+      err = launch_fused_pair_tc<4>(wmap, x, x_stride, planes, pairs, ids,
+                                    ids64, coef, colsum, out, bsz, row0,
+                                    slab, k, n2, dev, sms, s);
+  }
+  return (int)err;
 }

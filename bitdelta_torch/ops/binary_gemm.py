@@ -215,6 +215,16 @@ def _canonical_quantize(x: torch.Tensor):
     return torch.round(xf / xscale).to(torch.int32), xscale
 
 
+def _canonical_kernel_input(x: torch.Tensor):
+    """What row 7's kernel reads of x: ``(xq (B, K) int16, sxq (B,)
+    int64, xscale 0-d fp32)`` from :func:`_canonical_quantize`. |xq| <=
+    2^14 fits int16; sxq is summed in int64, since at K >= 2^17 a row's
+    sum passes 2^31."""
+    xq, xscale = _canonical_quantize(x)
+    return (xq.to(torch.int16), xq.sum(dim=1, dtype=torch.int64),
+            xscale)
+
+
 def tenant_delta_matmul_plain(x, packed_stack, scales, tenant_ids):
     """Plain version of :func:`tenant_delta_matmul` (fp32 out): the
     integer sums ``sum_k bit * xq`` over each row's matrix in int64, then
@@ -241,7 +251,8 @@ def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
     canonical layout, x on the 14-bit grid of :func:`_canonical_quantize`.
     x ``(B, K)``; packed_stack ``(G, K//32, N)``; scales ``(G,)``;
     tenant_ids ``(B,)`` in ``[0, G)`` (a tenant, or a flattened (tenant,
-    expert) pair). Returns ``(B, N)`` in ``out_dtype`` (default x.dtype)."""
+    expert) pair). Returns ``(B, N)`` in ``out_dtype`` (default x.dtype).
+    On a CUDA tensor it takes any K that is a multiple of 32."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     g, k32, n = packed_stack.shape
@@ -252,12 +263,7 @@ def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
     if not x.is_cuda:
         return tenant_delta_matmul_plain(x, packed_stack, scales,
                                          tenant_ids).to(out_dtype)
-    # |sum bit * xq| <= K * 2^14 stays exact in the kernel's int32.
-    _require(kdim < 131072, f"K={kdim}: int32 sums need K < 131072")
-    _require(kdim * 2 <= 200 * 1024, f"K={kdim} too large for the kernel")
-    xq, xscale = _canonical_quantize(x)
-    xq16 = xq.to(torch.int16)
-    sxq = xq.sum(dim=1, dtype=torch.int32)
+    xq16, sxq, xscale = _canonical_kernel_input(x)
     out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
     packed = packed_stack.contiguous()
     ids = tenant_ids.to(torch.int32).contiguous()
@@ -423,7 +429,15 @@ def fused_base_pair_matmul(x: torch.Tensor, w_base: torch.Tensor,
     ``(B, K)`` and w_base ``(K, N)`` (natural layout) of one dtype;
     packed_pairs ``(T, K//16, N//2)``; colsum ``(T, N)``; scales ``(T,)``;
     tenant_ids ``(B,)``; N a multiple of 256. Returns ``(B, N)`` in
-    ``out_dtype`` (default x.dtype)."""
+    ``out_dtype`` (default x.dtype).
+
+    On a CUDA tensor, bf16 x and W launch row 1's x prep
+    (``pair_prep_kernel``) and the tensor-core kernel
+    (``fused_pair_tc_kernel``, once for each 32 rows), and nothing else;
+    fp32 x and W take the CUDA-core kernel and its epilogue after the
+    plain-torch x prep. It takes any B, K a multiple of 16, contiguous
+    int32 pairs, fp32 colsum and scales, int32 or int64 ids, and raises
+    on anything else."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     t, k16, nhalf = packed_pairs.shape
@@ -438,24 +452,50 @@ def fused_base_pair_matmul(x: torch.Tensor, w_base: torch.Tensor,
             x, w_base, packed_pairs, colsum, scales, tenant_ids).to(out_dtype)
     _require(n % PAIR_BLOCK == 0, "N must be a multiple of 256")
     flag = _cuda_dtype_flag(x)
-    xq, sxq, a1, a2 = _pair_quantize(x, scales, tenant_ids)
-    splits = _fused_splits(kdim, -(-nhalf // FUSED_COLS), bsz, x.device)
-    part_base = torch.empty((splits, bsz, n), dtype=torch.float32,
-                            device=x.device)
-    part_s = torch.empty((splits, bsz, n), dtype=torch.int32,
-                         device=x.device)
+    _require(packed_pairs.dtype == torch.int32
+             and packed_pairs.is_contiguous()
+             and packed_pairs.data_ptr() % 16 == 0,
+             "pairs must be contiguous int32 at a 16-byte aligned address")
+    _require(colsum.dtype == torch.float32 and colsum.is_contiguous(),
+             "colsum must be contiguous fp32")
+    _require(tuple(scales.shape) == (t,) and scales.dtype == torch.float32
+             and scales.is_contiguous(), f"scales must be fp32 ({t},)")
+    _require(tuple(tenant_ids.shape) == (bsz,)
+             and tenant_ids.dtype in (torch.int32, torch.int64)
+             and tenant_ids.is_contiguous(),
+             f"tenant_ids must be int32 or int64 ({bsz},)")
+    _require(all(a.device == x.device for a in
+                 (w_base, packed_pairs, colsum, scales, tenant_ids)),
+             "every input must be on x's device")
     out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    xc = x.contiguous()
-    wc = w_base.contiguous()
-    pairs = packed_pairs.contiguous()
-    ids = tenant_ids.to(torch.int32).contiguous()
-    cs = colsum.to(torch.float32).contiguous()
-    _build.launch(_LIB, "bd_fused_base_pair", [P] * 12 + [I] * 5 + [P],
-                  _build.ptr(xc), _build.ptr(xq), _build.ptr(wc),
-                  _build.ptr(pairs), _build.ptr(ids), _build.ptr(a1),
-                  _build.ptr(a2), _build.ptr(sxq), _build.ptr(cs),
-                  _build.ptr(part_base), _build.ptr(part_s), _build.ptr(out),
-                  bsz, kdim, nhalf, splits, flag, _build.stream(x.device))
+    xc = _build.aligned16(x)
+    wc = _build.aligned16(w_base)
+    if flag:
+        buf = torch.empty(_pair_scratch_bytes(bsz, kdim), dtype=torch.uint8,
+                          device=x.device)
+        _build.launch(_LIB, "bd_fused_base_pair_tc", [P, I] + [P] * 5
+                      + [I, P, P] + [I] * 3 + [P],
+                      _build.ptr(xc), xc.stride(0), _build.ptr(wc),
+                      _build.ptr(packed_pairs), _build.ptr(colsum),
+                      _build.ptr(scales), _build.ptr(tenant_ids),
+                      int(tenant_ids.dtype == torch.int64), _build.ptr(buf),
+                      _build.ptr(out), bsz, kdim, nhalf,
+                      _build.stream(x.device))
+    else:
+        xq, sxq, a1, a2 = _pair_quantize(x, scales, tenant_ids)
+        splits = _fused_splits(kdim, -(-nhalf // FUSED_COLS), bsz, x.device)
+        part_base = torch.empty((splits, bsz, n), dtype=torch.float32,
+                                device=x.device)
+        part_s = torch.empty((splits, bsz, n), dtype=torch.int32,
+                             device=x.device)
+        ids = tenant_ids.to(torch.int32).contiguous()
+        _build.launch(_LIB, "bd_fused_base_pair", [P] * 12 + [I] * 4 + [P],
+                      _build.ptr(xc), _build.ptr(xq), _build.ptr(wc),
+                      _build.ptr(packed_pairs), _build.ptr(ids),
+                      _build.ptr(a1), _build.ptr(a2), _build.ptr(sxq),
+                      _build.ptr(colsum), _build.ptr(part_base),
+                      _build.ptr(part_s), _build.ptr(out), bsz, kdim, nhalf,
+                      splits, _build.stream(x.device))
     fused_base_pair_matmul.launches += 1
     return out.to(out_dtype)
 

@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
    timed; the W4 matmul's bf16 tensor-core kernel and its fp32
    CUDA-core kernel each timed; the pair delta's x prep and its 1-bit
-   tensor-core kernel timed apart, and the call back to back), and time
+   tensor-core kernel timed apart, and the call back to back; the fused
+   pair kernel's bf16 calls (row 1's prep and the tensor-core kernel)
+   likewise; the canonical tenant delta also exact at K = 102432), and time
    the kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -70,8 +72,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    and on ``"cuda_fused"`` in the canonical layout (row 9 launches 224
    times a fused step, row 7 once for the head), then in the pair layout
    after ``to_pair_layout(in_place=True)`` (row 10 224 times, row 1
-   once); ``Engine(kernel="cuda_fused")`` over HTTP with the three
-   tenants, as phase 4; then one tenant's perplexity (3 windows of
+   once), the pair layout's two steps' device times and top kernels
+   side by side on one line; ``Engine(kernel="cuda_fused")`` over HTTP
+   with the three tenants, as phase 4; then one tenant's perplexity (3 windows of
    1024 + 512 seeded tokens) densely fused by ``fuse_compressed`` and
    through its deltas, which must agree within 1%.
 
@@ -164,6 +167,10 @@ PREFILL_TC_KERNEL = "flash_prefill_tc_kernel"       # bf16, tensor cores
 PREFILL_FP32_KERNEL = "flash_prefill_fp32_kernel"   # fp32, CUDA cores
 # The two CUDA kernels of row 1: the x prep and the 1-bit MMA product.
 PAIR_KERNELS = ("pair_prep_kernel", "pair_delta_tc_kernel")
+# Row 10 with bf16 x and W: row 1's prep and the tensor-core kernel; fp32
+# x and W: the CUDA-core kernel and its epilogue.
+FUSED_PAIR_KERNELS = ("pair_prep_kernel", "fused_pair_tc_kernel")
+FUSED_PAIR_FP32_KERNELS = ("fused_pair_kernel", "fused_pair_epilogue_kernel")
 # The CUDA kernels behind row 8, by x's dtype, and its K-split sum.
 W4_TC_KERNEL = "w4_matmul_tc_kernel"                 # bf16, tensor cores
 W4_FP32_KERNEL = "w4_matmul_fp32_kernel"             # fp32, CUDA cores
@@ -379,7 +386,8 @@ def build():
             lines = log.read_text().splitlines()
             usage[name] = [line.strip() for line in lines
                            if "registers" in line or "spill" in line]
-            per_kernel.update(ptxas_by_kernel(lines, PAIR_KERNELS))
+            per_kernel.update(ptxas_by_kernel(
+                lines, PAIR_KERNELS + FUSED_PAIR_KERNELS[1:]))
     emit({"phase": "build", "seconds": round(total, 3),
           "per_source_s": {k: round(v, 3) for k, v in seconds.items()},
           "ptxas": usage, "ptxas_by_kernel": per_kernel})
@@ -602,8 +610,28 @@ def check_canonical(dev, gen, results):
         shapes.append({"site": name, "rows": rows, "matrices": g,
                        "distinct": distinct, "k": k, "n": n, **row,
                        "max_abs_err": errs})
+    # Past the old K limit (K < 131072, K * 2 <= 200 KB): exact at K =
+    # 102432, the smallest K it refused, with bf16 and all-max x.
+    ids = torch.arange(8, device=dev) % 2
+    scales = torch.rand((2,), generator=gen, device=dev) + 0.1
+    packed = torch.randint(-2**31, 2**31 - 1, (2, 102432 // 32, 256),
+                           generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn((8, 102432), generator=gen, device=dev).to(torch.bfloat16)
+    large_k = {}
+    for label, xin in (("bf16", x), ("all_max", torch.full_like(x, 0.75))):
+        got = bg.tenant_delta_matmul(xin, packed, scales, ids,
+                                     out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        want = bg.tenant_delta_matmul_plain(xin, packed, scales, ids)
+        torch.cuda.synchronize()
+        large_k[label] = (got - want).abs().max().item()
+        require(torch.equal(got, want), f"canonical delta kernel at K = "
+                                        f"102432, {label} x: max|err| "
+                                        f"{large_k[label]}, want 0 (exact)")
+    del packed, x
     results["tenant_delta_matmul"] = dict(
         tot, max_abs_err=0.0, bound_by="+".join(sorted(by)),
+        large_k={"rows": 8, "k": 102432, "n": 256, "max_abs_err": large_k},
         tolerance="exact (0) against the plain version with bf16, fp32 and "
                   "all-zero x: int32/int64 sums, the same fp32 epilogue",
         shape="Mixtral-8x7B canonical decode layer: q/k/v/o at B=8 over 2 "
@@ -628,13 +656,15 @@ def check_fused(dev, gen, results, name):
 
     pair = name == "fused_base_pair_matmul"
     fn, plain_fn = getattr(bg, name), getattr(bg, name + "_plain")
-    kernel_names = (("fused_pair_kernel", "fused_pair_epilogue_kernel")
-                    if pair else ("fused_tenant_kernel", "sum_splits_kernel"))
+    kernel_names = (FUSED_PAIR_KERNELS if pair
+                    else ("fused_tenant_kernel", "sum_splits_kernel"))
     bsz, t = 8, 3
     ids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 0], device=dev)
     scales = torch.rand((t,), generator=gen, device=dev) * 0.01 + 0.001
     tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
-                         "library_ms", "bound_ms"), 0.0)
+                         "library_ms", "bound_ms")
+                        + (("prep_ms", "main_ms", "queued_ms") if pair
+                           else ()), 0.0)
     err, err32, shapes, by = 0.0, 0.0, [], set()
     for proj, k, n in PROJ_SHAPES:
         set_bytes = k * n * 2 + t * k * n // 8 + bsz * k * 2
@@ -676,11 +706,22 @@ def check_fused(dev, gen, results, name):
         def library(i):
             return torch.matmul(x0, w0), torch.bmm(x0[:, None], pm1[ids])
 
+        def call(i):
+            return fn(*sets[i], out_dtype=torch.float32)
+
         row = time_wrapper(
-            f"{name} {proj}",
-            lambda i: fn(*sets[i], out_dtype=torch.float32),
-            len(sets), kernel_names, plain=lambda i: plain_fn(*sets[i]),
-            library=library)
+            f"{name} {proj}", call, len(sets), kernel_names,
+            plain=lambda i: plain_fn(*sets[i]), library=library)
+        if pair:
+            # As row 1: the prep and the main kernel apart, and the call
+            # queued back to back (the main kernel is the prep's
+            # programmatic dependent; the profiler's sum counts their
+            # overlap twice).
+            split = kernel_split_ms(call, len(sets), f"{name} {proj} kernels",
+                                    FUSED_PAIR_KERNELS)
+            row["prep_ms"], row["main_ms"] = (split[k_] for k_ in
+                                              FUSED_PAIR_KERNELS)
+            row["queued_ms"] = queued_ms(call, len(sets))
         del pm1, sets
         distinct = int(torch.unique(ids).numel())
         words = distinct * k * n // 8 + (distinct * n * 4 if pair else 0)
@@ -701,8 +742,12 @@ def check_fused(dev, gen, results, name):
                                         else ""),
         shape="B=8 T=3 (3 distinct tenants), per decode layer: 7 "
               "projections", timing=TIMING + (
-                  "; ms includes the plain-torch x prep (_pair_quantize)"
-                  if pair else ""),
+                  "; ms / kernel_ms: " + " + ".join(FUSED_PAIR_KERNELS)
+                  + " (the wrapper launches nothing else with bf16 x); "
+                  "prep_ms / main_ms: each alone, from one more trace; "
+                  "queued_ms: device ms per call with the calls queued "
+                  "back to back (the main kernel is the prep's "
+                  "programmatic dependent)" if pair else ""),
         bound_basis="bytes: the bf16 base (K*N*2, read once) + the "
                     "distinct tenants' words" + (" and colsums" if pair
                                                  else "")
@@ -2565,6 +2610,11 @@ def fused(dev, name):
     del cache0
     gc.collect()
     torch.cuda.empty_cache()
+    emit({"phase": "fused_pair_steps", "layout": "pair", **{
+        f"{kernel}_step": {key: report[f"pair_{kernel}_step"][key]
+                           for key in ("device_ms", "wall_ms_b8",
+                                       "top_kernels")}
+        for kernel in ("cuda", "cuda_fused")}})
     emit({"phase": "fused_world", **report})
     base = {"embed": stack.params["embed"],
             "lm_head": stack.params["lm_head"],
@@ -2707,6 +2757,15 @@ def main(argv=None):
             entry["kernel"] = " + ".join(PAIR_KERNELS)
             entry["prep_ms"] = res["prep_ms"]
             entry["main_ms"] = res["main_ms"]
+            entry["queued_ms"] = res["queued_ms"]
+        if kname == "fused_base_pair_matmul":
+            # Row 10: bf16 through row 1's prep and the tensor-core kernel,
+            # timed apart and queued; fp32 on the CUDA-core kernel.
+            entry["kernel"] = " + ".join(FUSED_PAIR_KERNELS)
+            entry["prep_ms"] = res["prep_ms"]
+            entry["main_ms"] = res["main_ms"]
+            entry["queued_ms"] = res["queued_ms"]
+            entry["fp32_kernel"] = " + ".join(FUSED_PAIR_FP32_KERNELS)
         if kname == "w4_matmul":
             # Row 8: bf16 on the tensor cores; the fp32 branch on its own.
             entry["kernel"] = W4_TC_KERNEL

@@ -259,6 +259,30 @@ def test_tenant_delta_grid_is_global_not_per_row():
     np.testing.assert_array_equal(got.numpy()[1], np.zeros(4, np.float32))
 
 
+# Row 7's card-side x prep (what the kernel reads): int16 xq and an int64
+# sum. At K = 131072 with every |x| at the input's max, each xq is +-2^14
+# and a row's sum +-2^31, one past int32 for the positive row.
+@pytest.mark.parametrize("pattern", ["all_max", "alternating", "random"])
+def test_canonical_kernel_input_sums_in_int64(pattern):
+    k = 131072
+    x = torch.full((3, k), 0.75, dtype=torch.bfloat16)
+    x[1] = -0.75
+    if pattern == "alternating":
+        x[2, ::2] = -0.75
+    elif pattern == "random":
+        g = torch.Generator().manual_seed(5)
+        x[2] = torch.randn((k,), generator=g).clamp(-0.75, 0.75)
+    xq16, sxq, xscale = tbg._canonical_kernel_input(x)
+    xq, xscale_plain = tbg._canonical_quantize(x)
+    assert xq16.dtype == torch.int16 and sxq.dtype == torch.int64
+    assert torch.equal(xq16.to(torch.int32), xq)
+    assert torch.equal(xscale, xscale_plain)
+    assert sxq[:2].tolist() == [2 ** 31, -2 ** 31]
+    assert torch.equal(sxq, xq.to(torch.int64).sum(dim=1))
+    assert torch.equal(sxq, torch.from_numpy(
+        xq.numpy().astype(np.int64).sum(axis=1)))
+
+
 def test_cpu_tensors_take_the_plain_versions():
     # On CPU tensors the wrappers run the plain versions and launch
     # nothing: the counters stay where they were.
