@@ -4,7 +4,8 @@
 //
 //   bd_pair_delta      <- bitdelta_tpu/ops/pallas_binary_gemm.py
 //                         ::tenant_delta_matmul_pair_pallas
-//   bd_tenant_dense    <- ::tenant_dense_matmul_pallas
+//   bd_tenant_dense_tc <- ::tenant_dense_matmul_pallas (bf16)
+//   bd_tenant_dense    <- the same, any other dtypes, K or N
 //   bd_binary_matmul   <- ::binary_matmul_pallas
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
 //   bd_tenant_delta    <- ::tenant_delta_matmul_pallas
@@ -17,6 +18,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
 
@@ -35,6 +37,29 @@ template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f32<__half>(__half v) {
+  return __half2float(v);
+}
+
+// Two adjacent elements of W as they are loaded (bf16x2 or float2), so a
+// word's whole column of W can be in flight before any of it is used.
+template <typename T> struct Two;
+template <> struct Two<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct Two<__half> { using type = __half2; };
+template <> struct Two<float> { using type = float2; };
+
+// One 4- or 8-byte load where ``vec`` (N even, so the pair is aligned),
+// else two scalar loads, the second only where ``has1``.
+template <typename T>
+__device__ __forceinline__ typename Two<T>::type load_two(const T* p,
+                                                          bool vec,
+                                                          bool has1) {
+  if (vec) return *reinterpret_cast<const typename Two<T>::type*>(p);
+  typename Two<T>::type v;
+  v.x = p[0];
+  v.y = has1 ? p[1] : T(0.0f);
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -788,28 +813,66 @@ extern "C" int bd_pair_delta(const void* x, int x_stride, int x_bf16,
 
 // ---------------------------------------------------------------------------
 // 3. Tenant-routed dense matmul (the per-tenant lm_head at decode):
-//    Y[b] = x[b] @ W[ids[b]]
+//    Y[b] = x[b] @ W[ids[b]],  x (B, K), W (T, K, N), fp32 out
+//    <- bitdelta_tpu/ops/pallas_binary_gemm.py:845
+//       tenant_dense_matmul_pallas (products and sums in fp32).
 //
-// Bound: the bytes of the distinct tenants' (K, N) slabs. Each block owns
-// 256 columns (two adjacent per thread, one 4- or 8-byte load), up to
-// DENSE_ROWS rows and one of `splits` contiguous K ranges; it walks each
-// DISTINCT tenant among its rows once, so a tenant's slab is read once
-// however many rows route to it, and no (B, K, N) gather exists. x tiles
-// sit in shared memory as fp32; each weight pair feeds the rows of that
-// tenant (fp32, sequential over the block's K range). Splitting K gives
-// the card enough blocks to keep its memory busy (a 32000-column head
-// has only 125 column blocks); the partial sums go to a scratch
-// (splits, B, N) and a second kernel adds them in split order, so the
-// result does not depend on scheduling.
+// Bound on the H100: bytes. The distinct tenants' (K, N) heads are read
+// once each, plus x and the fp32 output: at B = 8 over 3 tenants, K =
+// 4096, N = 32000 (Mistral-7B's head) 786 MB, 0.235 ms at 3.35 TB/s; the
+// products (2BKN) are 1/600 of the tensor cores' time for them.
+//
+// bf16 x and W, K and N multiples of 8 (JAX's own limit): one kernel,
+// tenant_dense_tc_kernel (after row 10's section: it shares its TMA and
+// mbarrier helpers), one launch for each DN_SLAB rows.
+// * A work unit is one distinct tenant (rank d, order of first
+//   occurrence among the slab's ids) and up to NT * 8 of its rows (chunk
+//   c, in row order). A block owns one unit and DN_COLS columns (grid
+//   x, the units of a tile side by side; a block whose unit does not
+//   exist exits) and one K split (grid y). Its n8 side holds that
+//   tenant's rows only, so no masking is needed, and each output row
+//   belongs to one unit. A tenant's head is read once for each NT * 8 of
+//   its rows (32 at B > 16): at B = 8 once; at B = 128 on one tenant
+//   four times, by neighbouring blocks that run together and share the
+//   tiles in L2 (units of 64 rows, DN_MAX_NT = 8, were no faster at B =
+//   64 with 40 rows on one tenant: the second read comes from L2).
+// * W is the A operand of mma.sync.m16n8k16 (bf16, fp32 sums), taken
+//   from shared memory by ldmatrix.trans (W is (K, N) row-major: a shared
+//   row is one K at the block's 64 columns, stored with the 128-byte
+//   swizzle, read free of bank conflicts); the unit's x rows are the n8
+//   side, by ldmatrix. A warp owns 16 columns (one m16 tile).
+// * W arrives by TMA through a 3-D tensor map over the stack (N, K, T),
+//   box {64, DN_KS, 1} at {c0, k0, t}: rows past K and columns past N of
+//   tenant t read as zeros (a 2-D map over (T K, N) would read tenant
+//   t + 1's rows there). One thread issues each stage's boxes onto the
+//   stage's mbarrier in a DN_STAGES-deep ring; x arrives by 16-byte
+//   cp.async, K past the end zero.
+// * The tensor cores truncate as they accumulate, so each DN_KS-deep
+//   stage sums into a fresh fp32 accumulator that is then added to the
+//   running sum (as rows 5, 6, 8 and 10 do).
+// * Filling the card: where the units' tiles do not fill it, the K
+//   splits of a tile form one thread block cluster and add their fp32
+//   partials through distributed shared memory in rank order (no
+//   atomics: the result does not depend on scheduling). No scratch and
+//   no second launch. scripts/sweep_tenant_dense.py sizes the ring, the
+//   stage depth and the split aim (PERF.md).
+//
+// Every other dtype pair (bf16, fp16 or fp32 x, W of any of those), a K
+// or N not a multiple of 8 takes tenant_dense_kernel on the CUDA cores: each block owns 256
+// columns (two adjacent per thread), up to DENSE_ROWS rows and one of
+// `splits` K ranges, walks each distinct tenant among its rows once,
+// widens x and W to fp32 (as the TPU kernel does) and sums in fp32; the
+// K ranges' partials go to a (splits, B, N) scratch and sum_splits_kernel
+// adds them in split order.
 // ---------------------------------------------------------------------------
 
 constexpr int DENSE_THREADS = 128;
 constexpr int DENSE_ROWS = 16;
 constexpr int DENSE_TK = 128;
 
-template <typename T>
-__global__ void tenant_dense_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ w,
+template <typename TX, typename TW>
+__global__ void tenant_dense_kernel(const TX* __restrict__ x,
+                                    const TW* __restrict__ w,
                                     const int* __restrict__ ids,
                                     float* __restrict__ partial,
                                     int bsz, int k, int n, int k_per_split) {
@@ -836,7 +899,7 @@ __global__ void tenant_dense_kernel(const T* __restrict__ x,
     bool seen = false;
     for (int v = 0; v < u; ++v) seen |= (tid_of[v] == t);
     if (seen) continue;                         // uniform across the block
-    const T* wt = w + (size_t)t * k * n;
+    const TW* wt = w + (size_t)t * k * n;
     for (int k0 = k_lo; k0 < k_hi; k0 += DENSE_TK) {
       const int tk = min(DENSE_TK, k_hi - k0);
       __syncthreads();
@@ -850,23 +913,9 @@ __global__ void tenant_dense_kernel(const T* __restrict__ x,
       if (c0 >= n) continue;
 #pragma unroll 4
       for (int kk = 0; kk < tk; ++kk) {
-        const T* wrow = wt + (size_t)(k0 + kk) * n + c0;
-        float w0, w1 = 0.0f;
-        if (vec) {
-          if constexpr (sizeof(T) == 2) {
-            const __nv_bfloat162 pr =
-                *reinterpret_cast<const __nv_bfloat162*>(wrow);
-            w0 = __low2float(pr);
-            w1 = __high2float(pr);
-          } else {
-            const float2 pr = *reinterpret_cast<const float2*>(wrow);
-            w0 = pr.x;
-            w1 = pr.y;
-          }
-        } else {
-          w0 = to_f32(wrow[0]);
-          if (c0 + 1 < n) w1 = to_f32(wrow[1]);
-        }
+        const typename Two<TW>::type pr =
+            load_two(wt + (size_t)(k0 + kk) * n + c0, vec, c0 + 1 < n);
+        const float w0 = to_f32(pr.x), w1 = to_f32(pr.y);
 #pragma unroll
         for (int r = 0; r < DENSE_ROWS; ++r) {
           if (tid_of[r] == t) {
@@ -896,22 +945,53 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-extern "C" int bd_tenant_dense(const void* x, const void* w, const void* ids,
-                               void* partial, void* out, int bsz, int k,
-                               int n, int splits, int is_bf16, void* stream) {
+template <typename TX, typename TW>
+static cudaError_t launch_tenant_dense(const void* x, const void* w,
+                                       const void* ids, void* partial,
+                                       int bsz, int k, int n, int splits,
+                                       cudaStream_t s) {
   const int k_per_split = (k + splits - 1) / splits;
   dim3 grid((n + 2 * DENSE_THREADS - 1) / (2 * DENSE_THREADS),
             (bsz + DENSE_ROWS - 1) / DENSE_ROWS, splits);
+  tenant_dense_kernel<TX, TW><<<grid, DENSE_THREADS, 0, s>>>(
+      (const TX*)x, (const TW*)w, (const int*)ids, (float*)partial, bsz, k,
+      n, k_per_split);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+static cudaError_t launch_tenant_dense_w(int w_type, const void* x,
+                                         const void* w, const void* ids,
+                                         void* partial, int bsz, int k,
+                                         int n, int splits, cudaStream_t s) {
+  switch (w_type) {
+    case 0: return launch_tenant_dense<TX, float>(x, w, ids, partial, bsz,
+                                                  k, n, splits, s);
+    case 1: return launch_tenant_dense<TX, __nv_bfloat16>(
+        x, w, ids, partial, bsz, k, n, splits, s);
+    case 2: return launch_tenant_dense<TX, __half>(x, w, ids, partial, bsz,
+                                                   k, n, splits, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// x (bsz, k) and W (t, k, n) each fp32 (type 0), bf16 (1) or fp16 (2),
+// ids (bsz,) int32; partial (splits, bsz, n) and out (bsz, n) fp32.
+extern "C" int bd_tenant_dense(const void* x, const void* w, const void* ids,
+                               void* partial, void* out, int bsz, int k,
+                               int n, int splits, int x_type, int w_type,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    tenant_dense_kernel<__nv_bfloat16><<<grid, DENSE_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const int*)ids,
-        (float*)partial, bsz, k, n, k_per_split);
-  else
-    tenant_dense_kernel<float><<<grid, DENSE_THREADS, 0, s>>>(
-        (const float*)x, (const float*)w, (const int*)ids, (float*)partial,
-        bsz, k, n, k_per_split);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  switch (x_type) {
+    case 0: err = launch_tenant_dense_w<float>(w_type, x, w, ids, partial,
+                                               bsz, k, n, splits, s); break;
+    case 1: err = launch_tenant_dense_w<__nv_bfloat16>(
+        w_type, x, w, ids, partial, bsz, k, n, splits, s); break;
+    case 2: err = launch_tenant_dense_w<__half>(w_type, x, w, ids, partial,
+                                                bsz, k, n, splits, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   const int count = bsz * n;
   sum_splits_kernel<<<(count + 255) / 256, 256, 0, s>>>(
@@ -1493,25 +1573,6 @@ extern "C" int bd_tenant_delta(const void* xq, const void* packed,
 constexpr int FUSED_THREADS = 128;   // threads along N, two columns each
 constexpr int FUSED_ROWS = 8;        // batch rows per block
 constexpr int FUSED_TK = 128;        // K per shared-memory chunk
-
-// Two adjacent elements of W as they are loaded (bf16x2 or float2), so a
-// word's whole column of W can be in flight before any of it is used.
-template <typename T> struct Two;
-template <> struct Two<__nv_bfloat16> { using type = __nv_bfloat162; };
-template <> struct Two<float> { using type = float2; };
-
-// One 4- or 8-byte load where ``vec`` (N even, so the pair is aligned),
-// else two scalar loads, the second only where ``has1``.
-template <typename T>
-__device__ __forceinline__ typename Two<T>::type load_two(const T* p,
-                                                          bool vec,
-                                                          bool has1) {
-  if (vec) return *reinterpret_cast<const typename Two<T>::type*>(p);
-  typename Two<T>::type v;
-  v.x = p[0];
-  v.y = has1 ? p[1] : T(0.0f);
-  return v;
-}
 
 // The sign of bit ``s`` of ~word, moved to bit 31: XOR it into x to get
 // +x for a set bit and -x for a clear one.
@@ -2459,6 +2520,375 @@ extern "C" int bd_fused_base_pair_tc(const void* x, int x_stride,
       err = launch_fused_pair_tc<4>(wmap, x, x_stride, planes, pairs, ids,
                                     ids64, coef, colsum, out, bsz, row0,
                                     slab, k, n2, dev, sms, s);
+  }
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// 3, bf16: the tensor-core kernel of the tenant-routed dense matmul (the
+// design note stands at section 3). A block: one work unit (a distinct
+// tenant and up to NT * 8 of its rows), one K split, DN_COLS columns.
+// ---------------------------------------------------------------------------
+
+constexpr int DN_BOXES = 2;                 // 64-column W boxes a block
+constexpr int DN_WARPS = 4 * DN_BOXES;      // a warp: 16 columns
+constexpr int DN_THREADS = DN_WARPS * 32;
+constexpr int DN_COLS = 64 * DN_BOXES;      // output columns a block
+constexpr int DN_KS = 128;                  // K a ring stage
+constexpr int DN_STAGES = 2;                // stages in the ring
+constexpr int DN_SLAB = 128;                // rows a launch takes
+constexpr int DN_MAX_NT = 4;                // n8 tiles a unit at most
+constexpr int DN_MAX_SPLITS = 8;            // a portable cluster
+constexpr int DN_HALF_BLOCKS_PER_SM = 7;    // the split's aim: 3.5 an SM
+constexpr int DN_WBOX = DN_KS * 128;        // bytes of a W box (64 columns)
+constexpr int DN_XROW = DN_KS * 2 + 16;     // bytes of a shared x row
+constexpr int DN_PSTRIDE = DN_COLS + 4;     // floats of a partials row
+static_assert(DN_THREADS >= DN_SLAB, "a thread a row of the slab");
+static_assert(DN_KS % 32 == 0 && DN_KS <= 256, "k16 steps in pairs; a box");
+static_assert(DN_STAGES >= 2, "a ring");
+static_assert(DN_MAX_NT == 4 || DN_MAX_NT == 8, "units of 32 or 64 rows");
+
+// Byte offsets in a ring stage (1024-byte aligned, as the 128-byte
+// swizzle needs): the W boxes, then the unit's x rows.
+template <int NT>
+struct DnStage {
+  static constexpr int X = DN_BOXES * DN_WBOX;
+  static constexpr int BYTES = (X + NT * 8 * DN_XROW + 1023) / 1024 * 1024;
+};
+
+// A TMA copy of the box at (column c0, row r0, plane p) of a 3-D tensor
+// map into shared memory, completing on barrier bar.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int r0, int p, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
+         "r"(p), "r"(bar) : "memory");
+}
+
+// Block (tile * units + unit, split) over the slab row0 .. row0 + slab - 1.
+template <int NT>
+__global__ void __launch_bounds__(DN_THREADS)
+tenant_dense_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                       const __nv_bfloat16* __restrict__ x, int x_stride,
+                       const void* __restrict__ ids, int ids64,
+                       float* __restrict__ out, int row0, int slab,
+                       int units, int k, int n) {
+  namespace cg = cooperative_groups;
+  constexpr int R = NT * 8;                    // row slots
+  using S = DnStage<NT>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t wbar[DN_STAGES];
+  __shared__ int sid[DN_SLAB], first[DN_SLAB], sd[DN_SLAB], srank[DN_SLAB];
+  __shared__ int units_of[DN_SLAB];
+  __shared__ int slot_row[R];
+  __shared__ int s_t, s_d, s_c;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int unit = blockIdx.x % units, split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int c0 = blockIdx.x / units * DN_COLS;
+  const int n_st = (k + DN_KS - 1) / DN_KS;
+  const int st0 = (int)((long long)split * n_st / n_split);
+  const int n_it = (int)((long long)(split + 1) * n_st / n_split) - st0;
+  // The ring from the first 1024-byte boundary (the allocation has 1024
+  // bytes to spare); stage s's W boxes complete on wbar[s].
+  uint8_t* ring = smem_raw + ((1024u - static_cast<uint32_t>(
+      __cvta_generic_to_shared(smem_raw)) % 1024u) % 1024u);
+  const uint32_t bar0 =
+      static_cast<uint32_t>(__cvta_generic_to_shared(wbar));
+  const CUtensorMap* wmp = &wmap;
+  if (tid == 0) {
+    for (int st = 0; st < DN_STAGES; ++st) mbar_init(bar0 + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    s_t = -1;
+  }
+
+  // The unit: tenants by rank d (order of first occurrence), each cut
+  // into ceil(count / R) units of R rows in row order, d before d + 1.
+  if (tid < slab) sid[tid] = load_id(ids, ids64, row0 + tid);
+  if (tid < R) slot_row[tid] = -1;
+  __syncthreads();
+  if (tid < slab) {
+    int f = 0;
+    while (sid[f] != sid[tid]) ++f;
+    first[tid] = f;
+  }
+  __syncthreads();
+  if (tid < slab) {
+    int d = 0, r = 0;
+    for (int j = 0; j < tid; ++j) {
+      d += j < first[tid] && first[j] == j;
+      r += first[j] == first[tid];
+    }
+    sd[tid] = d;
+    srank[tid] = r;                            // the row's place in its tenant
+    if (first[tid] == tid) {
+      int count = 1;
+      for (int j = tid + 1; j < slab; ++j) count += first[j] == tid;
+      units_of[d] = (count + R - 1) / R;
+    }
+  }
+  __syncthreads();
+  if (tid < slab && first[tid] == tid) {
+    const int d = sd[tid];
+    int before = 0;
+    for (int e = 0; e < d; ++e) before += units_of[e];
+    if (unit >= before && unit < before + units_of[d]) {
+      s_t = sid[tid];
+      s_d = d;
+      s_c = unit - before;
+    }
+  }
+  __syncthreads();
+  const int t = s_t;
+  if (t < 0) return;                           // no such unit: the whole cluster
+  if (tid < slab && sd[tid] == s_d && srank[tid] / R == s_c)
+    slot_row[srank[tid] % R] = tid;
+  __syncthreads();
+
+  // Stage it: W rows k0 .. k0 + DN_KS - 1 of tenant t at the tile's
+  // columns (one box a 64 columns, rows past k and columns past n zero)
+  // and the unit's x rows at the same K (slots past the unit zero).
+  auto load_stage = [&](int it) {
+    const int slot = it % DN_STAGES;
+    uint8_t* st = ring + slot * S::BYTES;
+    const int k0 = (st0 + it) * DN_KS;
+    if (tid == 0) {
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(st));
+      // The stage was read (ldmatrix) before the block's last barrier.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar0 + 8 * slot, DN_BOXES * DN_WBOX);
+#pragma unroll
+      for (int b = 0; b < DN_BOXES; ++b)
+        tma_load_3d(dst + b * DN_WBOX, wmp, c0 + 64 * b, k0, t,
+                    bar0 + 8 * slot);
+    }
+    uint8_t* xs = st + S::X;
+    constexpr int XCH = DN_KS * 2 / 16;        // 16-byte copies an x row
+    for (int i = tid; i < R * XCH; i += DN_THREADS) {
+      const int r = i / XCH, c = i % XCH;
+      const int row = slot_row[r];
+      const bool ok = row >= 0 && k0 + 8 * c < k;
+      cp_async16(xs + r * DN_XROW + 16 * c,
+                 x + (ok ? (size_t)(row0 + row) * x_stride + k0 + 8 * c
+                         : 0), ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < DN_STAGES - 1; ++s) {
+    if (s < n_it) load_stage(s);
+    cp_async_commit();
+  }
+
+  // ldmatrix.trans of W: lane l gives row (l / 16) * 8 + l % 8 of the k16
+  // step, 16-byte chunk 2 (warp % 4) + (l / 8) % 2 of box warp / 4: a0
+  // (columns 16w + g, K 2t..), a1 (columns 16w + 8 + g), a2 (K 2t + 8..),
+  // a3. A box row is 128 bytes, its chunk c stored at c ^ (row % 8) (the
+  // 128-byte swizzle), which leaves the 8 rows of a matrix in 8 distinct
+  // bank groups; row % 8 = l % 8 at every k16 step.
+  const uint32_t w_lane =
+      (warp / 4) * DN_WBOX + ((lane / 16) * 8 + lane % 8) * 128
+      + (((2 * (warp % 4) + (lane / 8) % 2) ^ (lane % 8)) * 16);
+  // ldmatrix of x: lane l gives slot row l % 8 of an n8 tile at K
+  // 8 * (l / 8) of two k16 steps: b0, b1 of the first, b0, b1 of the
+  // second.
+  const uint32_t x_lane = (lane % 8) * DN_XROW + (lane / 8) * 16;
+
+  float tot[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[nt][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<DN_STAGES - 2>();            // stage it's x has landed
+    __syncthreads();                           // and stage it - 1 is read
+    {
+      const int nx = it + DN_STAGES - 1;
+      if (nx < n_it) load_stage(nx);
+      cp_async_commit();
+    }
+    const int slot = it % DN_STAGES;
+    const uint8_t* stp = ring + slot * S::BYTES;
+    mbar_wait(bar0 + 8 * slot, (it / DN_STAGES) & 1);
+    // DN_KS / 16 MMAs a tile into a fresh accumulator.
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DN_KS / 16; kk += 2) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4<true>(a0, stp + kk * 16 * 128 + w_lane);
+      ldsm_x4<true>(a1, stp + (kk + 1) * 16 * 128 + w_lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[4];
+        ldsm_x4<false>(b, stp + S::X + nt * 8 * DN_XROW + kk * 32 + x_lane);
+        mma_16816(acc[nt], a0, b[0], b[1]);
+        mma_16816(acc[nt], a1, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tot[nt][e] = __fadd_rn(tot[nt][e], acc[nt][e]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the ring is free
+
+  // The partials in shared memory, [slot][column] (D: lane (g, tq) holds
+  // slots 8nt + 2tq, + 1 at columns 16w + g and 16w + 8 + g); then block
+  // q of the cluster adds, for its DN_COLS / n_split columns, every
+  // block's partials in rank order and writes the unit's rows.
+  float* pb = reinterpret_cast<float*>(ring);
+  const int col = 64 * (warp / 4) + 16 * (warp % 4) + g;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = nt * 8 + 2 * tq + e;
+      pb[r * DN_PSTRIDE + col] = tot[nt][e];
+      pb[r * DN_PSTRIDE + col + 8] = tot[nt][2 + e];
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* rb[DN_MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < DN_MAX_SPLITS; ++r)
+    rb[r] = cluster.map_shared_rank(pb, r < n_split ? r : 0);
+  const int slice = DN_COLS / n_split, cs = split * slice;
+  for (int i = tid; i < R * slice; i += DN_THREADS) {
+    const int r = i / slice, c = cs + i % slice;
+    const int row = slot_row[r];
+    if (row < 0 || c0 + c >= n) continue;
+    float v[DN_MAX_SPLITS];
+#pragma unroll
+    for (int q = 0; q < DN_MAX_SPLITS; ++q)
+      v[q] = q < n_split ? rb[q][r * DN_PSTRIDE + c] : 0.0f;
+    float sum = v[0];
+#pragma unroll
+    for (int q = 1; q < DN_MAX_SPLITS; ++q)
+      if (q < n_split) sum = __fadd_rn(sum, v[q]);   // in rank order
+    out[(size_t)(row0 + row) * n + c0 + c] = sum;
+  }
+  cluster.sync();                              // the partials stay until read
+}
+
+// W (t, k, n) bf16 row-major as a 3-D map (n, k, t) of boxes {64, DN_KS,
+// 1} with the 128-byte swizzle; rows past k and columns past n read as
+// zeros.
+static cudaError_t w_stack_tensor_map(CUtensorMap* map, const void* w, int t,
+                                      int k, int n) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)t};
+  const cuuint64_t strides[2] = {(cuuint64_t)n * 2, (cuuint64_t)k * n * 2};
+  const cuuint32_t box[3] = {64, DN_KS, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The kernel over rows row0 .. row0 + slab - 1: grid (tiles * units,
+// splits), with units the most the slab can hold (min(slab, t) distinct
+// tenants plus one for each further R rows); K splits, the largest power
+// of two (at most DN_MAX_SPLITS and the stages) that keeps the grid
+// within DN_HALF_BLOCKS_PER_SM / 2 blocks a multiprocessor and within one
+// wave of resident blocks.
+template <int NT>
+static cudaError_t launch_dense_tc(const CUtensorMap& wmap, const void* x,
+                                   int x_stride, const void* ids, int ids64,
+                                   void* out, int row0, int slab, int k,
+                                   int n, int t, int dev, int sms,
+                                   cudaStream_t s) {
+  static std::atomic<unsigned long long> limit_set{0};
+  static std::atomic<int> live_cache{0};
+  constexpr int smem = DnStage<NT>::BYTES * DN_STAGES + 1024;
+  static_assert(DnStage<NT>::BYTES * DN_STAGES >= NT * 8 * DN_PSTRIDE * 4,
+                "the partials of the unit's rows fit in the ring");
+  const void* fn = (const void*)tenant_dense_tc_kernel<NT>;
+  cudaError_t err = smem_limit_once(fn, smem, dev, limit_set);
+  if (err != cudaSuccess) return err;
+  int live = live_cache.load();
+  if (live == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&live, fn,
+                                                        DN_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    live = live < 1 ? 1 : live;
+    live_cache.store(live);
+  }
+  const int tiles = (n + DN_COLS - 1) / DN_COLS;
+  const int lead = slab < t ? slab : t;
+  const int units = lead + (slab - lead) / (NT * 8);
+  const int n_st = (k + DN_KS - 1) / DN_KS;
+  const int cap = n_st < DN_MAX_SPLITS ? n_st : DN_MAX_SPLITS;
+  const int aim = (DN_HALF_BLOCKS_PER_SM < 2 * live ? DN_HALF_BLOCKS_PER_SM
+                                                    : 2 * live) * sms;
+  const long long blocks = (long long)tiles * units;
+  int splits = 1;
+  while (splits * 2 <= cap && 2 * blocks * splits * 2 <= aim) splits *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * units, splits, 1);
+  cfg.blockDim = dim3(DN_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, tenant_dense_tc_kernel<NT>, wmap,
+                           (const __nv_bfloat16*)x, x_stride, ids, ids64,
+                           (float*)out, row0, slab, units, k, n);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// bf16 x (bsz, k) with row stride x_stride, W (t, k, n) bf16, ids (bsz,)
+// int32 or int64 (ids64); out (bsz, n) fp32. K and N multiples of 8. One
+// launch for each DN_SLAB rows.
+extern "C" int bd_tenant_dense_tc(const void* x, int x_stride, const void* w,
+                                  const void* ids, int ids64, void* out,
+                                  int bsz, int k, int n, int t,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bsz < 1 || t < 1 || k < 8 || k % 8 != 0 || n < 8 || n % 8 != 0
+      || x_stride % 8 != 0
+      || ((uintptr_t)x % 16) != 0 || ((uintptr_t)w % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap wmap;
+  err = w_stack_tensor_map(&wmap, w, t, k, n);
+  for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += DN_SLAB) {
+    const int slab = bsz - row0 < DN_SLAB ? bsz - row0 : DN_SLAB;
+    if (slab <= 8)
+      err = launch_dense_tc<1>(wmap, x, x_stride, ids, ids64, out, row0,
+                               slab, k, n, t, dev, sms, s);
+    else if (slab <= 16)
+      err = launch_dense_tc<2>(wmap, x, x_stride, ids, ids64, out, row0,
+                               slab, k, n, t, dev, sms, s);
+    else if (slab <= 32 || DN_MAX_NT == 4)
+      err = launch_dense_tc<4>(wmap, x, x_stride, ids, ids64, out, row0,
+                               slab, k, n, t, dev, sms, s);
+    else
+      err = launch_dense_tc<DN_MAX_NT>(wmap, x, x_stride, ids, ids64, out,
+                                       row0, slab, k, n, t, dev, sms, s);
   }
   return (int)err;
 }

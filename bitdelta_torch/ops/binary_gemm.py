@@ -292,36 +292,70 @@ def tenant_dense_matmul_plain(x, w_stack, tenant_ids):
     return matmul_f32(x[:, None, :], w_stack[tenant_ids])[:, 0]
 
 
+# Element types of the CUDA-core dense kernel (``bd_tenant_dense``).
+_DENSE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def tenant_dense_matmul(x: torch.Tensor, w_stack: torch.Tensor,
                         tenant_ids: torch.Tensor, *, out_dtype=None
                         ) -> torch.Tensor:
     """``Y[b] = x[b] @ W[ids[b]]``: x ``(B, K)``; w_stack ``(T, K, N)``;
-    tenant_ids ``(B,)``. No ``(B, K, N)`` gather on the card."""
+    tenant_ids ``(B,)``. Products and sums in fp32, as the TPU kernel's;
+    returns ``(B, N)`` in ``out_dtype`` (default x.dtype). No ``(B, K,
+    N)`` gather on the card.
+
+    On a CUDA tensor, bf16 x and W with K and N multiples of 8 launch the
+    tensor-core kernel (``tenant_dense_tc_kernel``, once for each 128
+    rows) and nothing else; x and W each bf16, fp16 or fp32 in any other
+    pair, or any other K or N, take the CUDA-core kernel
+    (``tenant_dense_kernel``) and its split sum. The head is never cast
+    (a contiguous, 16-byte aligned stack is not copied). int32 or int64
+    ids."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     t, kw, n = w_stack.shape
     _require(kw == kdim, f"x {tuple(x.shape)} vs W {tuple(w_stack.shape)}")
     if not x.is_cuda:
         return tenant_dense_matmul_plain(x, w_stack, tenant_ids).to(out_dtype)
-    _require(x.dtype == w_stack.dtype, "x and W must share a dtype")
-    flag = _cuda_dtype_flag(x)
-    xc = x.contiguous()
-    wc = w_stack.contiguous()
-    ids = tenant_ids.to(torch.int32).contiguous()
-    splits = _dense_splits(kdim)
-    partial = torch.empty((splits, bsz, n), dtype=torch.float32,
-                          device=x.device)
+    _require(x.dtype in _DENSE_TYPES and w_stack.dtype in _DENSE_TYPES,
+             f"x and W must be bf16, fp16 or fp32, got {x.dtype} and "
+             f"{w_stack.dtype}")
+    _require(tuple(tenant_ids.shape) == (bsz,),
+             f"tenant_ids {tuple(tenant_ids.shape)} != {(bsz,)}")
+    _require(w_stack.device == x.device and tenant_ids.device == x.device,
+             "every input must be on x's device")
     out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    _build.launch(_LIB, "bd_tenant_dense", [P, P, P, P, P, I, I, I, I, I, P],
-                  _build.ptr(xc), _build.ptr(wc), _build.ptr(ids),
-                  _build.ptr(partial), _build.ptr(out), bsz, kdim, n, splits,
-                  flag, _build.stream(x.device))
+    if (x.dtype == w_stack.dtype == torch.bfloat16 and kdim % 8 == 0
+            and n % 8 == 0):
+        xc = _build.aligned16(x)
+        wc = _build.aligned16(w_stack)
+        ids = (tenant_ids if tenant_ids.dtype in (torch.int32, torch.int64)
+               else tenant_ids.to(torch.int32)).contiguous()
+        _build.launch(_LIB, "bd_tenant_dense_tc", [P, I, P, P, I, P]
+                      + [I] * 4 + [P],
+                      _build.ptr(xc), xc.stride(0), _build.ptr(wc),
+                      _build.ptr(ids), int(ids.dtype == torch.int64),
+                      _build.ptr(out), bsz, kdim, n, t,
+                      _build.stream(x.device))
+    else:
+        xc = x.contiguous()
+        wc = w_stack.contiguous()
+        ids = tenant_ids.to(torch.int32).contiguous()
+        splits = _dense_splits(kdim)
+        partial = torch.empty((splits, bsz, n), dtype=torch.float32,
+                              device=x.device)
+        _build.launch(_LIB, "bd_tenant_dense", [P] * 5 + [I] * 6 + [P],
+                      _build.ptr(xc), _build.ptr(wc), _build.ptr(ids),
+                      _build.ptr(partial), _build.ptr(out), bsz, kdim, n,
+                      splits, _DENSE_TYPES[x.dtype],
+                      _DENSE_TYPES[w_stack.dtype], _build.stream(x.device))
     tenant_dense_matmul.launches += 1
     return out.to(out_dtype)
 
 
 def _dense_splits(kdim: int) -> int:
-    """K ranges of the dense kernel: about 256 rows each, at most 32."""
+    """K ranges of the CUDA-core dense kernel: about 256 rows each, at
+    most 32."""
     return max(1, min(32, kdim // 256))
 
 

@@ -21,7 +21,10 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    CUDA-core kernel each timed; the pair delta's x prep and its 1-bit
    tensor-core kernel timed apart, and the call back to back; the fused
    pair kernel's bf16 calls (row 1's prep and the tensor-core kernel)
-   likewise; the canonical tenant delta also exact at K = 102432), and time
+   likewise; the canonical tenant delta also exact at K = 102432; the
+   tenant dense lm_head's bf16 tensor-core kernel at B = 1, 8 and 64,
+   each beside one matmul a distinct tenant, and its CUDA-core kernel
+   on an fp32 head under bf16 x), and time
    the kernel's wrapper, the plain version and (where one exists) a single
    PyTorch library call from torch.profiler device time, beside the
    least time the card could take (bound); the int8-cache branch of
@@ -175,6 +178,10 @@ FUSED_PAIR_FP32_KERNELS = ("fused_pair_kernel", "fused_pair_epilogue_kernel")
 W4_TC_KERNEL = "w4_matmul_tc_kernel"                 # bf16, tensor cores
 W4_FP32_KERNEL = "w4_matmul_fp32_kernel"             # fp32, CUDA cores
 W4_SPLITS_KERNEL = "w4_sum_splits_kernel"
+# Row 3: bf16 x and W on the tensor-core kernel; any other dtype pair (or
+# K, N not multiples of 8) on the CUDA-core kernel and its split sum.
+DENSE_TC_KERNEL = "tenant_dense_tc_kernel"
+DENSE_CORE_KERNELS = ("tenant_dense_kernel", "sum_splits_kernel")
 PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
                ("gate_proj", 4096, 14336), ("up_proj", 4096, 14336),
@@ -387,7 +394,8 @@ def build():
             usage[name] = [line.strip() for line in lines
                            if "registers" in line or "spill" in line]
             per_kernel.update(ptxas_by_kernel(
-                lines, PAIR_KERNELS + FUSED_PAIR_KERNELS[1:]))
+                lines, PAIR_KERNELS + FUSED_PAIR_KERNELS[1:]
+                + (DENSE_TC_KERNEL,)))
     emit({"phase": "build", "seconds": round(total, 3),
           "per_source_s": {k: round(v, 3) for k, v in seconds.items()},
           "ptxas": usage, "ptxas_by_kernel": per_kernel})
@@ -1081,7 +1089,31 @@ def check_w4(dev, gen, results):
         other_m=other_m)
 
 
+def tenant_groups(ids):
+    """``[(tenant, row index tensor), ...]`` of each distinct tenant."""
+    return [(t, (ids == t).nonzero()[:, 0])
+            for t in torch.unique(ids).tolist()]
+
+
+def per_tenant_matmul(x, w, groups):
+    """Row 3's yardstick: one fp32-summed matmul (cuBLAS) a distinct
+    tenant on that tenant's rows, reading each head once; ``groups`` is
+    ``[(tenant, row index tensor), ...]``."""
+    from bitdelta_torch.ops.binary_matmul import matmul_f32
+
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for t, rows in groups:
+        out[rows] = matmul_f32(x[rows], w[t])
+    return out
+
+
 def check_dense(dev, gen, results):
+    """Row 3 at Mistral-7B's head (K = 4096, N = 32000) over 3 tenants:
+    bf16 on the tensor-core kernel at B = 8 (against the plain version),
+    B = 1 and B = 64 with one tenant holding 40 rows (against one matmul
+    a distinct tenant: the plain version's gather would copy 17 GB); the
+    model's mixed case (bf16 x, fp32 head) on the CUDA-core kernel."""
     from bitdelta_torch.ops import binary_gemm as bg
 
     bsz, t, k, n = 8, 3, 4096, 32000
@@ -1089,29 +1121,91 @@ def check_dense(dev, gen, results):
     x = torch.randn((bsz, k), generator=gen, device=dev).to(torch.bfloat16)
     w = (torch.randn((t, k, n), generator=gen, device=dev) * 0.02).to(
         torch.bfloat16)
-    got = bg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    want = bg.tenant_dense_matmul_plain(x, w, ids)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = 1e-4 * want.abs().max().item()
-    require(err <= tol, f"tenant dense: max|err| {err} > {tol}")
+
+    def hold(got, want, label):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        require(err <= tol, f"tenant dense {label}: max|err| {err} > {tol}")
+        return err
+
+    def call(x, ids):
+        return lambda i: bg.tenant_dense_matmul(x, w, ids,
+                                                out_dtype=torch.float32)
+
+    err = hold(call(x, ids)(0), bg.tenant_dense_matmul_plain(x, w, ids),
+               "B=8")
+    groups = tenant_groups(ids)
     row = time_wrapper(
-        "tenant dense",
-        lambda i: bg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32),
-        1, ("tenant_dense_kernel", "sum_splits_kernel"),
+        "tenant dense", call(x, ids), 1, (DENSE_TC_KERNEL,),
         plain=lambda i: bg.tenant_dense_matmul_plain(x, w, ids),
         library=lambda i: torch.bmm(x[:, None, :], w[ids]))
-    nbytes = t * k * n * 2 + bsz * k * 2 + bsz * n * 4
-    b_ms, b_by = bound(nbytes, 2 * bsz * k * n)
+    row["queued_ms"] = queued_ms(call(x, ids), 1)
+    row["per_tenant_ms"] = device_ms(
+        lambda i: per_tenant_matmul(x, w, groups), 1,
+        "tenant dense per-tenant matmul", iters=5)[0]
+    b_ms, b_by = bound(t * k * n * 2 + bsz * k * 2 + bsz * n * 4,
+                       2 * bsz * k * n)
+    other_b = []
+    for ids_b in (torch.tensor([1], device=dev),
+                  torch.tensor([0] * 40 + [1] * 12 + [2] * 12, device=dev)):
+        m = len(ids_b)
+        xb = torch.randn((m, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        gb = tenant_groups(ids_b)
+        want = (bg.tenant_dense_matmul_plain(xb, w, ids_b) if m == 1
+                else per_tenant_matmul(xb, w, gb))
+        e = hold(call(xb, ids_b)(0), want, f"B={m}")
+        ms, kern = device_ms(call(xb, ids_b), 1, f"tenant dense B={m}",
+                             (DENSE_TC_KERNEL,))
+        ob_ms, ob_by = bound(len(gb) * k * n * 2 + m * k * 2 + m * n * 4,
+                             2 * m * k * n)
+        other_b.append({
+            "b": m, "distinct_tenants": len(gb), "ms": ms, "kernel_ms": kern,
+            "queued_ms": queued_ms(call(xb, ids_b), 1), "bound_ms": ob_ms,
+            "bound_by": ob_by, "max_abs_err": e,
+            "per_tenant_ms": device_ms(
+                lambda i: per_tenant_matmul(xb, w, gb), 1,
+                f"tenant dense B={m} per-tenant matmul", iters=5)[0]})
+        del want
+    # The model's mixed case: bf16 x under an fp32 head stack, on the
+    # CUDA-core kernel and its split sum (the head is never cast).
+    w32 = w.float()
+    err32 = hold(bg.tenant_dense_matmul(x, w32, ids, out_dtype=torch.float32),
+                 bg.tenant_dense_matmul_plain(x, w32, ids), "bf16 x, fp32 W")
+    x32 = x.float()
+    row32 = time_wrapper(
+        "tenant dense fp32 W",
+        lambda i: bg.tenant_dense_matmul(x, w32, ids,
+                                         out_dtype=torch.float32),
+        1, DENSE_CORE_KERNELS,
+        plain=lambda i: bg.tenant_dense_matmul_plain(x, w32, ids),
+        library=lambda i: torch.bmm(x32[:, None, :], w32[ids]), iters=5)
+    del w32, x32
+    b32_ms, b32_by = bound(t * k * n * 4 + bsz * k * 2 + bsz * n * 4,
+                           2 * bsz * k * n, PEAK_FP32_S)
+    results["tenant_dense_matmul_fp32"] = dict(
+        row32, timing=TIMING, bound_ms=b32_ms, bound_by=b32_by,
+        max_abs_err=err32, kernel=" + ".join(DENSE_CORE_KERNELS),
+        shape="as tenant_dense_matmul, the head stack in fp32 (x bf16)",
+        bound_basis="ops: 2*B*K*N at the fp32 CUDA-core rate (67 TFLOP/s); "
+                    "bytes: the 3 fp32 heads + x + fp32 out",
+        library="torch.bmm(x[:, None], W[ids]) in fp32 (gather + bmm)")
     results["tenant_dense_matmul"] = dict(
         row, timing=TIMING, bound_ms=b_ms, bound_by=b_by,
-        max_abs_err=err, tolerance="1e-4 * max|ref| (fp32 sums in another "
-                                   "order)",
-        shape="B=8 T=3 K=4096 N=32000 (lm_head), 3 distinct tenants",
-        bound_basis="bytes: the 3 distinct tenants' (K, N) bf16 heads + x + "
+        max_abs_err=err, kernel=DENSE_TC_KERNEL,
+        tolerance="1e-4 * max|ref| (fp32 sums in another order); at B=64 "
+                  "against one matmul a distinct tenant",
+        shape="B=8 T=3 K=4096 N=32000 (lm_head), 3 distinct tenants; also "
+              "B=1 and B=64 (40 + 12 + 12 rows) in other_b",
+        bound_basis="bytes: the distinct tenants' (K, N) bf16 heads + x + "
                     "fp32 out; ops: 2*B*K*N at the bf16 rate",
-        library="torch.bmm(x[:, None], W[ids]) (gather + bmm)")
+        library="torch.bmm(x[:, None], W[ids]) (gather + bmm)",
+        per_tenant="per_tenant_ms: one cuBLAS matmul (fp32 out) a distinct "
+                   "tenant on its rows, each head read once",
+        queued="queued_ms: device ms per call with the calls queued back "
+               "to back (chip_smoke.queued_ms)",
+        other_b=other_b)
 
 
 def check_prefill(dev, gen, results):
@@ -2766,6 +2860,16 @@ def main(argv=None):
             entry["main_ms"] = res["main_ms"]
             entry["queued_ms"] = res["queued_ms"]
             entry["fp32_kernel"] = " + ".join(FUSED_PAIR_FP32_KERNELS)
+        if kname == "tenant_dense_matmul":
+            # Row 3: bf16 on the tensor-core kernel (also at B=1 and B=64,
+            # beside one matmul a tenant); the fp32 head on its own.
+            entry["kernel"] = DENSE_TC_KERNEL
+            entry["queued_ms"] = res["queued_ms"]
+            entry["per_tenant_ms"] = res["per_tenant_ms"]
+            entry["other_b"] = res["other_b"]
+            entry["fp32"] = dict(
+                _timing_keys(checks["tenant_dense_matmul_fp32"]),
+                kernel=" + ".join(DENSE_CORE_KERNELS))
         if kname == "w4_matmul":
             # Row 8: bf16 on the tensor cores; the fp32 branch on its own.
             entry["kernel"] = W4_TC_KERNEL

@@ -330,6 +330,176 @@ def test_cuda_tenant_dense_matches_plain(cuda, dtype):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
+def _dense_inputs(cuda, bsz, t, k, n, seed, ids=None, x_dtype=torch.bfloat16,
+                  w_dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((bsz, k), generator=g, device=cuda).to(x_dtype)
+    w = (torch.randn((t, k, n), generator=g, device=cuda) * 0.02).to(w_dtype)
+    if ids is None:
+        ids = torch.randint(0, t, (bsz,), generator=g, device=cuda)
+    else:
+        ids = torch.tensor(ids, device=cuda)
+    return x, w, ids
+
+
+def _dense_close(got, want):
+    # fp32 sums of exact products, in another order: 1e-4 of the output
+    # scale.
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+# Row 3's tensor-core kernel: B from one row to a slab (16 and 32 rows an
+# n8 side), K 520 (a stage cut short) and 1024, N 1000 (a tile cut short)
+# and 4096, up to 8 tenants (distinct tenants at most B).
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("k,n", [(520, 1000), (520, 4096), (1024, 1000),
+                                 (1024, 4096)])
+@pytest.mark.parametrize("bsz", [1, 8, 9, 65, 128])
+def test_cuda_tenant_dense_tc_matches_plain(cuda, bsz, k, n, t):
+    x, w, ids = _dense_inputs(cuda, bsz, t, k, n, seed=bsz + k + n + t)
+    before = tbg.tenant_dense_matmul.launches
+    got = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    want = tbg.tenant_dense_matmul_plain(x, w, ids)
+    torch.cuda.synchronize()
+    _dense_close(got, want)
+    assert tbg.tenant_dense_matmul.launches == before + 1
+
+
+def _per_tenant(x, w, ids):
+    """One fp32-summed matmul a distinct tenant on its rows (reads each
+    head once; no (B, K, N) gather)."""
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    for t in torch.unique(ids).tolist():
+        rows = (ids == t).nonzero()[:, 0]
+        out[rows] = matmul_f32(x[rows], w[t])
+    return out
+
+
+# Mistral-7B's head: B 1 and 8 against the plain version; at B 65 and 128
+# (65 slots and more, one tenant holding most rows) the gathering plain
+# version would copy 17-34 GB, so each tenant's rows are held against one
+# matmul on its head.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,ids", [
+    (1, [2]), (8, [0, 1, 2, 0, 1, 2, 0, 0]),
+    (65, [0] * 40 + [1] * 13 + [2] * 12),
+    (128, [0] * 100 + [1, 2] * 14)])
+def test_cuda_tenant_dense_tc_at_full_width(cuda, bsz, ids):
+    x, w, ids = _dense_inputs(cuda, bsz, 3, 4096, 32000, seed=bsz, ids=ids)
+    got = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    want = (tbg.tenant_dense_matmul_plain(x, w, ids) if bsz <= 8
+            else _per_tenant(x, w, ids))
+    torch.cuda.synchronize()
+    _dense_close(got, want)
+
+
+# Tenant patterns: every row on one tenant (one or several units of its
+# rows), every row on its own tenant, ids as int32 and int64, a tenant
+# whose rows are spread.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,t,ids", [
+    (8, 4, [3] * 8), (65, 2, [1] * 65), (128, 1, [0] * 128),
+    (8, 8, list(range(8))), (32, 32, list(range(31, -1, -1))),
+    (128, 128, list(range(128))), (40, 5, [4, 0] * 20)])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_cuda_tenant_dense_tc_tenant_patterns(cuda, bsz, t, ids, ids_dtype):
+    x, w, ids = _dense_inputs(cuda, bsz, t, 1024, 512, seed=bsz + t, ids=ids)
+    ids = ids.to(ids_dtype)
+    got = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    want = tbg.tenant_dense_matmul_plain(x, w, ids)
+    torch.cuda.synchronize()
+    _dense_close(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,k,n", [(8, 4096, 32000), (8, 4096, 256),
+                                     (65, 14336, 512)])
+def test_cuda_tenant_dense_tc_is_deterministic(cuda, bsz, k, n):
+    # A narrow head splits K over a cluster, whose blocks add their
+    # partials in rank order: no atomics, so two calls are equal.
+    x, w, ids = _dense_inputs(cuda, bsz, 3, k, n, seed=k + n)
+    first = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    second = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _dense_close(first, tbg.tenant_dense_matmul_plain(x, w, ids))
+
+
+def _kernel_counts(events):
+    counts = {}
+    for evt in events:
+        if getattr(evt, "device_time_total",
+                   getattr(evt, "cuda_time_total", 0)) > 0:
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    return counts
+
+
+# A bf16 call launches the tensor-core kernel once for each 128 rows and
+# nothing else (no scratch, no split sum); fp32 and mixed pairs take the
+# CUDA-core kernel and its split sum.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz", [8, 129])
+def test_cuda_tenant_dense_launches_one_kernel(cuda, bsz):
+    x, w, ids = _dense_inputs(cuda, bsz, 3, 4096, 4096, seed=bsz)
+    tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    _, events = _trace(lambda: tbg.tenant_dense_matmul(
+        x, w, ids, out_dtype=torch.float32), want=("tenant_dense_tc_kernel",))
+    counts = _kernel_counts(events)
+    main = sum(c for nm, c in counts.items() if "tenant_dense_tc_kernel" in nm)
+    assert main == sum(counts.values()) == -(-bsz // 128), sorted(counts)
+    _, events = _trace(lambda: tbg.tenant_dense_matmul(
+        x, w.float(), ids, out_dtype=torch.float32),
+        want=("tenant_dense_kernel",))
+    keys = " ".join(_kernel_counts(events))
+    assert "tenant_dense_kernel" in keys and "sum_splits_kernel" in keys
+    assert "tenant_dense_tc_kernel" not in keys
+
+
+# The CUDA-core kernel: x and W each bf16, fp16 or fp32 (the TPU kernel
+# widens both to fp32), and a bf16 pair whose K or N is not a multiple of
+# 8. An fp32 head under a bf16 compute dtype is the model's case.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("x_dtype,w_dtype,k,n", [
+    (torch.bfloat16, torch.float32, 512, 1000),
+    (torch.float32, torch.bfloat16, 512, 1000),
+    (torch.float16, torch.float32, 512, 1000),
+    (torch.bfloat16, torch.float16, 512, 1000),
+    (torch.float16, torch.float16, 512, 1000),
+    (torch.float32, torch.float32, 512, 1000),
+    (torch.bfloat16, torch.bfloat16, 512, 1001),
+    (torch.bfloat16, torch.bfloat16, 515, 1000),
+    (torch.bfloat16, torch.float32, 4096, 32000)])
+def test_cuda_tenant_dense_core_takes_every_dtype_pair(cuda, x_dtype,
+                                                       w_dtype, k, n):
+    x, w, ids = _dense_inputs(cuda, 8, 3, k, n, seed=k + n, x_dtype=x_dtype,
+                              w_dtype=w_dtype)
+    got = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    want = tbg.tenant_dense_matmul_plain(x, w, ids)
+    torch.cuda.synchronize()
+    _dense_close(got, want)
+    _, events = _trace(lambda: tbg.tenant_dense_matmul(
+        x, w, ids, out_dtype=torch.float32), want=("tenant_dense_kernel",))
+    keys = " ".join(_kernel_counts(events))
+    assert "tenant_dense_kernel" in keys and "tenant_dense_tc_kernel" \
+        not in keys
+
+
+# The smallest input the card once refused: x bf16 (1, 8), W fp32.
+@pytest.mark.requires_cuda
+def test_cuda_tenant_dense_smallest_mixed_input(cuda):
+    x, w, ids = _dense_inputs(cuda, 1, 1, 8, 8, seed=0, w_dtype=torch.float32)
+    got = tbg.tenant_dense_matmul(x, w, ids)
+    assert got.dtype == torch.bfloat16
+    want = tbg.tenant_dense_matmul_plain(x, w, ids)
+    torch.cuda.synchronize()
+    _dense_close(tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32),
+                 want)
+
+
 # Rows 5 and 6: M from one row to the training batch; (K, N) a ragged
 # N = 200 (not a multiple of 16), k/v (split reduction) and down_proj.
 BINARY_M = (1, 130, 512)
