@@ -8,7 +8,7 @@
 //   bd_tenant_dense    <- the same, any other dtypes, K or N
 //   bd_binary_matmul   <- ::binary_matmul_pallas
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
-//   bd_tenant_delta    <- ::tenant_delta_matmul_pallas
+//   bd_canon_delta     <- ::tenant_delta_matmul_pallas
 //   bd_fused_tenant    <- ::fused_tenant_matmul_pallas
 //   bd_fused_base_pair_tc <- ::fused_base_pair_matmul_pallas (bf16)
 //   bd_fused_base_pair    <- the same, fp32 x and W
@@ -1402,130 +1402,779 @@ extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
 // ---------------------------------------------------------------------------
 // 7. Canonical-layout tenant delta at decode:
 //    Y[b, n] = scale[ids[b]] * (2 * sum_k bit[k, n] * xq[b, k] - sum_k xq[b, k])
-//              * xscale,
-//    P[ids[b]] (K/32, N) int32 LSB-first along K, xq the 14-bit symmetric
-//    grid of the whole (B, K) input (one xscale), quantized in plain torch
-//    by the wrapper as JAX quantizes it in XLA.
+//              * xscale
+//    <- bitdelta_tpu/ops/pallas_binary_gemm.py:254 tenant_delta_matmul_pallas.
+//    P[ids[b]] (K/32, N) int32, LSB first along K; xq = rint(x / xscale) on
+//    ONE grid for the whole (B, K) input, xscale = max(max|x|, 1e-30) / 2^14,
+//    so |xq| <= 2^14.
 //
-// Rows are routed to different (tenant, expert) matrices, so each row
-// streams its own matrix's words; no row reads another row's words. Bound
-// on the H100: at 8-16 decode rows each word has one use, so the integer
-// operations (32 shift/and/multiply-adds a word), not the words' bytes,
-// bound this first version. Design:
-//   * one block per (64-column tile, row); CT_KS thread rows split the
-//     K/32 words of each column and reduce through shared memory;
-//   * the row's xq (|xq| <= 2^14, int16) goes through shared memory in
-//     chunks of up to CT_KCHUNK values (32 KB; the shared memory is one
-//     chunk, or the row where it is shorter), each read as a broadcast, eight
-//     values per 16-byte load; the words are read coalesced along N; so
-//     any K that is a multiple of 32 is taken;
-//   * the sum of bit * xq over a chunk is exact in int32 (a thread's
-//     share is at most CT_KCHUNK * 2^14 = 2^28 in magnitude); past one
-//     chunk the chunks and the thread rows are added in int64, and
-//     2 * S - sum(xq) always is, with sxq summed in int64 by the
-//     wrapper; the epilogue converts once and applies
-//     the tenant scale and xscale with explicit round-to-nearest
-//     products, so it agrees with the plain version bit for bit.
+// Bound on the H100: the words of the distinct matrices the ids touch (1 bit
+// a weight) against 3.35 TB/s; a Mixtral-8x7B decode layer's seven call
+// sites read about 234 MB of them (0.07 ms). A call is two launches (one
+// more for each further CANON_SLAB rows) and nothing else, and the sums are
+// exact integers:
+//
+// canon_prep_kernel, ONE cluster of CANON_PREP_BLOCKS blocks over the whole
+// input: the grid is global, so no row can be quantized before the max over
+// all of them, which the blocks meet through distributed shared memory.
+// Each warp takes a range of (row, 256-K chunk) items. Pass 1: max |x| in
+// fp32 (a warp's first CANON_PREP_CACHE items stay in registers). Then
+// xscale = max(xmax, 1e-30) / 2^14 and xq = rint(x / xscale), both by
+// IEEE division, round half to even (bit for bit what _canonical_quantize
+// computes). Pass 2 writes xq as 16 two's-complement bit planes: two 32-K
+// groups at a time, each lane's pair of 16-bit xq goes through one 32 x 32
+// bit transpose across the warp (five shuffle stages), after which lane l
+// holds plane l % 16 of one of the groups (about a third of the
+// instructions of one ballot a plane and group, and measured faster).
+// A chunk's 128 plane words are plane-major, and within plane p the words
+// of 32-K groups t and t + 4 sit side by side (group j at word 8p + 2 (j
+// % 4) + j / 4), so the main kernel's lane t reads its b0 and b1 of a plane
+// in one 8-byte load. Each warp adds its rows' sums of xq to the row's
+// owner block by distributed shared-memory atomics (int64, exact in any
+// order); the owners write sxq, block 0 xscale. The cluster has 16 blocks
+// (non-portable; the prep ran longer with 8, sweep_canonical_delta.py).
+// The prep
+// launches the main kernel as its programmatic dependent (griddepcontrol),
+// so the main kernel's bookkeeping and first word copies overlap it.
+//
+// canon_delta_tc_kernel, on the 1-bit MMA (m16n8k256 .and.popc). In the
+// canonical layout a word holds 32 consecutive K of one column, LSB first,
+// which is what lane (g, t) of the A fragment holds: for 256-K chunk c and
+// an m-tile whose rows g, g + 8 are columns c_g, c_g8, a0 = P[8c + t][c_g],
+// a1 = P[8c + t][c_g8], a2 / a3 the same at word row 8c + 4 + t; no
+// permutes. B holds the planes of one row: n8 tile h, column n is plane 8h
+// + n, so a row costs two MMAs a 16 x 256 tile and a unit of rows needs no
+// masks. Lane (g, t)'s accumulators of tile h hold planes 8h + 2t and 8h +
+// 2t + 1; S = sum_p w_p D_p (w_p = 2^p, w_15 = -2^15) is formed in int64
+// after the loop and added across the quad by shuffles.
+//
+// A block owns CANON_BN columns (MT m-tiles a warp: m-tile mt's row g is
+// the warp's column MT*g + mt, row g + 8 its column 8MT + MT*g + mt, so a
+// lane's words of the MT m-tiles are adjacent), one of n_split K
+// ranges of whole chunks, and a unit: the slab's d-th distinct id (by first
+// occurrence) and its q-th group of up to 4 or 8 rows, so each
+// distinct matrix's words are read once per group of rows. A CANON_STAGES
+// deep cp.async ring brings each stage's words (16-byte copies where N % 4
+// == 0, else 4-byte ones; zeros past K and N) and the unit's planes into
+// shared memory; a word row is padded to 544 bytes (32 mod 128), so the
+// four lanes t reading word rows 8c + t hit distinct banks. The K splits
+// of a (tile, unit) form one cluster: each block leaves its int64 sums in
+// shared memory, and after a cluster barrier block q adds every block's
+// sums in rank order for its CANON_BN / n_split columns and runs y =
+// (alpha * float(2 S - sxq)) * xscale with round-to-nearest ops, the plain
+// version's order. No global atomics, no zeroed scratch.
+// tests/test_torch_canonical_numerics.py models the fragments, the prep and
+// the arithmetic on the CPU.
 // ---------------------------------------------------------------------------
 
-constexpr int CT_TX = 64;          // columns per block
-constexpr int CT_KS = 4;           // thread rows splitting the K words
-constexpr int CT_KCHUNK = 16384;   // xq values staged at a time
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ int lo16(uint32_t v) {
-  return static_cast<int>(static_cast<short>(v & 0xFFFFu));
+constexpr int CANON_PLANES = 16;            // two's-complement planes of xq
+constexpr int CANON_CHUNK = 256;            // K of one 1-bit MMA
+constexpr int CANON_XCHUNK = CANON_PLANES * 32;   // plane bytes a row, chunk
+constexpr int CANON_PREP_BLOCKS = 16;       // the prep's one cluster
+constexpr int CANON_PREP_THREADS = 512;
+constexpr int CANON_PREP_CACHE = 4;         // a warp's items in registers
+constexpr int CANON_PREP_SMEM = 200 * 1024; // row sums: bsz <= 16 * 25600
+constexpr int CANON_BN = 128;               // output columns a block
+constexpr int CANON_KC = 2;                 // chunks a ring stage
+constexpr int CANON_STAGES = 4;             // stages in the cp.async ring
+constexpr int CANON_WROW = CANON_BN * 4 + 32;     // a shared word row
+constexpr int CANON_WCHUNK = 8 * CANON_WROW;      // a chunk's 8 word rows
+constexpr int CANON_XSLOT = CANON_KC * CANON_XCHUNK;  // a row slot's planes
+constexpr int CANON_SLAB = 64;              // rows a main-kernel launch takes
+constexpr int CANON_MAX_SPLITS = 8;         // a portable cluster
+constexpr int CANON_BLOCKS_PER_SM = 1;      // live blocks the K split aims at
+static_assert(CANON_WROW % 128 == 32, "word rows 8c + t in distinct banks");
+static_assert(128 >= CANON_SLAB, "a block's threads cover a slab's ids");
+
+template <int MT>
+__host__ __device__ constexpr int canon_threads() {
+  return 256 / MT;                             // 8 / MT warps
 }
-__device__ __forceinline__ int hi16(uint32_t v) {
-  return static_cast<int>(v) >> 16;
+
+// A ring stage: the words of CANON_KC chunks, then ROWS row slots of
+// their bit planes.
+template <int ROWS>
+__host__ __device__ constexpr int canon_stage_bytes() {
+  return CANON_KC * CANON_WCHUNK + ROWS * CANON_XSLOT;
 }
 
-// CHUNKED: K > CT_KCHUNK, the row staged a chunk at a time and the sums
-// added in int64; otherwise the whole row at once, the sums in int32
-// (|S| <= CT_KCHUNK * 2^14 = 2^28), with fewer registers.
-template <bool CHUNKED>
-__global__ void tenant_delta_kernel(const short* __restrict__ xq,
-                                    const uint32_t* __restrict__ packed,
-                                    const int* __restrict__ ids,
-                                    const float* __restrict__ scales,
-                                    const float* __restrict__ xscale,
-                                    const long long* __restrict__ sxq,
-                                    float* __restrict__ out,
-                                    int k32, int n) {
-  using Sum = typename std::conditional<CHUNKED, long long, int>::type;
-  extern __shared__ uint4 xs4[];                 // a chunk of int16 xq
-  __shared__ Sum red[CT_KS][CT_TX];
+template <typename T> __device__ __forceinline__ float x_f32(T v) {
+  return to_f32(v);
+}
+template <> __device__ __forceinline__ float x_f32<double>(double v) {
+  return __double2float_rn(v);               // x.to(float32)
+}
 
-  const int b = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * CT_TX + tx;
-  const int tid = ty * CT_TX + tx;
+// The 8 values of item (row r, chunk c) this lane takes (K 256c + 32j +
+// lane), zero past k.
+template <typename T>
+__device__ __forceinline__ void canon_load_item(const T* __restrict__ x,
+                                                long long s0, long long s1,
+                                                int r, int c, int k, int lane,
+                                                float (&v)[8]) {
+  const T* xr = x + r * s0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int kk = CANON_CHUNK * c + 32 * j + lane;
+    v[j] = kk < k ? x_f32(xr[kk * s1]) : 0.0f;
+  }
+}
 
-  // K is a multiple of 32, so the row and each chunk are whole uint4s.
-  const uint4* src = reinterpret_cast<const uint4*>(xq + (size_t)b * k32 * 32);
-  const uint32_t* p = packed + (size_t)ids[b] * k32 * n;
-  constexpr int STEP = CHUNKED ? CT_KCHUNK / 32 : 1 << 30;
-  Sum acc = 0;
-  for (int w0 = 0; w0 < k32; w0 += STEP) {
-    const int nw = CHUNKED ? min(STEP, k32 - w0) : k32;
-    if (CHUNKED) __syncthreads();                // the last chunk is read
-    for (int i = tid; i < nw * 4; i += CT_TX * CT_KS)
-      xs4[i] = src[(size_t)w0 * 4 + i];
-    __syncthreads();
-    int part = 0;
-    if (j < n) {
-      for (int kw = ty; kw < nw; kw += CT_KS) {
-        const uint32_t w = p[(size_t)(w0 + kw) * n + j];
-        const uint4* xk = xs4 + kw * 4;
+// sum over the warp, every lane holding it.
+__device__ __forceinline__ long long warp_sum64(long long v) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint4 v = xk[q];
-          const uint32_t parts[4] = {v.x, v.y, v.z, v.w};
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Row r's sum of xq so far (every lane's share) to its slot in block r %
+// CANON_PREP_BLOCKS's shared memory.
+__device__ __forceinline__ void canon_flush_row(cg::cluster_group& cluster,
+                                                long long* rsum, int r,
+                                                long long acc, int lane) {
+  acc = warp_sum64(acc);
+  if (lane == 0)
+    atomicAdd(reinterpret_cast<unsigned long long*>(cluster.map_shared_rank(
+                  rsum + r / CANON_PREP_BLOCKS, r % CANON_PREP_BLOCKS)),
+              static_cast<unsigned long long>(acc));
+}
+
+// A 32 x 32 bit transpose across the warp: lane i holds row i (bit j is
+// M[i][j]); after it lane i holds column i (bit j is M[j][i]). Five
+// butterfly stages, each swapping the off-diagonal s x s blocks with lane
+// i ^ s.
+__device__ __forceinline__ uint32_t warp_transpose32(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                             0x33333333u, 0x55555555u};
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            const int s = q * 8 + h * 2;
-            part += static_cast<int>((w >> s) & 1u) * lo16(parts[h]);
-            part += static_cast<int>((w >> (s + 1)) & 1u) * hi16(parts[h]);
-          }
+  for (int i = 0; i < 5; ++i) {
+    const int s = 16 >> i;
+    const uint32_t m = masks[i];
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = (lane & s) ? (x & ~m) | ((y >> s) & m) : (x & m) | ((y << s) & ~m);
+  }
+  return x;
+}
+
+// Item (r, c)'s bit planes from this lane's 8 values (K 256c + 32j +
+// lane): xq = rint(v / xscale). Groups 2m and 2m + 1 go through one warp
+// transpose as the low and high 16 bits of each lane's word, so lane l
+// ends with plane l % 16 of group 2m + l / 16; it stores the words of its
+// four groups as two 8-byte pairs (group j's word of plane p is word 8p +
+// 2(j % 4) + j / 4). Adds the lane's xq to acc, flushing the row before
+// when the warp moves to a new row.
+__device__ __forceinline__ void canon_plane_item(
+    cg::cluster_group& cluster, const float (&v)[8], int r, int c, int k,
+    int n_chunks, float xscale, uint32_t* __restrict__ planes,
+    long long* rsum, int& cur, long long& acc, int lane) {
+  if (r != cur) {
+    if (cur >= 0) canon_flush_row(cluster, rsum, cur, acc, lane);
+    cur = r;
+    acc = 0;
+  }
+  int q[8];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    q[j] = CANON_CHUNK * c + 32 * j + lane < k
+               ? __float2int_rn(__fdiv_rn(v[j], xscale)) : 0;
+    sum += q[j];
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    w[m] = warp_transpose32((static_cast<uint32_t>(q[2 * m]) & 0xFFFFu)
+                                | (static_cast<uint32_t>(q[2 * m + 1]) << 16),
+                            lane);
+  uint2* dst = reinterpret_cast<uint2*>(
+      planes + ((size_t)r * n_chunks + c) * (CANON_XCHUNK / 4)
+      + 8 * (lane % 16) + 2 * (lane / 16));
+  dst[0] = make_uint2(w[0], w[2]);             // groups l / 16, 4 + l / 16
+  dst[2] = make_uint2(w[1], w[3]);             // groups 2 + .., 6 + ..
+  acc += sum;
+}
+
+// The whole input's grid, bit planes and row sums, by one cluster. The
+// launch is the cluster (gridDim.x == CANON_PREP_BLOCKS). Each warp takes
+// a range of (row, chunk) items; the values of its first CANON_PREP_CACHE
+// items, all loaded at once, stay in registers for the second pass.
+template <typename T>
+__global__ void __launch_bounds__(CANON_PREP_THREADS)
+canon_prep_kernel(const T* __restrict__ x, long long s0, long long s1,
+                  uint32_t* __restrict__ planes, long long* __restrict__ sxq,
+                  float* __restrict__ xscale_out, int bsz, int k,
+                  int n_chunks) {
+  constexpr int NW = CANON_PREP_THREADS / 32;
+  constexpr int CP = CANON_PREP_BLOCKS;
+  constexpr int CACHE = CANON_PREP_CACHE;
+  extern __shared__ long long rsum[];        // row r's sum: rank r % CP
+  __shared__ float red[NW];
+  __shared__ float blk_max;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rank = blockIdx.x;
+  const long long items = (long long)bsz * n_chunks;
+  const long long gw = (long long)rank * NW + warp;
+  const long long i0 = gw * items / (CP * NW);
+  const int n_items = (int)((gw + 1) * items / (CP * NW) - i0);
+  const int r0 = (int)(i0 / n_chunks), c0 = (int)(i0 % n_chunks);
+  const int owned = (bsz + CP - 1) / CP;
+  for (int i = tid; i < owned; i += CANON_PREP_THREADS) rsum[i] = 0;
+
+  // Pass 1: max |x| (each value once).
+  float v[CACHE][8];
+  int r = r0, c = c0;
+#pragma unroll
+  for (int u = 0; u < CACHE; ++u) {
+    if (u < n_items) {
+      canon_load_item(x, s0, s1, r, c, k, lane, v[u]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[u][j] = 0.0f;
+    }
+    if (++c == n_chunks) c = 0, ++r;
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int u = 0; u < CACHE; ++u)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[u][j]));
+  for (int it = CACHE; it < n_items; ++it) {
+    float w[8];
+    canon_load_item(x, s0, s1, r, c, k, lane, w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(w[j]));
+    if (++c == n_chunks) c = 0, ++r;
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
+    blk_max = m;
+  }
+  cluster.sync();                      // every block's max and zeroed sums
+  float xmax = 0.0f;
+#pragma unroll
+  for (int b = 0; b < CP; ++b)
+    xmax = fmaxf(xmax, *cluster.map_shared_rank(&blk_max, b));
+  xmax = fmaxf(xmax, 1e-30f);                      // clamp(min=1e-30)
+  const float xscale = __fdiv_rn(xmax, 16384.0f);  // / 2^14
+
+  // Pass 2: the planes, a chunk a warp at a time, and the row sums.
+  long long acc = 0;
+  int cur = -1;
+  r = r0;
+  c = c0;
+#pragma unroll
+  for (int u = 0; u < CACHE; ++u) {
+    if (u < n_items)
+      canon_plane_item(cluster, v[u], r, c, k, n_chunks, xscale, planes,
+                       rsum, cur, acc, lane);
+    if (++c == n_chunks) c = 0, ++r;
+  }
+  for (int it = CACHE; it < n_items; ++it) {
+    float w[8];
+    canon_load_item(x, s0, s1, r, c, k, lane, w);
+    canon_plane_item(cluster, w, r, c, k, n_chunks, xscale, planes, rsum,
+                     cur, acc, lane);
+    if (++c == n_chunks) c = 0, ++r;
+  }
+  if (cur >= 0) canon_flush_row(cluster, rsum, cur, acc, lane);
+  cluster.sync();                      // every row sum has landed
+  for (int i = tid; i < owned; i += CANON_PREP_THREADS) {
+    const int row = i * CP + rank;
+    if (row < bsz) sxq[row] = rsum[i];
+  }
+  if (rank == 0 && tid == 0) *xscale_out = xscale;
+}
+
+template <typename T>
+static cudaError_t launch_canon_prep(const void* x, long long s0,
+                                     long long s1, uint8_t* planes,
+                                     long long* sxq, float* xscale, int bsz,
+                                     int k, int n_chunks, int dev,
+                                     cudaStream_t s) {
+  static std::atomic<unsigned long long> limit_set{0};
+  const int smem = ((bsz + CANON_PREP_BLOCKS - 1) / CANON_PREP_BLOCKS) * 8;
+  if (smem > CANON_PREP_SMEM) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = smem_limit_once(
+        (const void*)canon_prep_kernel<T>, CANON_PREP_SMEM, dev, limit_set);
+    if (err != cudaSuccess) return err;
+  }
+  if constexpr (CANON_PREP_BLOCKS > 8) {       // a non-portable cluster
+    const cudaError_t err = cudaFuncSetAttribute(
+        canon_prep_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CANON_PREP_BLOCKS);
+  cfg.blockDim = dim3(CANON_PREP_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CANON_PREP_BLOCKS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, canon_prep_kernel<T>, static_cast<const T*>(x), s0, s1,
+      reinterpret_cast<uint32_t*>(planes), sxq, xscale, bsz, k, n_chunks);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Copy the words of chunks ch .. ch + nch - 1 of the block's columns into a
+// ring stage; word rows past k32 and columns past n are zero.
+__device__ __forceinline__ void canon_load_words(
+    uint8_t* st, const uint32_t* __restrict__ words, int ch, int nch,
+    int k32, int n, int col0, bool vec, int tid, int threads) {
+  if (vec) {                                   // n % 4 == 0, aligned
+    constexpr int WCH = CANON_BN / 4;          // 16-byte copies a word row
+    for (int i = tid; i < 8 * nch * WCH; i += threads) {
+      const int r = i / WCH, c = i % WCH;
+      const int kw = 8 * ch + r, col = col0 + 4 * c;
+      const bool ok = kw < k32 && col < n;
+      cp_async16(st + r * CANON_WROW + 16 * c,
+                 words + (ok ? (size_t)kw * n + col : 0), ok);
+    }
+  } else {
+    for (int i = tid; i < 8 * nch * CANON_BN; i += threads) {
+      const int r = i / CANON_BN, c = i % CANON_BN;
+      const int kw = 8 * ch + r, col = col0 + c;
+      const bool ok = kw < k32 && col < n;
+      cp_async4(st + r * CANON_WROW + 4 * c,
+                words + (ok ? (size_t)kw * n + col : 0), ok);
+    }
+  }
+}
+
+// Copy the planes of the same chunks for the first `slots` row slots
+// (slot i holds row rows[i]; slots past n_rows are zero) into the stage.
+__device__ __forceinline__ void canon_load_x(
+    uint8_t* st, const uint8_t* __restrict__ planes, const int* rows,
+    int slots, int n_rows, int ch, int nch, int n_chunks, int tid,
+    int threads) {
+  uint8_t* xs = st + CANON_KC * CANON_WCHUNK;
+  const int xch = nch * CANON_XCHUNK / 16;     // 16-byte copies a slot
+  for (int i = tid; i < slots * xch; i += threads) {
+    const int r = i / xch, c = i % xch;
+    const bool ok = r < n_rows;
+    cp_async16(xs + r * CANON_XSLOT + 16 * c,
+               planes + (ok ? ((size_t)rows[r] * n_chunks + ch)
+                              * CANON_XCHUNK + 16 * c : 0),
+               ok);
+  }
+}
+
+// The ring over the block's chunks with NR row slots in use, then the
+// warp's int64 sums into part[i * CANON_BN + column] (row slot i).
+template <int MT, int ROWS, int NR>
+__device__ __forceinline__ void canon_block_sums(
+    uint8_t* smem, const uint8_t* __restrict__ planes,
+    const uint32_t* __restrict__ words, const int* rows, int n_rows,
+    int ch0, int ch1, int n_chunks, int k32, int n, int col0, bool vec) {
+  constexpr int THREADS = canon_threads<MT>();
+  constexpr int STAGE = canon_stage_bytes<ROWS>();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wcol = warp * 16 * MT;             // the warp's first column
+  const uint32_t smem_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n_st = (ch1 - ch0 + CANON_KC - 1) / CANON_KC;
+
+  int acc[MT][NR][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][i][h][e] = 0;
+
+  for (int s = 0; s < n_st; ++s) {
+    cp_async_wait<CANON_STAGES - 2>();         // stage s has landed
+    __syncthreads();                           // and stage s - 1 is read
+    {
+      const int nx = s + CANON_STAGES - 1;
+      if (nx < n_st) {
+        const int ch = ch0 + nx * CANON_KC;
+        const int nch = min(CANON_KC, ch1 - ch);
+        uint8_t* st = smem + (nx % CANON_STAGES) * STAGE;
+        canon_load_words(st, words, ch, nch, k32, n, col0, vec, tid,
+                         THREADS);
+        canon_load_x(st, planes, rows, NR, n_rows, ch, nch, n_chunks, tid,
+                     THREADS);
+      }
+      cp_async_commit();
+    }
+    const uint32_t st = smem_s + (s % CANON_STAGES) * STAGE;
+    const int nch = min(CANON_KC, ch1 - (ch0 + s * CANON_KC));
+#pragma unroll
+    for (int cc = 0; cc < CANON_KC; ++cc) {
+      if (cc >= nch) break;
+      // Word rows 8cc + t (a0, a1) and 8cc + 4 + t (a2, a3): columns MT*g
+      // + mt (rows g) and 8MT + MT*g + mt (rows g + 8) of the warp's.
+      const uint32_t wa = st + (cc * 8 + tq) * CANON_WROW
+                          + 4 * (wcol + MT * g);
+      uint32_t w[4][MT];
+      lds_words<MT>(w[0], wa);
+      lds_words<MT>(w[1], wa + 32 * MT);
+      lds_words<MT>(w[2], wa + 4 * CANON_WROW);
+      lds_words<MT>(w[3], wa + 4 * CANON_WROW + 32 * MT);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = w[0][mt];
+        a[mt][1] = w[1][mt];
+        a[mt][2] = w[2][mt];
+        a[mt][3] = w[3][mt];
+      }
+      // B of tile h, lane g: plane 8h + g of groups t (b0), t + 4 (b1),
+      // words 8(8h + g) + 2t and + 1 of the slot's chunk.
+      const uint32_t xb = st + CANON_KC * CANON_WCHUNK + cc * CANON_XCHUNK
+                          + 32 * g + 8 * tq;
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 b = lds64(xb + i * CANON_XSLOT + 256 * h);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            bmma_16_8_256(acc[mt][i][h], a[mt], b.x, b.y);
         }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the ring is free
+
+  long long* part = reinterpret_cast<long long*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int c_lo = wcol + MT * g + mt, c_hi = c_lo + 8 * MT;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      if (i >= n_rows) break;                  // uniform over the block
+      long long lo = 0, hi = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = 8 * h + 2 * tq + e;
+          const long long wp = p == CANON_PLANES - 1 ? -(1LL << p)
+                                                     : (1LL << p);
+          lo += wp * acc[mt][i][h][e];
+          hi += wp * acc[mt][i][h][2 + e];
+        }
+      lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+      lo += __shfl_xor_sync(0xffffffffu, lo, 2);
+      hi += __shfl_xor_sync(0xffffffffu, hi, 1);
+      hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+      if (tq == 0) {
+        part[i * CANON_BN + c_lo] = lo;
+        part[i * CANON_BN + c_hi] = hi;
       }
     }
-    acc += part;
   }
-  red[ty][tx] = acc;
-  __syncthreads();
-  if (ty != 0 || j >= n) return;
-  long long s = 0;
-#pragma unroll
-  for (int i = 0; i < CT_KS; ++i) s += red[i][tx];
-  const long long d = 2LL * s - sxq[b];
-  const float alpha = scales[ids[b]];
-  out[(size_t)b * n + j] =
-      __fmul_rn(__fmul_rn(alpha, __ll2float_rn(d)), xscale[0]);
 }
 
-// sxq: (bsz,) int64, the sum of each row's xq.
-extern "C" int bd_tenant_delta(const void* xq, const void* packed,
-                               const void* ids, const void* scales,
-                               const void* xscale, const void* sxq, void* out,
-                               int bsz, int k32, int n, void* stream) {
-  dim3 grid((n + CT_TX - 1) / CT_TX, bsz);
-  dim3 block(CT_TX, CT_KS);
-  // Shared memory for one chunk, or the whole row where it is shorter
-  // (at most 32 KB: no attribute to set).
-  const int staged = k32 * 32 < CT_KCHUNK ? k32 * 32 : CT_KCHUNK;
-  const size_t smem = (size_t)staged * sizeof(short);
+// canon_block_sums with NR the least power of two >= n_rows (slots past
+// the block's rows hold zeros).
+template <int MT, int ROWS, int NR = 1>
+__device__ __forceinline__ void canon_block_dispatch(
+    uint8_t* smem, const uint8_t* __restrict__ planes,
+    const uint32_t* __restrict__ words, const int* rows, int n_rows,
+    int ch0, int ch1, int n_chunks, int k32, int n, int col0, bool vec) {
+  if constexpr (NR < ROWS) {
+    if (n_rows > NR) {
+      canon_block_dispatch<MT, ROWS, 2 * NR>(smem, planes, words, rows,
+                                             n_rows, ch0, ch1, n_chunks, k32,
+                                             n, col0, vec);
+      return;
+    }
+  }
+  canon_block_sums<MT, ROWS, NR>(smem, planes, words, rows, n_rows, ch0, ch1,
+                                 n_chunks, k32, n, col0, vec);
+}
+
+// Block (tile, split, unit): the units of the slab's distinct ids (in
+// order of first occurrence), each id's rows in groups of ROWS. MT = 2:
+// 4 warps, 4 rows (4 blocks an SM); MT = 1: 8 warps, 4 rows (3 blocks an
+// SM) or 8 rows (2 blocks an SM, by registers).
+template <int MT, int ROWS>
+__global__ void __launch_bounds__(256 / MT,
+                                  MT == 2 ? 4 : (ROWS == 4 ? 3 : 2))
+canon_delta_tc_kernel(const uint8_t* __restrict__ planes,
+                      const long long* __restrict__ sxq,
+                      const float* __restrict__ xscale,
+                      const uint32_t* __restrict__ packed,
+                      const void* __restrict__ ids, int ids64,
+                      const float* __restrict__ scales,
+                      float* __restrict__ out, int row0, int slab, int k,
+                      int n, int vec) {
+  namespace cg = cooperative_groups;
+  constexpr int THREADS = canon_threads<MT>();
+  constexpr int STAGE = canon_stage_bytes<ROWS>();
+  extern __shared__ __align__(16) uint8_t smem_canon[];
+  __shared__ int sid[CANON_SLAB], did[CANON_SLAB], dunits[CANON_SLAB];
+  __shared__ int rows[ROWS];
+  __shared__ unsigned mask[CANON_SLAB / 32];
+  __shared__ long long ssxq[ROWS];
+  __shared__ float s_xscale, s_alpha;
+  __shared__ int s_id, s_q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int k32 = k / 32;
+  const int n_chunks = (k + CANON_CHUNK - 1) / CANON_CHUNK;
+  const int slice = CANON_BN / n_split;        // this block's outputs
+  const int c0 = split * slice;
+  const int col0 = tile * CANON_BN;
+
+  // The block's unit: units run over the slab's distinct ids in order of
+  // first occurrence, ceil(rows / ROWS) units each, and unit blockIdx.z
+  // is group q of the d-th distinct id (rows[] holds its rows as rows of
+  // the batch).
+  if (tid < slab) sid[tid] = load_id(ids, ids64, row0 + tid);
+  __syncthreads();
+  bool first = tid < slab;
+  for (int j = 0; first && j < tid; ++j) first = sid[j] != sid[tid];
+  if (warp < CANON_SLAB / 32) {
+    const unsigned m = __ballot_sync(0xffffffffu, first);
+    if (lane == 0) mask[warp] = m;
+  }
+  __syncthreads();
+  if (first) {
+    int rank = __popc(mask[warp] & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += __popc(mask[w]);
+    int count = 0;
+    for (int j = 0; j < slab; ++j) count += sid[j] == sid[tid];
+    did[rank] = sid[tid];
+    dunits[rank] = (count + ROWS - 1) / ROWS;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int distinct = 0;
+#pragma unroll
+    for (int w = 0; w < CANON_SLAB / 32; ++w) distinct += __popc(mask[w]);
+    int u = blockIdx.z, d = 0;
+    while (d < distinct && u >= dunits[d]) u -= dunits[d++];
+    s_id = d < distinct ? did[d] : -1;
+    s_q = u;
+  }
+  __syncthreads();
+  const int t = s_id, q = s_q;
+  if (t < 0) return;                           // the whole cluster
+  const bool mine = tid < slab && sid[tid] == t;
+  if (warp < CANON_SLAB / 32) {
+    const unsigned m = __ballot_sync(0xffffffffu, mine);
+    if (lane == 0) mask[warp] = m;
+  }
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < CANON_SLAB / 32; ++w) count += __popc(mask[w]);
+  const int n_rows = min(ROWS, count - q * ROWS);  // >= 1
+  if (mine) {
+    int rank = __popc(mask[warp] & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) rank += __popc(mask[w]);
+    rank -= q * ROWS;
+    if (rank >= 0 && rank < ROWS) rows[rank] = row0 + tid;
+  }
+  if (tid == 0) s_alpha = scales[t];
+
+  // The words need nothing of the prep: their first stages go out before
+  // the wait for its grid; the planes, sxq and xscale after it.
+  const int ch0 = (int)((long long)split * n_chunks / n_split);
+  const int ch1 = (int)((long long)(split + 1) * n_chunks / n_split);
+  const int n_st = (ch1 - ch0 + CANON_KC - 1) / CANON_KC;
+  const uint32_t* words = packed + (size_t)t * k32 * n;
+#pragma unroll
+  for (int s = 0; s < CANON_STAGES - 1; ++s)
+    if (s < n_st) {
+      const int ch = ch0 + s * CANON_KC;
+      canon_load_words(smem_canon + s * STAGE, words, ch,
+                       min(CANON_KC, ch1 - ch), k32, n, col0, vec, tid,
+                       THREADS);
+    }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();                             // rows are set
+  if (tid < n_rows) ssxq[tid] = sxq[rows[tid]];
+  if (tid == 0) s_xscale = *xscale;
+  // The dispatch's slot count: n_rows rounded up to a power of two.
+  const int slots = n_rows <= 1 ? 1 : n_rows <= 2 ? 2 : n_rows <= 4 ? 4 : 8;
+#pragma unroll
+  for (int s = 0; s < CANON_STAGES - 1; ++s) {
+    if (s < n_st) {
+      const int ch = ch0 + s * CANON_KC;
+      canon_load_x(smem_canon + s * STAGE, planes, rows, slots, n_rows, ch,
+                   min(CANON_KC, ch1 - ch), n_chunks, tid, THREADS);
+    }
+    cp_async_commit();                         // group 0 holds them all
+  }
+
+  canon_block_dispatch<MT, ROWS>(smem_canon, planes, words, rows, n_rows,
+                                 ch0, ch1, n_chunks, k32, n, col0, vec != 0);
+  long long* part = reinterpret_cast<long long*>(smem_canon);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const long long* remote[CANON_MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < CANON_MAX_SPLITS; ++r)
+    remote[r] = cluster.map_shared_rank(part, r < n_split ? r : 0);
+  const float alpha = s_alpha, xs = s_xscale;
+  for (int it = tid; it < n_rows * slice; it += THREADS) {
+    const int i = it / slice, c = it % slice;
+    long long v[CANON_MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < CANON_MAX_SPLITS; ++r)
+      v[r] = r < n_split ? remote[r][i * CANON_BN + c0 + c] : 0;
+    long long sum = 0;
+#pragma unroll
+    for (int r = 0; r < CANON_MAX_SPLITS; ++r) sum += v[r];
+    const int col = col0 + c0 + c;
+    if (col < n)
+      out[(size_t)rows[i] * n + col] = __fmul_rn(
+          __fmul_rn(alpha, __ll2float_rn(2 * sum - ssxq[i])), xs);
+  }
+  cluster.sync();                              // the sums stay until read
+}
+
+// K ranges a column tile (one cluster): the least power of two that gives
+// the card CANON_BLOCKS_PER_SM live blocks a multiprocessor, at most
+// CANON_MAX_SPLITS and the chunks.
+static int canon_splits(int live, int n_chunks, int sms) {
+  const int cap = n_chunks < CANON_MAX_SPLITS ? n_chunks : CANON_MAX_SPLITS;
+  int splits = 1;
+  while (splits * live < CANON_BLOCKS_PER_SM * sms && splits * 2 <= cap)
+    splits *= 2;
+  return splits;
+}
+
+// The main kernel over rows row0 .. row0 + slab - 1 (g matrices).
+template <int MT, int ROWS>
+static cudaError_t launch_canon_tc(const uint8_t* planes,
+                                   const long long* sxq, const float* xscale,
+                                   const void* packed, const void* ids,
+                                   int ids64, const void* scales, void* out,
+                                   int row0, int slab, int k, int n, int g,
+                                   int vec, int dev, int sms,
+                                   cudaStream_t s) {
+  static std::atomic<unsigned long long> limit_set{0};
+  constexpr int smem = canon_stage_bytes<ROWS>() * CANON_STAGES;
+  static_assert(smem >= ROWS * CANON_BN * 8,
+                "the sums of the block's rows fit in the ring");
+  cudaError_t err = smem_limit_once(
+      (const void*)canon_delta_tc_kernel<MT, ROWS>, smem, dev, limit_set);
+  if (err != cudaSuccess) return err;
+  // Units, at most: D distinct ids of c_d rows make sum ceil(c_d / R) <=
+  // D + (slab - D) / R units, which grows with D <= min(slab, g).
+  const int n_d = slab < g ? slab : g;
+  const int units = n_d + (slab - n_d) / ROWS;
+  const int tiles = (n + CANON_BN - 1) / CANON_BN;
+  const int n_split = canon_splits(units * tiles,
+                                   (k + CANON_CHUNK - 1) / CANON_CHUNK, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, n_split, units);
+  cfg.blockDim = dim3(canon_threads<MT>());
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, canon_delta_tc_kernel<MT, ROWS>, planes, sxq,
+                           xscale, (const uint32_t*)packed, ids, ids64,
+                           (const float*)scales, (float*)out, row0, slab, k,
+                           n, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Bytes of scratch a call takes (the wrapper allocates them): x's bit
+// planes (ceil(k / 256) * 512 a row), each row's int64 sum of xq, xscale.
+extern "C" long long bd_canon_delta_scratch_bytes(int bsz, int k) {
+  return (long long)bsz * ((k + CANON_CHUNK - 1) / CANON_CHUNK) * CANON_XCHUNK
+         + 8LL * bsz + 16;
+}
+
+// x (bsz, k) with element strides s0, s1 of type x_type (0 fp32, 1 bf16,
+// 2 fp16, 3 fp64); packed (g, k / 32, n) int32; scales (g,) fp32; ids
+// (bsz,) int32 or int64 (ids64); buf: bd_canon_delta_scratch_bytes(bsz, k)
+// bytes; out (bsz, n) fp32. The prep, then the main kernel once a slab of
+// CANON_SLAB rows: each slab after the first waits for the one before (a
+// programmatic dependent that nothing triggers early), so the prep has
+// ended before any slab reads.
+extern "C" int bd_canon_delta(const void* x, long long s0, long long s1,
+                              int x_type, const void* packed,
+                              const void* scales, const void* ids, int ids64,
+                              void* buf, void* out, int bsz, int k, int n,
+                              int g, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (k32 * 32 > CT_KCHUNK)
-    tenant_delta_kernel<true><<<grid, block, smem, s>>>(
-        (const short*)xq, (const uint32_t*)packed, (const int*)ids,
-        (const float*)scales, (const float*)xscale, (const long long*)sxq,
-        (float*)out, k32, n);
-  else
-    tenant_delta_kernel<false><<<grid, block, smem, s>>>(
-        (const short*)xq, (const uint32_t*)packed, (const int*)ids,
-        (const float*)scales, (const float*)xscale, (const long long*)sxq,
-        (float*)out, k32, n);
-  return (int)cudaGetLastError();
+  const int n_chunks = (k + CANON_CHUNK - 1) / CANON_CHUNK;
+  if (bsz < 1 || k < 32 || k % 32 != 0 || n < 1 || g < 1 || x_type < 0
+      || x_type > 3 || ((uintptr_t)buf % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  uint8_t* planes = static_cast<uint8_t*>(buf);
+  long long* sxq = reinterpret_cast<long long*>(
+      planes + (size_t)bsz * n_chunks * CANON_XCHUNK);
+  float* xscale = reinterpret_cast<float*>(sxq + bsz);
+  switch (x_type) {
+    case 0:
+      err = launch_canon_prep<float>(x, s0, s1, planes, sxq, xscale, bsz, k,
+                                     n_chunks, dev, s);
+      break;
+    case 1:
+      err = launch_canon_prep<__nv_bfloat16>(x, s0, s1, planes, sxq, xscale,
+                                             bsz, k, n_chunks, dev, s);
+      break;
+    case 2:
+      err = launch_canon_prep<__half>(x, s0, s1, planes, sxq, xscale, bsz, k,
+                                      n_chunks, dev, s);
+      break;
+    default:
+      err = launch_canon_prep<double>(x, s0, s1, planes, sxq, xscale, bsz,
+                                      k, n_chunks, dev, s);
+  }
+  const int vec = n % 4 == 0 && ((uintptr_t)packed % 16) == 0;
+  // Up to 16 rows (decode batches; Mixtral's routed rows at 8 slots) a
+  // block takes 4 rows of a matrix, with 4 warps at up to 4 rows; larger
+  // slabs 8 rows, so a matrix shared by many rows is read half as often.
+  for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += CANON_SLAB) {
+    const int slab = bsz - row0 < CANON_SLAB ? bsz - row0 : CANON_SLAB;
+    if (slab <= 4)
+      err = launch_canon_tc<2, 4>(planes, sxq, xscale, packed, ids, ids64,
+                                  scales, out, row0, slab, k, n, g, vec, dev,
+                                  sms, s);
+    else if (slab <= 16)
+      err = launch_canon_tc<1, 4>(planes, sxq, xscale, packed, ids, ids64,
+                                  scales, out, row0, slab, k, n, g, vec, dev,
+                                  sms, s);
+    else
+      err = launch_canon_tc<1, 8>(planes, sxq, xscale, packed, ids, ids64,
+                                  scales, out, row0, slab, k, n, g, vec, dev,
+                                  sms, s);
+  }
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------

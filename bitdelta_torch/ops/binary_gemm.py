@@ -216,10 +216,11 @@ def _canonical_quantize(x: torch.Tensor):
 
 
 def _canonical_kernel_input(x: torch.Tensor):
-    """What row 7's kernel reads of x: ``(xq (B, K) int16, sxq (B,)
-    int64, xscale 0-d fp32)`` from :func:`_canonical_quantize`. |xq| <=
-    2^14 fits int16; sxq is summed in int64, since at K >= 2^17 a row's
-    sum passes 2^31."""
+    """What row 7's prep kernel (``canon_prep_kernel``) writes for the main
+    kernel, in plain torch: ``(xq (B, K) int16, sxq (B,) int64, xscale 0-d
+    fp32)`` from :func:`_canonical_quantize`. |xq| <= 2^14 fits int16 (the
+    kernel keeps it as 16 two's-complement bit planes); sxq is summed in
+    int64, since at K >= 2^17 a row's sum passes 2^31."""
     xq, xscale = _canonical_quantize(x)
     return (xq.to(torch.int16), xq.sum(dim=1, dtype=torch.int64),
             xscale)
@@ -244,6 +245,20 @@ def tenant_delta_matmul_plain(x, packed_stack, scales, tenant_ids):
     return (alpha[:, None] * d) * xscale
 
 
+@functools.lru_cache(maxsize=256)
+def _canon_scratch_bytes(bsz: int, kdim: int) -> int:
+    """Scratch bytes of one canonical kernel call, as its library lays
+    them out (x's 16 bit planes, each row's int64 sum of xq, xscale)."""
+    fn = _build.library(_LIB).bd_canon_delta_scratch_bytes
+    fn.argtypes, fn.restype = [I, I], ctypes.c_longlong
+    return fn(bsz, kdim)
+
+
+# Element types of x that row 7's prep kernel reads (``bd_canon_delta``).
+_CANON_X_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                  torch.float64: 3}
+
+
 def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
                         scales: torch.Tensor, tenant_ids: torch.Tensor, *,
                         out_dtype=None) -> torch.Tensor:
@@ -252,7 +267,14 @@ def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
     x ``(B, K)``; packed_stack ``(G, K//32, N)``; scales ``(G,)``;
     tenant_ids ``(B,)`` in ``[0, G)`` (a tenant, or a flattened (tenant,
     expert) pair). Returns ``(B, N)`` in ``out_dtype`` (default x.dtype).
-    On a CUDA tensor it takes any K that is a multiple of 32."""
+
+    On a CUDA tensor it launches two kernels and nothing else: the x prep
+    (``canon_prep_kernel``: the global grid and xq's 16 bit planes) and the
+    1-bit tensor-core product with its epilogue (``canon_delta_tc_kernel``,
+    once for each 64 rows). It takes any B rows (up to 409600) of fp32,
+    bf16, fp16 or fp64 x (any strides), any G, K a multiple of 32, any N,
+    contiguous int32 words, contiguous fp32 scales, int32 or int64 ids, and
+    raises on anything else."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     g, k32, n = packed_stack.shape
@@ -263,16 +285,32 @@ def tenant_delta_matmul(x: torch.Tensor, packed_stack: torch.Tensor,
     if not x.is_cuda:
         return tenant_delta_matmul_plain(x, packed_stack, scales,
                                          tenant_ids).to(out_dtype)
-    xq16, sxq, xscale = _canonical_kernel_input(x)
+    _require(x.dtype in _CANON_X_TYPES,
+             f"x must be fp32, bf16, fp16 or fp64, got {x.dtype}")
+    _require(bsz >= 1 and n >= 1 and g >= 1, "empty input")
+    _require(packed_stack.dtype == torch.int32
+             and packed_stack.is_contiguous(),
+             "packed words must be contiguous int32")
+    _require(scales.dtype == torch.float32 and scales.is_contiguous(),
+             f"scales must be fp32 ({g},)")
+    _require(tuple(tenant_ids.shape) == (bsz,)
+             and tenant_ids.dtype in (torch.int32, torch.int64)
+             and tenant_ids.is_contiguous(),
+             f"tenant_ids must be int32 or int64 ({bsz},)")
+    _require(all(a.device == x.device for a in
+                 (packed_stack, scales, tenant_ids)),
+             "every input must be on x's device")
+    buf = torch.empty(_canon_scratch_bytes(bsz, kdim), dtype=torch.uint8,
+                      device=x.device)
     out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    packed = packed_stack.contiguous()
-    ids = tenant_ids.to(torch.int32).contiguous()
-    sc = scales.to(torch.float32).contiguous()
-    _build.launch(_LIB, "bd_tenant_delta", [P] * 7 + [I, I, I, P],
-                  _build.ptr(xq16), _build.ptr(packed), _build.ptr(ids),
-                  _build.ptr(sc), _build.ptr(xscale.reshape(1)),
-                  _build.ptr(sxq), _build.ptr(out), bsz, k32, n,
-                  _build.stream(x.device))
+    strides = [ctypes.c_longlong] * 2
+    _build.launch(_LIB, "bd_canon_delta", [P, *strides, I] + [P] * 3
+                  + [I, P, P] + [I] * 4 + [P],
+                  _build.ptr(x), x.stride(0), x.stride(1),
+                  _CANON_X_TYPES[x.dtype], _build.ptr(packed_stack),
+                  _build.ptr(scales), _build.ptr(tenant_ids),
+                  int(tenant_ids.dtype == torch.int64), _build.ptr(buf),
+                  _build.ptr(out), bsz, kdim, n, g, _build.stream(x.device))
     tenant_delta_matmul.launches += 1
     return out.to(out_dtype)
 

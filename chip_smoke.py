@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    CUDA-core kernel each timed; the pair delta's x prep and its 1-bit
    tensor-core kernel timed apart, and the call back to back; the fused
    pair kernel's bf16 calls (row 1's prep and the tensor-core kernel)
-   likewise; the canonical tenant delta also exact at K = 102432; the
+   likewise; the canonical tenant delta's x prep and its 1-bit
+   tensor-core kernel likewise, exact with bf16, fp16, fp32 and zero x,
+   also at K = 102432 and at B = 130 (three main-kernel launches); the
    tenant dense lm_head's bf16 tensor-core kernel at B = 1, 8 and 64,
    each beside one matmul a distinct tenant, and its CUDA-core kernel
    on an fp32 head under bf16 x), and time
@@ -170,6 +172,9 @@ PREFILL_TC_KERNEL = "flash_prefill_tc_kernel"       # bf16, tensor cores
 PREFILL_FP32_KERNEL = "flash_prefill_fp32_kernel"   # fp32, CUDA cores
 # The two CUDA kernels of row 1: the x prep and the 1-bit MMA product.
 PAIR_KERNELS = ("pair_prep_kernel", "pair_delta_tc_kernel")
+# The two CUDA kernels of row 7: the global x grid with its bit planes, and
+# the 1-bit MMA product.
+CANON_KERNELS = ("canon_prep_kernel", "canon_delta_tc_kernel")
 # Row 10 with bf16 x and W: row 1's prep and the tensor-core kernel; fp32
 # x and W: the CUDA-core kernel and its epilogue.
 FUSED_PAIR_KERNELS = ("pair_prep_kernel", "fused_pair_tc_kernel")
@@ -395,7 +400,7 @@ def build():
                            if "registers" in line or "spill" in line]
             per_kernel.update(ptxas_by_kernel(
                 lines, PAIR_KERNELS + FUSED_PAIR_KERNELS[1:]
-                + (DENSE_TC_KERNEL,)))
+                + CANON_KERNELS + (DENSE_TC_KERNEL,)))
     emit({"phase": "build", "seconds": round(total, 3),
           "per_source_s": {k: round(v, 3) for k, v in seconds.items()},
           "ptxas": usage, "ptxas_by_kernel": per_kernel})
@@ -562,14 +567,19 @@ def routed_ids(dev, gen, bsz=8, n_tenants=2, experts=8, topk=2):
 
 
 def check_canonical(dev, gen, results):
-    """Row 7 at the seven call sites of a Mixtral decode layer: exact
-    against its plain version with bf16, fp32 and all-zero x; timed with
-    bf16 x."""
+    """Row 7 at the seven call sites of a Mixtral decode layer: its two
+    kernels (the global x grid with its bit planes, the 1-bit tensor-core
+    product) exact against the plain version with bf16, fp16, fp32 and
+    all-zero x; timed with bf16 x, together, apart and queued. Also exact
+    at K = 102432 (bf16 and all-max x) and at Mixtral's 65 slots (130
+    routed rows, three launches of the main kernel), its prep timed
+    there."""
     from bitdelta_torch.ops import binary_gemm as bg
     from bitdelta_torch.ops.packing import unpack_to_pm1
 
     tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
-                         "library_ms", "bound_ms"), 0.0)
+                         "library_ms", "bound_ms", "prep_ms", "main_ms",
+                         "queued_ms"), 0.0)
     shapes, by = [], set()
     for name, rows, g, k, n in CANON_SHAPES:
         ids = (routed_ids(dev, gen) if g == 16
@@ -587,7 +597,8 @@ def check_canonical(dev, gen, results):
             sets.append((x, packed, scales, ids))
         errs = {}
         x0 = sets[0][0]
-        for label, xin in (("bf16", x0), ("fp32", x0.float()),
+        for label, xin in (("bf16", x0), ("fp16", x0.half()),
+                           ("fp32", x0.float()),
                            ("zero", torch.zeros_like(x0))):
             got = bg.tenant_delta_matmul(xin, *sets[0][1:],
                                          out_dtype=torch.float32)
@@ -595,21 +606,29 @@ def check_canonical(dev, gen, results):
             want = bg.tenant_delta_matmul_plain(xin, *sets[0][1:])
             torch.cuda.synchronize()
             errs[label] = (got - want).abs().max().item()
-            require(errs[label] == 0.0,
+            require(torch.equal(got, want),
                     f"canonical delta kernel {name} {label} x: max|err| "
                     f"{errs[label]}, want 0 (exact)")
             require(label != "zero" or not got.any().item(),
                     f"canonical delta kernel {name}: zero x gave nonzero y")
         # The library call's ±1 stack is unpacked outside the timed call.
         pm1 = unpack_to_pm1(sets[0][1], torch.bfloat16)        # (G, K, N)
+
+        def call(i):
+            return bg.tenant_delta_matmul(*sets[i], out_dtype=torch.float32)
+
         row = time_wrapper(
-            f"canonical {name}",
-            lambda i: bg.tenant_delta_matmul(*sets[i],
-                                             out_dtype=torch.float32),
-            len(sets), ("tenant_delta_kernel",),
+            f"canonical {name}", call, len(sets), CANON_KERNELS,
             plain=lambda i: bg.tenant_delta_matmul_plain(*sets[i]),
             library=lambda i: torch.bmm(x0[:, None], pm1[ids]))
-        del pm1, sets
+        del pm1
+        split = kernel_split_ms(call, len(sets), f"canonical {name} kernels",
+                                CANON_KERNELS)
+        row["prep_ms"], row["main_ms"] = (split[k_] for k_ in CANON_KERNELS)
+        # The MMA kernel is the prep's programmatic dependent and may start
+        # before it ends: queued_ms is the call's device time back to back.
+        row["queued_ms"] = queued_ms(call, len(sets))
+        del sets
         nbytes = rows * k * 2 + distinct * (k // 32) * n * 4 + rows * n * 4
         row["bound_ms"], b_by = bound(nbytes, 2 * rows * k * n)
         by.add(b_by)
@@ -637,15 +656,54 @@ def check_canonical(dev, gen, results):
                                         f"102432, {label} x: max|err| "
                                         f"{large_k[label]}, want 0 (exact)")
     del packed, x
+    # Mixtral at 65 slots: 130 routed rows over 16 (tenant, expert)
+    # matrices at w1's shape, three launches of the main kernel.
+    ids = routed_ids(dev, gen, bsz=65)
+    scales = torch.rand((16,), generator=gen, device=dev) * 0.01 + 0.001
+    packed = torch.randint(-2**31, 2**31 - 1, (16, 4096 // 32, 14336),
+                           generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn((130, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    got = bg.tenant_delta_matmul(x, packed, scales, ids,
+                                 out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = bg.tenant_delta_matmul_plain(x, packed, scales, ids)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "canonical delta kernel at B = 130: "
+            f"max|err| {(got - want).abs().max().item()}, want 0 (exact)")
+    del want
+
+    def call130(_):
+        return bg.tenant_delta_matmul(x, packed, scales, ids,
+                                      out_dtype=torch.float32)
+
+    split = kernel_split_ms(call130, 1, "canonical B=130 kernels",
+                            CANON_KERNELS)
+    b130 = {"rows": 130, "matrices": 16, "k": 4096, "n": 14336,
+            "max_abs_err": 0.0, "prep_ms": split[CANON_KERNELS[0]],
+            "main_ms": split[CANON_KERNELS[1]],
+            "queued_ms": queued_ms(call130, 1)}
+    del packed, x, got
     results["tenant_delta_matmul"] = dict(
         tot, max_abs_err=0.0, bound_by="+".join(sorted(by)),
+        kernel=" + ".join(CANON_KERNELS),
         large_k={"rows": 8, "k": 102432, "n": 256, "max_abs_err": large_k},
-        tolerance="exact (0) against the plain version with bf16, fp32 and "
-                  "all-zero x: int32/int64 sums, the same fp32 epilogue",
+        b130=b130,
+        tolerance="exact (0) against the plain version with bf16, fp16, "
+                  "fp32 and all-zero x: the prep repeats the plain x grid "
+                  "bit for bit, the sums are exact integers (int64 past "
+                  "the MMA), the epilogue rounds op for op as the plain "
+                  "version",
         shape="Mixtral-8x7B canonical decode layer: q/k/v/o at B=8 over 2 "
               "tenants, w1/w3/w2 at 8 rows x top-2 over 16 (tenant, expert) "
-              "matrices", timing=TIMING + "; ms includes the plain-torch x "
-              "quantization (_canonical_quantize) before the kernel",
+              "matrices",
+        timing="ms / kernel_ms: the two kernels' torch.profiler device "
+               "times summed (the wrapper launches nothing else); prep_ms / "
+               "main_ms: canon_prep_kernel / canon_delta_tc_kernel alone, "
+               "from one more trace; queued_ms: device ms per call with the "
+               "calls queued back to back (CUDA events around 50 calls held "
+               "behind a sleep kernel; the MMA kernel is the prep's "
+               "programmatic dependent and may start before it ends, which "
+               "the profiler's sum counts twice); " + TIMING,
         bound_basis="bytes: x bf16 + the words of the distinct matrices the "
                     "ids touch + fp32 out; ops: 2*rows*K*N at the bf16 rate",
         library="torch.bmm(x[:, None], pm1[ids]) on the unpacked bf16 ±1 "
@@ -2852,6 +2910,14 @@ def main(argv=None):
             entry["prep_ms"] = res["prep_ms"]
             entry["main_ms"] = res["main_ms"]
             entry["queued_ms"] = res["queued_ms"]
+        if kname == "tenant_delta_matmul":
+            # Row 7: the x prep and the integer MMA product, timed apart
+            # and queued; B = 130 on its own.
+            entry["kernel"] = " + ".join(CANON_KERNELS)
+            entry["prep_ms"] = res["prep_ms"]
+            entry["main_ms"] = res["main_ms"]
+            entry["queued_ms"] = res["queued_ms"]
+            entry["b130"] = res["b130"]
         if kname == "fused_base_pair_matmul":
             # Row 10: bf16 through row 1's prep and the tensor-core kernel,
             # timed apart and queued; fp32 on the CUDA-core kernel.

@@ -50,7 +50,7 @@ def _trace(run, want=()):
     """torch.profiler's event averages of ``run()`` on the card. The window
     opens 10 ms before the work and closes 10 ms after it: the profiler
     drops device records near its edges. On the H100 it still loses a
-    trace's kernels now and then, so a trace that holds none of the
+    trace's kernels now and then, so a trace that lacks any of the
     kernel names in ``want`` is taken again, three times at most."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -62,8 +62,7 @@ def _trace(run, want=()):
             torch.cuda.synchronize()
             time.sleep(0.01)
         events = prof.key_averages()
-        if not want or any(name in evt.key for evt in events
-                           for name in want):
+        if all(any(name in evt.key for evt in events) for name in want):
             break
     return out, events
 
@@ -1058,10 +1057,10 @@ def test_cuda_fused_base_pair_refuses_what_it_does_not_take(cuda):
     assert tbg.fused_base_pair_matmul.launches == before
 
 
-# Row 7 past the old K limit (K < 131072 and K * 2 <= 200 KB): x staged in
-# chunks, the sums added in int64. K = 102432 (the smallest K the old
-# limit refused) and K = 262144, B = 1 and 8, N = 256; an all-max x puts
-# every xq at 2^14, so sxq = 2^14 * K passes 2^31 at K = 262144.
+# Row 7 past the old K limit (K < 131072 and K * 2 <= 200 KB): the K
+# splits' sums added in int64. K = 102432 (the smallest K the old limit
+# refused) and K = 262144, B = 1 and 8, N = 256; an all-max x puts every
+# xq at 2^14, so sxq = 2^14 * K passes 2^31 at K = 262144.
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("bsz", [1, 8])
 @pytest.mark.parametrize("k", [102432, 262144])
@@ -1083,6 +1082,160 @@ def test_cuda_tenant_delta_exact_at_large_k(cuda, bsz, k):
     sxq = tbg._canonical_kernel_input(top)[1]
     assert sxq.dtype == torch.int64
     assert (sxq == 2 ** 14 * k).all()
+
+
+CANON_KERNEL_NAMES = ("canon_prep_kernel", "canon_delta_tc_kernel")
+
+
+def _canon_inputs(cuda, bsz, g, k, n, seed, ids=None, dtype=torch.bfloat16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    packed = torch.randint(-2**31, 2**31 - 1, (g, k // 32, n), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    scales = torch.rand((g,), generator=gen, device=cuda) + 0.1
+    if ids is None:
+        ids = torch.randint(0, g, (bsz,), generator=gen, device=cuda)
+    else:
+        ids = torch.as_tensor(ids, device=cuda)
+    x = torch.randn((bsz, k), generator=gen, device=cuda).to(dtype)
+    return x, packed, scales, ids
+
+
+def _canon_exact(x, packed, scales, ids):
+    got = tbg.tenant_delta_matmul(x, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    want = tbg.tenant_delta_matmul_plain(x, packed, scales, ids)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# A call launches the prep and the 1-bit MMA kernel and nothing else.
+@pytest.mark.requires_cuda
+def test_cuda_tenant_delta_launches_its_two_kernels_only(cuda):
+    x, packed, scales, ids = _canon_inputs(cuda, 8, 2, 4096, 1024, seed=40)
+    tbg.tenant_delta_matmul(x, packed, scales, ids, out_dtype=torch.float32)
+    _, events = _trace(lambda: tbg.tenant_delta_matmul(
+        x, packed, scales, ids, out_dtype=torch.float32),
+        want=CANON_KERNEL_NAMES)
+    counts = _kernel_counts(events)
+    assert len(counts) == 2, sorted(counts)
+    keys = " ".join(counts)
+    assert all(name in keys for name in CANON_KERNEL_NAMES), keys
+
+
+# More rows than one main-kernel launch takes (64): Mixtral at 65 slots
+# (130 routed rows over 16 (tenant, expert) matrices, and its attention's
+# 130 rows over 2 tenants) and Mistral at 65 slots. Exact, the prep once
+# and the main kernel once a slab.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,g,k,n", [(65, 3, 4096, 4096),
+                                       (130, 16, 4096, 14336),
+                                       (130, 16, 14336, 4096),
+                                       (130, 2, 4096, 1024)])
+def test_cuda_tenant_delta_exact_past_one_launch(cuda, bsz, g, k, n):
+    ids = [b % g for b in range(bsz)] if g < 16 else None
+    x, packed, scales, ids = _canon_inputs(cuda, bsz, g, k, n, seed=bsz + g,
+                                           ids=ids)
+    want = tbg.tenant_delta_matmul_plain(x, packed, scales, ids)
+    got, events = _trace(lambda: tbg.tenant_delta_matmul(
+        x, packed, scales, ids, out_dtype=torch.float32),
+        want=CANON_KERNEL_NAMES)
+    assert torch.equal(got, want)
+    counts = {}
+    for evt in events:
+        for name in CANON_KERNEL_NAMES:
+            if name in evt.key:
+                counts[name] = counts.get(name, 0) + evt.count
+    assert counts == {"canon_prep_kernel": 1,
+                      "canon_delta_tc_kernel": -(-bsz // 64)}
+
+
+# One id for every row (a unit of all the rows: groups of 8 or 4), every
+# id distinct (units of one row), and mixes; int32 and int64 ids; B = 3
+# and 4 take the 4-row blocks.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,g,ids", [
+    (8, 4, [2] * 8), (16, 16, list(range(16))), (3, 5, [4, 0, 4]),
+    (4, 6, [5, 5, 1, 5]), (20, 2, [1] * 17 + [0] * 3),
+    (11, 12, [0, 2, 2, 5, 7, 0, 9, 11, 2, 5, 10])])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+def test_cuda_tenant_delta_id_patterns(cuda, bsz, g, ids, ids_dtype):
+    x, packed, scales, ids = _canon_inputs(
+        cuda, bsz, g, 4096, 1024, seed=bsz * g,
+        ids=torch.tensor(ids, dtype=ids_dtype))
+    assert ids.dtype == ids_dtype
+    _canon_exact(x, packed, scales, ids)
+
+
+# Every x dtype the wrapper takes, read through any strides (a column
+# slice and a transposed view), and the N the 16-byte copies cannot take
+# (N = 201, 7) beside N = 200 and 8.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [200, 8, 201, 7])
+def test_cuda_tenant_delta_dtypes_and_any_n(cuda, dtype, n):
+    x, packed, scales, ids = _canon_inputs(cuda, 9, 4, 1024, n, seed=n,
+                                           dtype=dtype)
+    _canon_exact(x, packed, scales, ids)
+    wide = torch.randn((9, 2048), device=cuda).to(dtype)
+    _canon_exact(wide[:, 512:1536], packed, scales, ids)
+    _canon_exact(wide.t().contiguous().t()[:, :1024], packed, scales, ids)
+
+
+# One sign bit set alone (every other word zero), and one x at +-max with
+# every other x zero: a single column and a single K of the sums.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kk,nn", [(0, 0), (31, 127), (32, 128), (255, 5),
+                                   (4095, 1023), (2015, 600)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_cuda_tenant_delta_one_hot(cuda, kk, nn, sign):
+    x, packed, scales, ids = _canon_inputs(cuda, 8, 2, 4096, 1024, seed=kk,
+                                           ids=[0, 1] * 4)
+    one = torch.zeros_like(packed)
+    bit = 1 << (kk % 32)
+    one[1, kk // 32, nn] = bit - 2 ** 32 if bit >= 2 ** 31 else bit
+    _canon_exact(x, one, scales, ids)
+    hot = torch.zeros_like(x)
+    hot[3, kk] = sign * 2.5
+    _canon_exact(hot, packed, scales, ids)
+    _canon_exact(hot, one, scales, ids)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,g,k,n", [(8, 2, 4096, 1024),
+                                       (16, 16, 14336, 4096),
+                                       (130, 16, 4096, 1000)])
+def test_cuda_tenant_delta_is_deterministic(cuda, bsz, g, k, n):
+    x, packed, scales, ids = _canon_inputs(cuda, bsz, g, k, n, seed=k)
+    first = tbg.tenant_delta_matmul(x, packed, scales, ids,
+                                    out_dtype=torch.float32)
+    for _ in range(3):
+        again = tbg.tenant_delta_matmul(x, packed, scales, ids,
+                                        out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tenant_delta_refuses_what_it_does_not_take(cuda):
+    x, packed, scales, ids = _canon_inputs(cuda, 8, 3, 1024, 512, seed=41)
+    bad = [
+        (x, packed.cpu(), scales, ids),
+        (x, packed, scales.cpu(), ids),
+        (x, packed, scales, ids.cpu()),
+        (x, packed.to(torch.int64), scales, ids),
+        (x, packed[:, :, ::2], scales, ids),
+        (x, packed, scales.to(torch.bfloat16), ids),
+        (x, packed, scales, ids.to(torch.int16)),
+        (x, packed, scales, ids[:4]),
+        (x[:, :1000], packed[:, :31].contiguous(), scales, ids),
+        (x.to(torch.int32), packed, scales, ids),
+    ]
+    before = tbg.tenant_delta_matmul.launches
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            tbg.tenant_delta_matmul(*args, out_dtype=torch.float32)
+    assert tbg.tenant_delta_matmul.launches == before
 
 
 # Row 4 on the tensor cores (bf16) and its fp32 CUDA-core branch: query
