@@ -318,16 +318,23 @@ static cudaError_t current_device(int* dev, int* sms) {
   return err;
 }
 
-// fn's dynamic shared memory limit set to bytes, once a device (bit dev of
-// done marks it set).
-static cudaError_t smem_limit_once(const void* fn, int bytes, int dev,
-                                   std::atomic<unsigned long long>& done) {
+// fn's attribute attr set to value, once a device (bit dev of done marks
+// it set).
+static cudaError_t func_attr_once(const void* fn, cudaFuncAttribute attr,
+                                  int value, int dev,
+                                  std::atomic<unsigned long long>& done) {
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (done.load() & bit) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = cudaFuncSetAttribute(fn, attr, value);
   if (err == cudaSuccess) done.fetch_or(bit);
   return err;
+}
+
+// fn's dynamic shared memory limit set to bytes, once a device.
+static cudaError_t smem_limit_once(const void* fn, int bytes, int dev,
+                                   std::atomic<unsigned long long>& done) {
+  return func_attr_once(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                        bytes, dev, done);
 }
 
 template <typename T>
@@ -1418,14 +1425,15 @@ extern "C" int bd_binary_matmul_t(const void* g, const void* packed,
 // input: the grid is global, so no row can be quantized before the max over
 // all of them, which the blocks meet through distributed shared memory.
 // Each warp takes a range of (row, 256-K chunk) items. Pass 1: max |x| in
-// fp32 (a warp's first CANON_PREP_CACHE items stay in registers). Then
-// xscale = max(xmax, 1e-30) / 2^14 and xq = rint(x / xscale), both by
-// IEEE division, round half to even (bit for bit what _canonical_quantize
-// computes). Pass 2 writes xq as 16 two's-complement bit planes: two 32-K
-// groups at a time, each lane's pair of 16-bit xq goes through one 32 x 32
-// bit transpose across the warp (five shuffle stages), after which lane l
-// holds plane l % 16 of one of the groups (about a third of the
-// instructions of one ballot a plane and group, and measured faster).
+// fp32, a NaN kept (a warp's first CANON_PREP_CACHE items stay in
+// registers). Then xscale = max(xmax, 1e-30) / 2^14 and xq = rint(x /
+// xscale), both by IEEE division, round half to even (bit for bit what
+// _canonical_quantize computes). Pass 2 writes xq as 16 two's-complement
+// bit planes: two 32-K groups at a time, each lane's pair of 16-bit xq
+// goes through one 32 x 32 bit transpose across the warp (five shuffle
+// stages), after which lane l holds plane l % 16 of one of the groups
+// (about a third of the instructions of one ballot a plane and group, and
+// measured faster).
 // A chunk's 128 plane words are plane-major, and within plane p the words
 // of 32-K groups t and t + 4 sit side by side (group j at word 8p + 2 (j
 // % 4) + j / 4), so the main kernel's lane t reads its b0 and b1 of a plane
@@ -1485,6 +1493,8 @@ constexpr int CANON_XSLOT = CANON_KC * CANON_XCHUNK;  // a row slot's planes
 constexpr int CANON_SLAB = 64;              // rows a main-kernel launch takes
 constexpr int CANON_MAX_SPLITS = 8;         // a portable cluster
 constexpr int CANON_BLOCKS_PER_SM = 1;      // live blocks the K split aims at
+constexpr int CANON_SMALL_SLAB = 4;         // slabs up to it: <2, 4>
+constexpr int CANON_LARGE_SLAB = 16;        // slabs past it: <1, 8>
 static_assert(CANON_WROW % 128 == 32, "word rows 8c + t in distinct banks");
 static_assert(128 >= CANON_SLAB, "a block's threads cover a slab's ids");
 
@@ -1505,6 +1515,14 @@ template <typename T> __device__ __forceinline__ float x_f32(T v) {
 }
 template <> __device__ __forceinline__ float x_f32<double>(double v) {
   return __double2float_rn(v);               // x.to(float32)
+}
+
+// The larger of a and b, NaN if either is (torch.max and jnp.max keep a
+// NaN; fmaxf drops it).
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // The 8 values of item (row r, chunk c) this lane takes (K 256c + 32j +
@@ -1641,30 +1659,30 @@ canon_prep_kernel(const T* __restrict__ x, long long s0, long long s1,
 #pragma unroll
   for (int u = 0; u < CACHE; ++u)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[u][j]));
+    for (int j = 0; j < 8; ++j) m = fmax_nan(m, fabsf(v[u][j]));
   for (int it = CACHE; it < n_items; ++it) {
     float w[8];
     canon_load_item(x, s0, s1, r, c, k, lane, w);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(w[j]));
+    for (int j = 0; j < 8; ++j) m = fmax_nan(m, fabsf(w[j]));
     if (++c == n_chunks) c = 0, ++r;
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    m = fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
   if (lane == 0) red[warp] = m;
   __syncthreads();
   if (tid == 0) {
 #pragma unroll
-    for (int w = 1; w < NW; ++w) m = fmaxf(m, red[w]);
+    for (int w = 1; w < NW; ++w) m = fmax_nan(m, red[w]);
     blk_max = m;
   }
   cluster.sync();                      // every block's max and zeroed sums
   float xmax = 0.0f;
 #pragma unroll
   for (int b = 0; b < CP; ++b)
-    xmax = fmaxf(xmax, *cluster.map_shared_rank(&blk_max, b));
-  xmax = fmaxf(xmax, 1e-30f);                      // clamp(min=1e-30)
+    xmax = fmax_nan(xmax, *cluster.map_shared_rank(&blk_max, b));
+  xmax = fmax_nan(xmax, 1e-30f);                   // clamp(min=1e-30)
   const float xscale = __fdiv_rn(xmax, 16384.0f);  // / 2^14
 
   // Pass 2: the planes, a chunk a warp at a time, and the row sums.
@@ -1701,7 +1719,7 @@ static cudaError_t launch_canon_prep(const void* x, long long s0,
                                      long long* sxq, float* xscale, int bsz,
                                      int k, int n_chunks, int dev,
                                      cudaStream_t s) {
-  static std::atomic<unsigned long long> limit_set{0};
+  static std::atomic<unsigned long long> limit_set{0}, cluster_set{0};
   const int smem = ((bsz + CANON_PREP_BLOCKS - 1) / CANON_PREP_BLOCKS) * 8;
   if (smem > CANON_PREP_SMEM) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -1710,9 +1728,9 @@ static cudaError_t launch_canon_prep(const void* x, long long s0,
     if (err != cudaSuccess) return err;
   }
   if constexpr (CANON_PREP_BLOCKS > 8) {       // a non-portable cluster
-    const cudaError_t err = cudaFuncSetAttribute(
-        canon_prep_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
+    const cudaError_t err = func_attr_once(
+        (const void*)canon_prep_kernel<T>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1, dev, cluster_set);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -2156,16 +2174,18 @@ extern "C" int bd_canon_delta(const void* x, long long s0, long long s1,
                                       k, n_chunks, dev, s);
   }
   const int vec = n % 4 == 0 && ((uintptr_t)packed % 16) == 0;
-  // Up to 16 rows (decode batches; Mixtral's routed rows at 8 slots) a
-  // block takes 4 rows of a matrix, with 4 warps at up to 4 rows; larger
-  // slabs 8 rows, so a matrix shared by many rows is read half as often.
+  // The form by slab, each where it timed fastest on the H100
+  // (sweep_canonical_delta.py at 1 to 130 rows): <2, 4> up to 4 rows (w1
+  // at 4 routed rows: 448 blocks, one wave at 4 blocks an SM, two at 3),
+  // <1, 8> past 16 (at 64 rows a matrix shared by many rows is read half
+  // as often), else <1, 4>.
   for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += CANON_SLAB) {
     const int slab = bsz - row0 < CANON_SLAB ? bsz - row0 : CANON_SLAB;
-    if (slab <= 4)
+    if (slab <= CANON_SMALL_SLAB)
       err = launch_canon_tc<2, 4>(planes, sxq, xscale, packed, ids, ids64,
                                   scales, out, row0, slab, k, n, g, vec, dev,
                                   sms, s);
-    else if (slab <= 16)
+    else if (slab <= CANON_LARGE_SLAB)
       err = launch_canon_tc<1, 4>(planes, sxq, xscale, packed, ids, ids64,
                                   scales, out, row0, slab, k, n, g, vec, dev,
                                   sms, s);

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Sweep the ring depth, stage length and K-split target of row 7's
+"""Sweep the form, ring depth, stage length and K-split target of row 7's
 tensor-core kernel (``canon_delta_tc_kernel`` in
 ``bitdelta_torch/csrc/binary_gemm.cu``) and the cluster of its x prep
 (``canon_prep_kernel``: its blocks and their threads) on one CUDA card.
@@ -14,18 +14,23 @@ prep's blocks, one cluster over the whole input; 16 is a non-portable
 cluster), ``CANON_PREP_THREADS`` (a prep block's threads),
 ``CANON_PREP_CACHE`` (the items a prep warp keeps in registers) and
 ``CANON_BLOCKS_PER_SM`` (the live blocks a multiprocessor the K split
-aims at) replaced; the sources are built by nvcc at once under
-``bitdelta_torch/build/sweep/`` (git-ignored), then each is loaded in
-place of the library, held against the plain version (exact, as
-``chip_smoke.py`` holds it) and timed from torch.profiler device time at
-the seven call sites of a Mixtral-8x7B decode layer
-(``chip_smoke.CANON_SHAPES``: q/k/v/o at B = 8 over 2 tenants, w1/w3/w2
-at 8 rows x top-2 over 16 (tenant, expert) matrices; summed): ``*_us``
-the wrapper's two kernels' device times summed, ``*_prep_us`` the prep's
-alone, ``*_queued_us`` a call's device time with the calls queued back to
-back (``chip_smoke.queued_ms``). ``prep_b130_us`` is the prep alone at
-130 rows (Mixtral at 65 slots, K = 4096). One JSON line per variant,
-times in microseconds; a variant listed twice gives the spread.
+aims at), ``CANON_SMALL_SLAB`` and ``CANON_LARGE_SLAB`` (the main
+kernel's form by the rows of its launch: <MT = 2, ROWS = 4>, 4 warps a
+block, up to the small one; <1, 8> past the large one; <1, 4> between; 0
+and 64 give one form to every launch) replaced; the sources are built by
+nvcc at once under ``bitdelta_torch/build/sweep/`` (git-ignored), then
+each is loaded in place of the library, held against the plain version
+(exact, as ``chip_smoke.py`` holds it) and timed from torch.profiler
+device time at the seven call sites of a Mixtral-8x7B decode layer at 1,
+2, 8 and 65 slots (``chip_smoke.CANON_SHAPES`` at 8: q/k/v/o at B =
+slots over 2 tenants, w1/w3/w2 at 2 x slots routed rows, top-2 over 16
+(tenant, expert) matrices): ``s{slots}_{site}_us`` the wrapper's two
+kernels' device times summed, ``*_prep_us`` the prep's alone,
+``*_queued_us`` a call's device time with the calls queued back to back
+(``chip_smoke.queued_ms``); ``s{slots}_us`` etc. the layer's seven sites
+summed. ``prep_b130_us`` is the prep alone at 130 rows (w1 at 65 slots).
+One JSON line per variant, times in microseconds; a variant listed twice
+gives the spread.
 """
 
 import ctypes
@@ -43,19 +48,28 @@ from bitdelta_torch.ops import _build  # noqa: E402
 from bitdelta_torch.ops import binary_gemm as bg  # noqa: E402
 
 # (CANON_STAGES, CANON_KC, CANON_PREP_BLOCKS, CANON_BLOCKS_PER_SM,
-#  CANON_PREP_THREADS, CANON_PREP_CACHE)
-VARIANTS = ((4, 2, 16, 1, 512, 4), (4, 2, 8, 1, 512, 4),
-            (4, 2, 16, 1, 1024, 4), (4, 2, 16, 1, 512, 8),
-            (3, 2, 16, 1, 512, 4), (4, 2, 16, 4, 512, 4),
-            (4, 2, 16, 1, 512, 4))
+#  CANON_PREP_THREADS, CANON_PREP_CACHE, CANON_SMALL_SLAB,
+#  CANON_LARGE_SLAB): the source's forms by slab, then <1, 4>, <2, 4> and
+# <1, 8> alone.
+VARIANTS = ((4, 2, 16, 1, 512, 4, 4, 16), (4, 2, 16, 1, 512, 4, 0, 64),
+            (4, 2, 16, 1, 512, 4, 64, 64), (4, 2, 16, 1, 512, 4, 0, 0),
+            (4, 2, 16, 1, 512, 4, 4, 16))
 MACROS = ("CANON_STAGES", "CANON_KC", "CANON_PREP_BLOCKS",
-          "CANON_BLOCKS_PER_SM", "CANON_PREP_THREADS", "CANON_PREP_CACHE")
+          "CANON_BLOCKS_PER_SM", "CANON_PREP_THREADS", "CANON_PREP_CACHE",
+          "CANON_SMALL_SLAB", "CANON_LARGE_SLAB")
+SLOTS = (1, 2, 8, 65)
 PREP, MAIN = cs.CANON_KERNELS
 
 
-def variant_name(stages, kc, prep, per_sm, threads, cache):
+def variant_name(stages, kc, prep, per_sm, threads, cache, small, large):
     return (f"stages{stages}_kc{kc}_prep{prep}x{threads}c{cache}"
-            f"_persm{per_sm}")
+            f"_persm{per_sm}_forms{small}-{large}")
+
+
+def layer_shapes(slots):
+    """``chip_smoke.CANON_SHAPES`` (8 slots) at ``slots`` decode slots."""
+    return tuple((name, slots if g == 2 else 2 * slots, g, k, n)
+                 for name, _, g, k, n in cs.CANON_SHAPES)
 
 
 def make_sets(dev, gen, rows, g, k, n):
@@ -111,9 +125,9 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     print(cs.smi_line(), flush=True)
-    cases = {name: make_sets(dev, gen, rows, g, k, n)
-             for name, rows, g, k, n in cs.CANON_SHAPES}
-    big = make_sets(dev, gen, 130, 16, 4096, 14336)[:1]
+    cases = {(slots, name): make_sets(dev, gen, rows, g, k, n)
+             for slots in SLOTS
+             for name, rows, g, k, n in layer_shapes(slots)}
     work = _build.BUILD / "sweep"
     work.mkdir(parents=True, exist_ok=True)
     built = build((_build.CSRC / "binary_gemm.cu").read_text(), work)
@@ -123,9 +137,13 @@ def main():
             continue
         _build._libs["binary_gemm"] = ctypes.CDLL(str(built[name]))
         bg._canon_scratch_bytes.cache_clear()
-        row = {"variant": name, "layer_us": 0.0, "layer_prep_us": 0.0,
-               "layer_queued_us": 0.0}
-        for label, sets in list(cases.items()) + [("b130", big)]:
+        row = {"variant": name}
+        for slots in SLOTS:
+            for key in ("us", "prep_us", "queued_us"):
+                row[f"s{slots}_{key}"] = 0.0
+        for (slots, site), sets in cases.items():
+            label = f"s{slots}_{site}"
+
             def call(i, sets=sets):
                 return bg.tenant_delta_matmul(*sets[i],
                                               out_dtype=torch.float32)
@@ -136,16 +154,13 @@ def main():
             del got, want
             split = cs.kernel_split_ms(call, len(sets), f"{name} {label}",
                                        cs.CANON_KERNELS, iters=20)
-            if label == "b130":
-                row["prep_b130_us"] = split[PREP] * 1e3
-                continue
             queued = cs.queued_ms(call, len(sets))
             row[f"{label}_us"] = (split[PREP] + split[MAIN]) * 1e3
             row[f"{label}_prep_us"] = split[PREP] * 1e3
             row[f"{label}_queued_us"] = queued * 1e3
-            row["layer_us"] += row[f"{label}_us"]
-            row["layer_prep_us"] += row[f"{label}_prep_us"]
-            row["layer_queued_us"] += queued * 1e3
+            for key in ("us", "prep_us", "queued_us"):
+                row[f"s{slots}_{key}"] += row[f"{label}_{key}"]
+        row["prep_b130_us"] = row["s65_w1_prep_us"]
         print(json.dumps(row), flush=True)
     return 0
 

@@ -1201,6 +1201,24 @@ def test_cuda_tenant_delta_one_hot(cuda, kk, nn, sign):
     _canon_exact(hot, one, scales, ids)
 
 
+# A NaN in x makes the global grid NaN, so every output is NaN: the
+# plain version's max over |x| keeps it, as JAX's does. Row 3's NaN is in
+# a prep warp's register-cached items, row 129's past them.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz,row,kk", [(8, 3, 100), (130, 129, 4095)])
+def test_cuda_tenant_delta_nan_in_x(cuda, dtype, bsz, row, kk):
+    x, packed, scales, ids = _canon_inputs(cuda, bsz, 4, 4096, 1024,
+                                           seed=row, dtype=dtype)
+    x[row, kk] = float("nan")
+    got = tbg.tenant_delta_matmul(x, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    want = tbg.tenant_delta_matmul_plain(x, packed, scales, ids)
+    torch.cuda.synchronize()
+    assert want.isnan().all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("bsz,g,k,n", [(8, 2, 4096, 1024),
                                        (16, 16, 14336, 4096),
