@@ -9,7 +9,8 @@
 //   bd_binary_matmul   <- ::binary_matmul_pallas
 //   bd_binary_matmul_t <- ::binary_matmul_t_pallas
 //   bd_canon_delta     <- ::tenant_delta_matmul_pallas
-//   bd_fused_tenant    <- ::fused_tenant_matmul_pallas
+//   bd_fused_tenant_tc <- ::fused_tenant_matmul_pallas (bf16)
+//   bd_fused_tenant    <- the same, fp32 x and W or any other N
 //   bd_fused_base_pair_tc <- ::fused_base_pair_matmul_pallas (bf16)
 //   bd_fused_base_pair    <- the same, fp32 x and W
 //
@@ -73,11 +74,12 @@ __device__ __forceinline__ typename Two<T>::type load_two(const T* p,
 // S = sum_k bit_k * xq_k are exact:
 //
 // pair_prep_kernel, a cluster of PAIR_PREP_BLOCKS blocks per row b: JAX's
-// x grid (``_pair_quantize``). min and max in fp32; step = max((max - min) /
-// 4095, 1e-30) by IEEE division; xq = rint((x - min) / step) (round half
-// to even, as torch.round and jnp.round); sxq = sum xq in integers; a1 =
-// alpha * step, a2 = alpha * min, alpha = scale[ids[b]]. Bit for bit what
-// the plain version computes. xq goes out as its 12 bit planes: for each
+// x grid (``_pair_quantize``). min and max in fp32, a NaN kept (that row's
+// output is NaN, as the plain version's); step = max((max - min) / 4095,
+// 1e-30) by IEEE division (a NaN step stays NaN); xq = rint((x - min) /
+// step) (round half to even, as torch.round and jnp.round); sxq = sum xq
+// in integers; a1 = alpha * step, a2 = alpha * min, alpha =
+// scale[ids[b]]. Bit for bit what the plain version computes. xq goes out as its 12 bit planes: for each
 // 32 K, twelve 32-bit words (word p holds plane p, bit i for K + i, from
 // one warp ballot each, 48 bytes stored at once); K past the end is zero.
 // The prep launches the main kernel as its programmatic dependent
@@ -179,6 +181,20 @@ __device__ __forceinline__ void load_step(const T* __restrict__ xr, int c,
   }
 }
 
+// The larger (smaller) of a and b, NaN if either is (torch.max / min
+// and jnp.max / min keep a NaN; fmaxf and fminf drop it).
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Row b's grid, bit planes and coefficients, by a cluster of
 // PAIR_PREP_BLOCKS blocks that each take a range of its 32-K steps: their
 // min, max and sum of xq meet through distributed shared memory (exact
@@ -219,21 +235,21 @@ pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
     load_step(xr, j, x_vec, v);
 #pragma unroll
     for (int u = 0; u < 32; ++u) {
-      lo = fminf(lo, v[u]);
-      hi = fmaxf(hi, v[u]);
+      lo = fmin_nan(lo, v[u]);
+      hi = fmax_nan(hi, v[u]);
     }
   }
   // A K that is a multiple of 16 only (row 10): the 16 values past the
   // last whole step, one a thread of the block that owns that step.
   if (full >= j0 && full < j1 && tid < k - 32 * full) {
     const float v = to_f32(xr[32 * full + tid]);
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
+    lo = fmin_nan(lo, v);
+    hi = fmax_nan(hi, v);
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    lo = fmin_nan(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmax_nan(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
   if (lane == 0) {
     red_lo[warp] = lo;
@@ -243,8 +259,8 @@ pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
   if (tid == 0) {
 #pragma unroll
     for (int w = 1; w < NW; ++w) {
-      lo = fminf(lo, red_lo[w]);
-      hi = fmaxf(hi, red_hi[w]);
+      lo = fmin_nan(lo, red_lo[w]);
+      hi = fmax_nan(hi, red_hi[w]);
     }
     blk_lo = lo;
     blk_hi = hi;
@@ -261,8 +277,8 @@ pair_prep_kernel(const T* __restrict__ x, int x_stride, int x_vec,
   hi = his[0];
 #pragma unroll
   for (int r = 1; r < PAIR_PREP_BLOCKS; ++r) {
-    lo = fminf(lo, los[r]);
-    hi = fmaxf(hi, his[r]);
+    lo = fmin_nan(lo, los[r]);
+    hi = fmax_nan(hi, his[r]);
   }
   float step = __fdiv_rn(__fsub_rn(hi, lo), (float)PAIR_Q_LEVELS);
   step = step < 1e-30f ? 1e-30f : step;          // clamp(min=1e-30)
@@ -1517,14 +1533,6 @@ template <> __device__ __forceinline__ float x_f32<double>(double v) {
   return __double2float_rn(v);               // x.to(float32)
 }
 
-// The larger of a and b, NaN if either is (torch.max and jnp.max keep a
-// NaN; fmaxf drops it).
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // The 8 values of item (row r, chunk c) this lane takes (K 256c + 32j +
 // lane), zero past k.
 template <typename T>
@@ -2205,12 +2213,15 @@ extern "C" int bd_canon_delta(const void* x, long long s0, long long s1,
 // adds the delta as ±x in fp32 for each bit, as the TPU kernel's float
 // dot with ±1 does (no x grid). Row 10 takes the pair layout (T, K/16,
 // N/2) and row 1's per-row 12-bit x grid; its delta is row 1's exact
-// integer pair sums and fp32 epilogue. bf16 x and W take row 10's
-// tensor-core kernel (bd_fused_base_pair_tc, section 10 below); this
-// section holds row 9 and row 10's fp32 kernel (bd_fused_base_pair),
-// which takes x already quantized by the wrapper and which only fp32
-// parity checks send. Both compute the base product in their own body,
-// fp32 sums of the products of x and W in their dtype.
+// integer pair sums and fp32 epilogue. bf16 x and W take the tensor-core
+// kernels (row 10: bd_fused_base_pair_tc, section 10 below; row 9 with
+// N a multiple of 8: bd_fused_tenant_tc, section 9 at the end); this
+// section holds the CUDA-core kernels the wrappers send everything else:
+// row 9 (bd_fused_tenant: fp32 x and W, or any other N) and row 10's fp32
+// kernel (bd_fused_base_pair), which takes x already quantized by the
+// wrapper and which only fp32 parity checks send. Both compute the base
+// product in their own body, fp32 sums of the products of x and W in
+// their dtype.
 //
 // Bound on the H100: at decode (B = 8 rows) each W element has B uses,
 // so the bytes are the K*N*2 of the bf16 base plus the words of the
@@ -3072,21 +3083,22 @@ static PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
 }
 
-// W (k, n) bf16 row-major as TMA boxes of FP_KS rows x FP_BJ columns with
-// the 64-byte swizzle; rows past k read as zeros.
+// W (k, n) bf16 row-major as TMA boxes of box_rows rows x box_cols
+// columns with the given swizzle; rows past k and columns past n read as
+// zeros.
 static cudaError_t w_tensor_map(CUtensorMap* map, const void* w, int k,
-                                int n) {
+                                int n, int box_cols, int box_rows,
+                                CUtensorMapSwizzle swizzle) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k};
   const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
-  const cuuint32_t box[2] = {FP_BJ, FP_KS};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -3171,7 +3183,9 @@ extern "C" int bd_fused_base_pair_tc(const void* x, int x_stride,
   float* coef = reinterpret_cast<float*>(planes + (size_t)bsz * n_chunks
                                                   * PAIR_XCHUNK);
   CUtensorMap wmap;
-  err = w_tensor_map(&wmap, w, k, 2 * n2);
+  // Boxes of FP_KS rows x FP_BJ columns, the 64-byte swizzle.
+  err = w_tensor_map(&wmap, w, k, 2 * n2, FP_BJ, FP_KS,
+                     CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return (int)err;
   err = launch_pair_prep<__nv_bfloat16>(x, x_stride, 1, scales, ids, ids64,
                                         planes, coef, bsz, k, n_chunks, s);
@@ -3558,6 +3572,552 @@ extern "C" int bd_tenant_dense_tc(const void* x, int x_stride, const void* w,
     else
       err = launch_dense_tc<DN_MAX_NT>(wmap, x, x_stride, ids, ids64, out,
                                        row0, slab, k, n, t, dev, sms, s);
+  }
+  return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// 9 on the tensor cores (bf16 x and W, N a multiple of 8):
+// bd_fused_tenant_tc
+//    Y[b] = x[b] @ W + scale[ids[b]] * (x[b] @ sign(P[ids[b]]))
+// replaces bitdelta_tpu/ops/pallas_binary_gemm.py
+// ::fused_tenant_matmul_pallas: W (K, N) natural layout, P the canonical
+// layout (T, K/32, N) int32 (bit s of word (kw, n) set: +1 at K = 32 kw +
+// s), the delta a float dot of x with ±1 in x's dtype, summed in fp32 (no
+// x grid), then y = base + scale * delta in fp32.
+//
+// Bound on the H100: bytes. A Mistral-7B layer at B = 8 over 3 tenants
+// reads its bf16 base once (436 MB) and the distinct tenants' words (3 x
+// 27 MB): 0.155 ms at 3.35 TB/s, against 2 * (2 B K N) = 7 GFLOP of base
+// and delta products (7 us at the bf16 rate). So W streams at the memory
+// rate, read once for all the rows, and both products ride under it on
+// the bf16 tensor cores. One launch a slab of FT_SLAB rows, nothing else:
+//
+// * the tile is row 3's: a block owns FT_COLS = 128 columns (two 64-column
+//   W boxes by TMA with the 128-byte swizzle; a warp 16 columns, one m16
+//   tile), every row of the slab (NT n8 tiles) and one K split, in an
+//   FT_STAGES-deep ring of FT_KS-deep stages;
+// * the base on mma.sync.m16n8k16 (bf16, fp32 sums): W is the A operand
+//   by ldmatrix.trans, the slab's x rows the n8 side by ldmatrix;
+// * the delta on the same MMA, sharing that x fragment: its A operand is
+//   the ±1 sign matrix of one tenant (m16 rows = the warp's columns, k =
+//   K), built in registers from the canonical words. Lane (g, t) of k16
+//   step e of a 32-K word needs bits 16e + 2t, + 1 (a0, a1) and 16e + 2t
+//   + 8, + 9 (a2, a3) of the words of columns 16w + g (a0, a2) and 16w + 8
+//   + g (a1, a3): one word serves two k16 steps, and each bit becomes an
+//   exact bf16 ±1 (0xBF80 with the sign flipped where the bit is set), two
+//   to a register, by one prmt and one logic op a register;
+// * slots and masks: the slab's rows are ordered into slots by tenant
+//   (rank d, order of first occurrence; the x rows are staged by slot), so
+//   an n8 tile of 8 slots mostly holds one tenant. For tenant d, B is the
+//   x fragment with each lane's registers zeroed unless its column's slot
+//   (8 nt + g) belongs to d, so each D column sums its own tenant's signs
+//   only; the delta MMAs of a tile run only for the tenants it holds. A NaN
+//   in one row's x reaches that row's D columns alone, as in JAX's masked
+//   per-row accumulation;
+// * words: each distinct tenant's words of the tile are read once, by
+//   16-byte cp.async copies into the stage (FT_KS / 32 word rows of 128
+//   columns a tenant); a stage holds the words of FT_DT tenants, and a
+//   slab with more walks its K range once more for each further FT_DT
+//   (words and x only);
+// * each stage sums both products into fresh fp32 accumulators that are
+//   then added to the running sums (the tensor cores truncate as they
+//   accumulate, as rows 3, 5, 6, 8 and 10 do);
+// * the K splits of a column tile form one thread block cluster (at most
+//   FT_MAX_SPLITS, portable): each block leaves its fp32 base and delta
+//   partials in shared memory ([slot][column]); after a cluster barrier
+//   block q adds, for its ceil(FT_COLS / n_split) columns, every block's
+//   partials in rank order and writes y = base + scale * delta (round-to-
+//   nearest ops, the plain version's order). No atomics, no scratch, no
+//   second launch: the result does not depend on scheduling. The split
+//   count is the most (any count, not only a power of two) that keeps
+//   the grid within one wave of resident blocks, and whose clusters the
+//   card holds all at once (a cluster's blocks share a GPC: at 2 blocks an SM the H100
+//   holds fewer than 32 clusters of 8, so the 32 tiles of a 4096-wide
+//   projection take clusters of 7; one past what the card holds would
+//   wait for a second wave). At B = 8 that is 2 splits for gate/up_proj,
+//   7 for q/o/down_proj and 8 for k/v_proj; scripts/sweep_fused_tenant.py
+//   sized the stage, the ring and the tenants a stage (PERF.md);
+// * any B: a launch takes a slab of up to FT_SLAB rows, and each slab reads
+//   W once more. K past the end reads as zeros (W by TMA, x and the words
+//   by zero-filled copies).
+// tests/test_torch_fused_tenant_numerics.py models the fragments, the
+// slots and masks, the cluster's sum and the kernel's arithmetic on the
+// CPU.
+// ---------------------------------------------------------------------------
+
+constexpr int FT_BOXES = 2;                 // 64-column W boxes a block
+constexpr int FT_WARPS = 4 * FT_BOXES;      // a warp: 16 columns
+constexpr int FT_THREADS = FT_WARPS * 32;
+constexpr int FT_COLS = 64 * FT_BOXES;      // output columns a block
+constexpr int FT_KS = 128;                  // K a ring stage
+constexpr int FT_STAGES = 2;                // stages in the ring
+constexpr int FT_SLAB = 32;                 // rows a launch takes
+constexpr int FT_DT = 4;                    // tenants' words a stage holds
+constexpr int FT_MAX_SPLITS = 8;            // a portable cluster
+constexpr int FT_WBOX = FT_KS * 128;        // bytes of a W box (64 columns)
+constexpr int FT_XROW = FT_KS * 2 + 16;     // bytes of a shared x row
+constexpr int FT_WROWS = FT_KS / 32;        // word rows a stage and tenant
+constexpr int FT_PROW = FT_COLS * 4;        // bytes of a shared word row
+constexpr int FT_PSTRIDE = FT_COLS + 4;     // floats of a partials row
+static_assert(FT_THREADS >= FT_SLAB, "a thread a row of the slab");
+static_assert(FT_KS % 32 == 0 && FT_KS <= 256, "whole words; a box");
+static_assert(FT_STAGES >= 2, "a ring");
+static_assert(FT_SLAB <= 32 && 32 % FT_DT == 0,
+              "a tenant rank (up to a pass's last) fits a 32-bit mask");
+
+// Byte offsets in a ring stage (1024-byte aligned, as the 128-byte
+// swizzle needs): the W boxes, the slots' x rows, the words.
+template <int NT>
+struct FtStage {
+  static constexpr int X = FT_BOXES * FT_WBOX;
+  static constexpr int WORDS = X + NT * 8 * FT_XROW;
+  static constexpr int BYTES =
+      (WORDS + FT_DT * FT_WROWS * FT_PROW + 1023) / 1024 * 1024;
+};
+
+// Pair J of the four ±1 bf16 pairs that lane t takes from a 32-K word w,
+// given u = w << (7 - 2t) and v = w << (6 - 2t): bits 2t + 8J (low half)
+// and 2t + 8J + 1 (high half), a set bit +1. u holds bit 2t + 8J at bit 7
+// of byte J and v bit 2t + 8J + 1; one prmt with sign-replicating
+// selectors spreads them over bytes 1 and 3 (0xFF where set), and the XOR
+// flips the sign bit of a bf16 -1 (0xBF80) there.
+template <int J>
+__device__ __forceinline__ uint32_t sign_pair(uint32_t u, uint32_t v) {
+  constexpr uint32_t sel = ((0xCu + J) << 12) | ((0x8u + J) << 4);
+  uint32_t m;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(m) : "r"(u), "r"(v), "n"(sel));
+  return 0xBF80BF80u ^ (m & 0x80008000u);
+}
+
+// Block (tile, split): FT_COLS columns, every row of the slab row0 ..
+// row0 + slab - 1, one K range.
+template <int NT>
+__global__ void __launch_bounds__(FT_THREADS)
+fused_tenant_tc_kernel(const __grid_constant__ CUtensorMap wmap,
+                       const __nv_bfloat16* __restrict__ x, int x_stride,
+                       const uint32_t* __restrict__ packed,
+                       const float* __restrict__ scales,
+                       const void* __restrict__ ids, int ids64,
+                       float* __restrict__ out, int row0, int slab, int k,
+                       int n) {
+  namespace cg = cooperative_groups;
+  constexpr int ROWS = NT * 8;                 // row slots
+  using S = FtStage<NT>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t wbar[FT_STAGES];
+  __shared__ int sid[ROWS], first[ROWS], sd[ROWS];
+  __shared__ int slot_row[ROWS], slot_d[ROWS], d_tenant[ROWS];
+  __shared__ unsigned tmask[NT];
+  __shared__ float salpha[ROWS];
+  __shared__ int s_nd;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int k32 = k / 32;
+  const int c0 = blockIdx.x * FT_COLS;
+  const int n_st = (k + FT_KS - 1) / FT_KS;
+  const int st0 = (int)((long long)split * n_st / n_split);
+  const int n_h = (int)((long long)(split + 1) * n_st / n_split) - st0;
+  // The ring from the first 1024-byte boundary (the allocation has 1024
+  // bytes to spare); stage s's W boxes complete on wbar[s].
+  uint8_t* ring = smem_raw + ((1024u - static_cast<uint32_t>(
+      __cvta_generic_to_shared(smem_raw)) % 1024u) % 1024u);
+  const uint32_t bar0 =
+      static_cast<uint32_t>(__cvta_generic_to_shared(wbar));
+  const CUtensorMap* wmp = &wmap;
+  if (tid == 0) {
+    for (int st = 0; st < FT_STAGES; ++st) mbar_init(bar0 + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+
+  // Slots: the slab's rows ordered by their tenant's rank d among the
+  // distinct tenants (order of first occurrence), then by row.
+  if (tid < slab) sid[tid] = load_id(ids, ids64, row0 + tid);
+  __syncthreads();
+  if (tid < slab) {
+    int f = 0;
+    while (sid[f] != sid[tid]) ++f;
+    first[tid] = f;
+  }
+  __syncthreads();
+  if (tid < slab) {
+    int d = 0;
+    for (int j = 0; j < first[tid]; ++j) d += first[j] == j;
+    sd[tid] = d;
+  }
+  __syncthreads();
+  if (tid < slab) {
+    int slot = 0;
+    for (int j = 0; j < slab; ++j)
+      slot += sd[j] < sd[tid] || (sd[j] == sd[tid] && j < tid);
+    slot_row[slot] = tid;
+    slot_d[slot] = sd[tid];
+    salpha[slot] = scales[sid[tid]];
+    if (first[tid] == tid) d_tenant[sd[tid]] = sid[tid];
+  } else if (tid < ROWS) {
+    slot_row[tid] = 0;                         // slots past the slab
+    slot_d[tid] = -1;
+    salpha[tid] = 0.0f;
+  }
+  __syncthreads();
+  if (tid < NT) {
+    unsigned m = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (slot_d[8 * tid + i] >= 0) m |= 1u << slot_d[8 * tid + i];
+    tmask[tid] = m;
+  }
+  if (tid == 0) {
+    int nd = 0;
+    for (int j = 0; j < slab; ++j) nd += first[j] == j;
+    s_nd = nd;
+  }
+  __syncthreads();
+  const int nd = s_nd;
+  const int n_items = (nd + FT_DT - 1) / FT_DT * n_h;
+
+  // Item it: pass it / n_h (tenants FT_DT * pass ..), stage st0 + it %
+  // n_h. Pass 0 brings W (TMA), every pass the slots' x rows and the
+  // pass's words.
+  auto load_stage = [&](int it) {
+    const int pass = it / n_h, slot = it % FT_STAGES;
+    uint8_t* sp = ring + slot * S::BYTES;
+    const int k0 = (st0 + it % n_h) * FT_KS;
+    if (pass == 0 && tid == 0) {
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(sp));
+      // The stage was read (ldmatrix) before the block's last barrier.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar0 + 8 * slot, FT_BOXES * FT_WBOX);
+#pragma unroll
+      for (int b = 0; b < FT_BOXES; ++b)
+        tma_load_2d(dst + b * FT_WBOX, wmp, c0 + 64 * b, k0,
+                    bar0 + 8 * slot);
+    }
+    constexpr int XCH = FT_KS * 2 / 16;        // 16-byte copies an x row
+    for (int i = tid; i < ROWS * XCH; i += FT_THREADS) {
+      const int r = i / XCH, c = i % XCH;
+      const bool ok = r < slab && k0 + 8 * c < k;
+      cp_async16(sp + S::X + r * FT_XROW + 16 * c,
+                 x + (ok ? (size_t)(row0 + slot_row[r]) * x_stride + k0
+                           + 8 * c : 0), ok);
+    }
+    const int dp = pass * FT_DT;
+    const int count = nd - dp < FT_DT ? nd - dp : FT_DT;
+    constexpr int CH = FT_PROW / 16;           // 16-byte copies a word row
+    for (int i = tid; i < count * FT_WROWS * CH; i += FT_THREADS) {
+      const int j = i / (FT_WROWS * CH), r = (i / CH) % FT_WROWS;
+      const int c = i % CH;
+      const int kw = k0 / 32 + r, col = c0 + 4 * c;
+      const bool ok = kw < k32 && col < n;
+      cp_async16(sp + S::WORDS + (j * FT_WROWS + r) * FT_PROW + 16 * c,
+                 packed + (ok ? ((size_t)d_tenant[dp + j] * k32 + kw) * n
+                                + col : 0), ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < FT_STAGES - 1; ++s) {
+    if (s < n_items) load_stage(s);
+    cp_async_commit();
+  }
+
+  const uint32_t ring_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  // ldmatrix.trans of W, as row 3: lane l gives row (l / 16) * 8 + l % 8
+  // of the k16 step, 16-byte chunk 2 (warp % 4) + (l / 8) % 2 of box
+  // warp / 4, stored at that chunk ^ (l % 8) (the 128-byte swizzle): a0
+  // (columns 16w + g, K 2t..), a1 (columns 16w + 8 + g), a2 (K 2t + 8..),
+  // a3.
+  const uint32_t w_lane =
+      (warp / 4) * FT_WBOX + ((lane / 16) * 8 + lane % 8) * 128
+      + (((2 * (warp % 4) + (lane / 8) % 2) ^ (lane % 8)) * 16);
+  // ldmatrix of x: lane l gives slot l % 8 of an n8 tile at K 8 * (l / 8)
+  // of two k16 steps: b0, b1 of the first, b0, b1 of the second.
+  const uint32_t x_lane = (lane % 8) * FT_XROW + (lane / 8) * 16;
+  // The words of columns 16w + g (a0, a2) and 16w + 8 + g (a1, a3).
+  const uint32_t p_lane = (16 * warp + g) * 4;
+  // The tenant rank of the lane's B column (slot 8 nt + g) in each tile,
+  // and each tile's ranks.
+  int my_d[NT];
+  unsigned tm[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    my_d[nt] = slot_d[8 * nt + g];
+    tm[nt] = tmask[nt];
+  }
+
+  float tb[NT][4], td[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tb[nt][e] = td[nt][e] = 0.0f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<FT_STAGES - 2>();            // item it has landed
+    __syncthreads();                           // and item it - 1 is read
+    {
+      const int nx = it + FT_STAGES - 1;
+      if (nx < n_items) load_stage(nx);
+      cp_async_commit();
+    }
+    const int slot = it % FT_STAGES;
+    const uint8_t* stp = ring + slot * S::BYTES;
+    const uint32_t st = ring_s + slot * S::BYTES;
+    const int pass = it / n_h, dp = pass * FT_DT;
+    if (pass == 0) mbar_wait(bar0 + 8 * slot, (it / FT_STAGES) & 1);
+    // FT_KS / 16 MMAs a tile and product into fresh accumulators.
+    float ab[NT][4], ad[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ab[nt][e] = ad[nt][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < FT_KS / 16; kk += 2) {
+      uint32_t b[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        ldsm_x4<false>(b[nt], stp + S::X + nt * 8 * FT_XROW + kk * 32
+                              + x_lane);
+      if (pass == 0) {
+        uint32_t a0[4], a1[4];
+        ldsm_x4<true>(a0, stp + kk * 16 * 128 + w_lane);
+        ldsm_x4<true>(a1, stp + (kk + 1) * 16 * 128 + w_lane);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_16816(ab[nt], a0, b[nt][0], b[nt][1]);
+          mma_16816(ab[nt], a1, b[nt][2], b[nt][3]);
+        }
+      }
+      // The delta: word row kk / 2 (k16 steps kk and kk + 1) of each of
+      // the pass's tenants, against the slots of that tenant alone. The
+      // signs of every one of the FT_DT come in straight-line code (a
+      // tenant past the slab's has no slot, so its stale words meet no
+      // MMA): no branch keeps the loads of one tenant from overlapping the
+      // MMAs of the one before.
+#pragma unroll
+      for (int j = 0; j < FT_DT; ++j) {
+        const int d = dp + j;
+        const uint32_t wa = st + S::WORDS + (j * FT_WROWS + kk / 2) * FT_PROW
+                            + p_lane;
+        const uint32_t wlo = lds32(wa), whi = lds32(wa + 32);
+        const uint32_t ul = wlo << (7 - 2 * tq), vl = wlo << (6 - 2 * tq);
+        const uint32_t uh = whi << (7 - 2 * tq), vh = whi << (6 - 2 * tq);
+        // k16 step kk: K 2t.. (pair 0) and 2t + 8.. (pair 1) of the word;
+        // step kk + 1: 16 + 2t.. (pair 2) and 24 + 2t.. (pair 3).
+        const uint32_t s0[4] = {sign_pair<0>(ul, vl), sign_pair<0>(uh, vh),
+                                sign_pair<1>(ul, vl), sign_pair<1>(uh, vh)};
+        const uint32_t s1[4] = {sign_pair<2>(ul, vl), sign_pair<2>(uh, vh),
+                                sign_pair<3>(ul, vl), sign_pair<3>(uh, vh)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (((tm[nt] >> d) & 1u) == 0u) continue;   // uniform
+          const uint32_t m = my_d[nt] == d ? 0xffffffffu : 0u;
+          mma_16816(ad[nt], s0, b[nt][0] & m, b[nt][1] & m);
+          mma_16816(ad[nt], s1, b[nt][2] & m, b[nt][3] & m);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (pass == 0) tb[nt][e] = __fadd_rn(tb[nt][e], ab[nt][e]);
+        td[nt][e] = __fadd_rn(td[nt][e], ad[nt][e]);
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // the ring is free
+
+  // The partials in shared memory, [slot][column] (D: lane (g, tq) holds
+  // slots 8nt + 2tq, + 1 at columns 16w + g and 16w + 8 + g), the base's
+  // then the delta's; then block q of the cluster adds, for its FT_COLS /
+  // n_split columns, every block's partials in rank order.
+  float* pb = reinterpret_cast<float*>(ring);
+  float* pd = pb + ROWS * FT_PSTRIDE;
+  const int col = 16 * warp + g;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = nt * 8 + 2 * tq + e;
+      pb[r * FT_PSTRIDE + col] = tb[nt][e];
+      pb[r * FT_PSTRIDE + col + 8] = tb[nt][2 + e];
+      pd[r * FT_PSTRIDE + col] = td[nt][e];
+      pd[r * FT_PSTRIDE + col + 8] = td[nt][2 + e];
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* rb[FT_MAX_SPLITS];
+  const float* rd[FT_MAX_SPLITS];
+#pragma unroll
+  for (int r = 0; r < FT_MAX_SPLITS; ++r) {
+    rb[r] = cluster.map_shared_rank(pb, r < n_split ? r : 0);
+    rd[r] = cluster.map_shared_rank(pd, r < n_split ? r : 0);
+  }
+  const int slice = (FT_COLS + n_split - 1) / n_split, cs = split * slice;
+  for (int i = tid; i < slab * slice; i += FT_THREADS) {
+    const int r = i / slice, c = cs + i % slice;
+    if (c >= FT_COLS || c0 + c >= n) continue;
+    float vb[FT_MAX_SPLITS], vd[FT_MAX_SPLITS];
+#pragma unroll
+    for (int q = 0; q < FT_MAX_SPLITS; ++q) {
+      vb[q] = q < n_split ? rb[q][r * FT_PSTRIDE + c] : 0.0f;
+      vd[q] = q < n_split ? rd[q][r * FT_PSTRIDE + c] : 0.0f;
+    }
+    float base = vb[0], delta = vd[0];
+#pragma unroll
+    for (int q = 1; q < FT_MAX_SPLITS; ++q)
+      if (q < n_split) {                       // in rank order
+        base = __fadd_rn(base, vb[q]);
+        delta = __fadd_rn(delta, vd[q]);
+      }
+    out[(size_t)(row0 + slot_row[r]) * n + c0 + c] =
+        __fadd_rn(base, __fmul_rn(salpha[r], delta));
+  }
+  cluster.sync();                              // the partials stay until read
+}
+
+// The launch of fused_tenant_tc_kernel<NT> for K = k, N = n: its shared
+// memory and its K splits, the most (at most FT_MAX_SPLITS and the
+// stages) that keep the grid within one wave of resident blocks, and
+// whose clusters (one a column tile) the card can all hold at once (a cluster's
+// blocks share a GPC, so the card holds fewer clusters of 8 than its
+// slots / 8; one cluster more would wait for a second wave).
+template <int NT>
+static cudaError_t fused_tenant_tc_plan(int k, int n, int dev, int sms,
+                                        int* smem, int* splits) {
+  static std::atomic<unsigned long long> limit_set{0};
+  static std::atomic<int> live_cache{0};
+  static std::atomic<int> fit_cache[FT_MAX_SPLITS + 1];
+  *smem = FtStage<NT>::BYTES * FT_STAGES + 1024;
+  static_assert(FtStage<NT>::BYTES * FT_STAGES
+                    >= 2 * NT * 8 * FT_PSTRIDE * 4,
+                "the base and delta partials of the slab fit in the ring");
+  const void* fn = (const void*)fused_tenant_tc_kernel<NT>;
+  cudaError_t err = smem_limit_once(fn, *smem, dev, limit_set);
+  if (err != cudaSuccess) return err;
+  int live = live_cache.load();
+  if (live == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&live, fn,
+                                                        FT_THREADS, *smem);
+    if (err != cudaSuccess) return err;
+    live = live < 1 ? 1 : live;
+    live_cache.store(live);
+  }
+  const int tiles = (n + FT_COLS - 1) / FT_COLS;
+  const int n_st = (k + FT_KS - 1) / FT_KS;
+  const int cap = n_st < FT_MAX_SPLITS ? n_st : FT_MAX_SPLITS;
+  int sp = live * sms / tiles;
+  sp = sp < 1 ? 1 : sp > cap ? cap : sp;
+  for (; sp > 1; --sp) {
+    int fit = fit_cache[sp].load();
+    if (fit == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(1, sp, 1);
+      cfg.blockDim = dim3(FT_THREADS);
+      cfg.dynamicSmemBytes = *smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 1;
+      attr[0].val.clusterDim.y = sp;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&fit, fn, &cfg);
+      if (err != cudaSuccess) return err;
+      fit_cache[sp].store(fit > 0 ? fit : -1);
+    }
+    if (fit >= tiles) break;
+  }
+  *splits = sp;
+  return cudaSuccess;
+}
+
+// Launches of fused_tenant_tc_kernel since the library was loaded, one a
+// slab, counted where they are made (a profiler trace may drop records).
+static std::atomic<long long> fused_tenant_tc_launched{0};
+
+extern "C" long long bd_fused_tenant_tc_launched() {
+  return fused_tenant_tc_launched.load();
+}
+
+// The kernel over rows row0 .. row0 + slab - 1: grid (tiles, splits).
+template <int NT>
+static cudaError_t launch_fused_tenant_tc(
+    const CUtensorMap& wmap, const void* x, int x_stride, const void* packed,
+    const void* scales, const void* ids, int ids64, void* out, int row0,
+    int slab, int k, int n, int dev, int sms, cudaStream_t s) {
+  int smem = 0, splits = 1;
+  cudaError_t err = fused_tenant_tc_plan<NT>(k, n, dev, sms, &smem, &splits);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + FT_COLS - 1) / FT_COLS, splits, 1);
+  cfg.blockDim = dim3(FT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_tenant_tc_kernel<NT>, wmap,
+                           (const __nv_bfloat16*)x, x_stride,
+                           (const uint32_t*)packed, (const float*)scales,
+                           ids, ids64, (float*)out, row0, slab, k, n);
+  if (err != cudaSuccess) return err;
+  fused_tenant_tc_launched.fetch_add(1);
+  return cudaGetLastError();
+}
+
+// The K splits a launch of fused_tenant_tc_kernel takes for a slab of
+// `slab` rows at K = k, N = n on the current device (0 on an error).
+extern "C" int bd_fused_tenant_tc_splits(int slab, int k, int n) {
+  int dev = 0, sms = 0, smem = 0, splits = 0;
+  if (current_device(&dev, &sms) != cudaSuccess) return 0;
+  const cudaError_t err =
+      slab <= 8 ? fused_tenant_tc_plan<1>(k, n, dev, sms, &smem, &splits)
+      : slab <= 16 ? fused_tenant_tc_plan<2>(k, n, dev, sms, &smem, &splits)
+                   : fused_tenant_tc_plan<4>(k, n, dev, sms, &smem, &splits);
+  return err == cudaSuccess ? splits : 0;
+}
+
+// bf16 x (bsz, k) with row stride x_stride, W (k, n) bf16, packed (t, k /
+// 32, n) int32, scales (t,) fp32, ids (bsz,) int32 or int64 (ids64); out
+// (bsz, n) fp32. K a multiple of 32, N a multiple of 8. One launch for
+// each FT_SLAB rows.
+extern "C" int bd_fused_tenant_tc(const void* x, int x_stride, const void* w,
+                                  const void* packed, const void* scales,
+                                  const void* ids, int ids64, void* out,
+                                  int bsz, int k, int n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bsz < 1 || k < 32 || k % 32 != 0 || n < 8 || n % 8 != 0
+      || x_stride % 8 != 0 || ((uintptr_t)x % 16) != 0
+      || ((uintptr_t)w % 16) != 0 || ((uintptr_t)packed % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = current_device(&dev, &sms);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap wmap;
+  // Boxes of FT_KS rows x 64 columns (128 bytes), the 128-byte swizzle.
+  err = w_tensor_map(&wmap, w, k, n, 64, FT_KS, CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int row0 = 0; row0 < bsz && err == cudaSuccess; row0 += FT_SLAB) {
+    const int slab = bsz - row0 < FT_SLAB ? bsz - row0 : FT_SLAB;
+    if (slab <= 8)
+      err = launch_fused_tenant_tc<1>(wmap, x, x_stride, packed, scales, ids,
+                                      ids64, out, row0, slab, k, n, dev, sms,
+                                      s);
+    else if (slab <= 16)
+      err = launch_fused_tenant_tc<2>(wmap, x, x_stride, packed, scales, ids,
+                                      ids64, out, row0, slab, k, n, dev, sms,
+                                      s);
+    else
+      err = launch_fused_tenant_tc<4>(wmap, x, x_stride, packed, scales, ids,
+                                      ids64, out, row0, slab, k, n, dev, sms,
+                                      s);
   }
   return (int)err;
 }

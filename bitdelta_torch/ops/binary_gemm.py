@@ -447,7 +447,16 @@ def fused_tenant_matmul(x: torch.Tensor, w_base: torch.Tensor,
     decode, canonical layout, the delta as exact ±x sums (no x grid). x
     ``(B, K)`` and w_base ``(K, N)`` of one dtype (bf16 or fp32);
     packed_stack ``(T, K//32, N)``; scales ``(T,)``; tenant_ids ``(B,)``.
-    Returns ``(B, N)`` in ``out_dtype`` (default x.dtype)."""
+    Returns ``(B, N)`` in ``out_dtype`` (default x.dtype).
+
+    On a CUDA tensor, bf16 x and W with N a multiple of 8 launch the
+    tensor-core kernel (``fused_tenant_tc_kernel``, once for each 32 rows)
+    and nothing else; fp32 x and W (their dot with ±1 must not go through
+    TF32), or any other N, take the CUDA-core kernel
+    (``fused_tenant_kernel``) and its split sum (``sum_splits_kernel``).
+    It takes int32 words, scales of any float dtype (read as fp32), int32
+    or int64 ids of shape ``(B,)`` (other integer ids are cast to int32),
+    every input on x's device, and raises on anything else."""
     out_dtype = out_dtype or x.dtype
     bsz, kdim = x.shape
     t, k32, n = packed_stack.shape
@@ -460,25 +469,56 @@ def fused_tenant_matmul(x: torch.Tensor, w_base: torch.Tensor,
         return fused_tenant_matmul_plain(x, w_base, packed_stack, scales,
                                          tenant_ids).to(out_dtype)
     flag = _cuda_dtype_flag(x)
-    splits = _fused_splits(kdim, -(-n // FUSED_COLS), bsz, x.device)
-    partial = torch.empty((splits, bsz, n), dtype=torch.float32,
-                          device=x.device)
+    _require(packed_stack.dtype == torch.int32,
+             f"packed words must be int32, got {packed_stack.dtype}")
+    _require(tuple(tenant_ids.shape) == (bsz,)
+             and not tenant_ids.is_floating_point()
+             and not tenant_ids.is_complex(),
+             f"tenant_ids must be integers of shape {(bsz,)}, got "
+             f"{tenant_ids.dtype} {tuple(tenant_ids.shape)}")
+    _require(all(a.device == x.device for a in
+                 (w_base, packed_stack, scales, tenant_ids)),
+             "every input must be on x's device")
     out = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
-    xc = x.contiguous()
-    wc = w_base.contiguous()
-    packed = packed_stack.contiguous()
-    ids = tenant_ids.to(torch.int32).contiguous()
+    packed = _build.aligned16(packed_stack)
     sc = scales.to(torch.float32).contiguous()
-    _build.launch(_LIB, "bd_fused_tenant", [P] * 7 + [I] * 5 + [P],
-                  _build.ptr(xc), _build.ptr(wc), _build.ptr(packed),
-                  _build.ptr(ids), _build.ptr(sc), _build.ptr(partial),
-                  _build.ptr(out), bsz, kdim, n, splits, flag,
-                  _build.stream(x.device))
+    if flag and n % 8 == 0:
+        xc = _build.aligned16(x)
+        wc = _build.aligned16(w_base)
+        ids = (tenant_ids if tenant_ids.dtype in (torch.int32, torch.int64)
+               else tenant_ids.to(torch.int32)).contiguous()
+        _build.launch(_LIB, "bd_fused_tenant_tc", [P, I] + [P] * 4
+                      + [I, P] + [I] * 3 + [P],
+                      _build.ptr(xc), xc.stride(0), _build.ptr(wc),
+                      _build.ptr(packed), _build.ptr(sc), _build.ptr(ids),
+                      int(ids.dtype == torch.int64), _build.ptr(out), bsz,
+                      kdim, n, _build.stream(x.device))
+    else:
+        splits = _fused_splits(kdim, -(-n // FUSED_COLS), bsz, x.device)
+        partial = torch.empty((splits, bsz, n), dtype=torch.float32,
+                              device=x.device)
+        xc = x.contiguous()
+        wc = w_base.contiguous()
+        ids = tenant_ids.to(torch.int32).contiguous()
+        _build.launch(_LIB, "bd_fused_tenant", [P] * 7 + [I] * 5 + [P],
+                      _build.ptr(xc), _build.ptr(wc), _build.ptr(packed),
+                      _build.ptr(ids), _build.ptr(sc), _build.ptr(partial),
+                      _build.ptr(out), bsz, kdim, n, splits, flag,
+                      _build.stream(x.device))
     fused_tenant_matmul.launches += 1
     return out.to(out_dtype)
 
 
 fused_tenant_matmul.launches = 0
+
+
+def fused_tenant_tc_launched() -> int:
+    """Launches of ``fused_tenant_tc_kernel`` (one a slab of 32 rows)
+    since the kernel library was loaded, counted by the library where it
+    launches them: unlike a profiler trace, this count loses none."""
+    fn = _build.library(_LIB).bd_fused_tenant_tc_launched
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()
 
 
 def fused_base_pair_matmul_plain(x, w_base, packed_pairs, colsum, scales,

@@ -19,9 +19,13 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
    timed; the W4 matmul's bf16 tensor-core kernel and its fp32
    CUDA-core kernel each timed; the pair delta's x prep and its 1-bit
-   tensor-core kernel timed apart, and the call back to back; the fused
+   tensor-core kernel timed apart, and the call back to back, and a NaN
+   of x kept to its row (B = 8 and 65, bf16 and fp32 x); the fused
    pair kernel's bf16 calls (row 1's prep and the tensor-core kernel)
-   likewise; the canonical tenant delta's x prep and its 1-bit
+   likewise, with a NaN in the prep's 16-value tail; the fused canonical
+   kernel's bf16 tensor-core kernel timed and queued, one launch a call
+   at B = 8, also at B = 65 (three launches), with 8 distinct tenants
+   and with a NaN in x; the canonical tenant delta's x prep and its 1-bit
    tensor-core kernel likewise, exact with bf16, fp16, fp32 and zero x,
    also at K = 102432 and at B = 130 (three main-kernel launches); the
    tenant dense lm_head's bf16 tensor-core kernel at B = 1, 8 and 64,
@@ -95,6 +99,7 @@ import functools
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -179,6 +184,10 @@ CANON_KERNELS = ("canon_prep_kernel", "canon_delta_tc_kernel")
 # x and W: the CUDA-core kernel and its epilogue.
 FUSED_PAIR_KERNELS = ("pair_prep_kernel", "fused_pair_tc_kernel")
 FUSED_PAIR_FP32_KERNELS = ("fused_pair_kernel", "fused_pair_epilogue_kernel")
+# Row 9 with bf16 x and W (N a multiple of 8): one tensor-core kernel; fp32
+# x and W: the CUDA-core kernel and its split sum.
+FUSED_TENANT_TC_KERNEL = "fused_tenant_tc_kernel"
+FUSED_TENANT_FP32_KERNELS = ("fused_tenant_kernel", "sum_splits_kernel")
 # The CUDA kernels behind row 8, by x's dtype, and its K-split sum.
 W4_TC_KERNEL = "w4_matmul_tc_kernel"                 # bf16, tensor cores
 W4_FP32_KERNEL = "w4_matmul_fp32_kernel"             # fp32, CUDA cores
@@ -400,7 +409,8 @@ def build():
                            if "registers" in line or "spill" in line]
             per_kernel.update(ptxas_by_kernel(
                 lines, PAIR_KERNELS + FUSED_PAIR_KERNELS[1:]
-                + CANON_KERNELS + (DENSE_TC_KERNEL,)))
+                + CANON_KERNELS + (DENSE_TC_KERNEL,
+                                   FUSED_TENANT_TC_KERNEL)))
     emit({"phase": "build", "seconds": round(total, 3),
           "per_source_s": {k: round(v, 3) for k, v in seconds.items()},
           "ptxas": usage, "ptxas_by_kernel": per_kernel})
@@ -459,6 +469,57 @@ def queued_ms(fn, sets, iters=50, reps=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def kernel_counts(fn, label):
+    """``{kernel symbol: launches}`` of one ``fn()``, from a torch.profiler
+    trace."""
+    return {sym: count for _, count, sym in trace_entries(fn, label)}
+
+
+def fused_tenant_launches(fn, want, label):
+    """Row 9's launches of one ``fn()``: the library's own count of
+    ``fused_tenant_tc_kernel`` launches (it loses none) must be ``want``,
+    and a profiler trace of one more call must hold that kernel and no
+    other (the profiler may drop records, so it names the kernels and
+    does not count them). Returns both."""
+    from bitdelta_torch.ops import binary_gemm as bg
+
+    torch.cuda.synchronize()
+    before = bg.fused_tenant_tc_launched()
+    fn()
+    torch.cuda.synchronize()
+    launched = bg.fused_tenant_tc_launched() - before
+    names = sorted(kernel_counts(fn, f"{label} launches"))
+    require(launched == want and names and all(
+        FUSED_TENANT_TC_KERNEL in sym for sym in names),
+        f"{label}: {launched} launches of {FUSED_TENANT_TC_KERNEL} (want "
+        f"{want}); the trace holds {names}, want it alone")
+    return {"launched": launched, "traced": [sym[:80] for sym in names]}
+
+
+def nan_row_error(call, plain, x, row, col, label, exact):
+    """One NaN at ``x[row, col]``: row ``row`` of the call and of the plain
+    version must be NaN throughout, and every other row as without the
+    NaN: bit-equal to the call on the clean x, and equal to the plain
+    version (``exact``) or within 1e-4 of its largest |value|. Returns the
+    other rows' max |kernel - plain|."""
+    clean = call(x)
+    xn = x.clone()
+    xn[row, col] = float("nan")
+    got = call(xn)
+    want = plain(xn)
+    torch.cuda.synchronize()
+    require(bool(want[row].isnan().all()) and bool(got[row].isnan().all()),
+            f"{label}: a NaN in x row {row} did not make that row NaN "
+            f"({int(got[row].isnan().sum())} of {got.shape[1]} NaN)")
+    keep = torch.arange(x.shape[0], device=x.device) != row
+    require(torch.equal(got[keep], clean[keep]),
+            f"{label}: a NaN in x row {row} moved other rows")
+    err = (got[keep] - want[keep]).abs().max().item()
+    tol = 0.0 if exact else 1e-4 * want[keep].abs().max().item()
+    require(err <= tol, f"{label}: other rows max|err| {err} > {tol}")
+    return err
 
 
 def check_pair(dev, gen, results):
@@ -525,8 +586,25 @@ def check_pair(dev, gen, results):
             tot[key] += row[key]
         shapes.append({"proj": name, "k": k, "n": n, **row,
                        "max_abs_err": e})
+    # A NaN of x inside a 32-K step, at B = 8 and at B = 65 (the second
+    # MMA slab), bf16 and fp32 x: that row NaN, every other row exact.
+    nan_x = {}
+    for nb, row in ((8, 3), (65, 64)):
+        packed = torch.randint(-2**31, 2**31 - 1, (t, 4096 // 32, 1024),
+                               generator=gen, device=dev, dtype=torch.int32)
+        pd = pair_delta(BinaryDelta(packed, scales))
+        args = (pd.packed_pairs, pd.colsum, pd.scale,
+                torch.arange(nb, device=dev) % t)
+        x = torch.randn((nb, 4096), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            label = f"pair delta NaN B={nb} {str(dtype)[6:]}"
+            nan_x[label] = nan_row_error(
+                lambda xx: bg.tenant_delta_matmul_pair(
+                    xx, *args, out_dtype=torch.float32),
+                lambda xx: bg.tenant_delta_matmul_pair_plain(xx, *args),
+                x.to(dtype), row, 100, label, exact=True)
     results["tenant_delta_matmul_pair"] = dict(
-        tot, max_abs_err=err, bound_by="+".join(sorted(by)),
+        tot, max_abs_err=err, bound_by="+".join(sorted(by)), nan_x=nan_x,
         kernel=" + ".join(PAIR_KERNELS),
         tolerance="exact (max|err| 0): the prep repeats the plain x grid "
                   "bit for bit, the sums are exact integers, the epilogue "
@@ -715,7 +793,12 @@ def check_fused(dev, gen, results, name):
     """Row 9 (``fused_tenant_matmul``, canonical) or row 10
     (``fused_base_pair_matmul``, pair layout) at the seven Mistral-7B
     projections, B=8 over T=3 tenants: against its plain version with
-    bf16 and fp32 x and W, timed with bf16."""
+    bf16 and fp32 x and W, timed with bf16 (profiler and queued). Row 9
+    also at B = 65 (three launches), with 8 distinct tenants in one slab
+    (more than a stage holds words of), one launch a call at B = 8, and a
+    NaN in x, and beside one cuBLAS matmul for the base and one a distinct
+    tenant (``per_tenant_ms``); row 10 with a NaN in the prep's 16-value
+    tail (K = 1040)."""
     from bitdelta_torch.core.delta import BinaryDelta, pair_delta
     from bitdelta_torch.ops import binary_gemm as bg
     from bitdelta_torch.ops.packing import unpack_to_pm1
@@ -723,51 +806,69 @@ def check_fused(dev, gen, results, name):
     pair = name == "fused_base_pair_matmul"
     fn, plain_fn = getattr(bg, name), getattr(bg, name + "_plain")
     kernel_names = (FUSED_PAIR_KERNELS if pair
-                    else ("fused_tenant_kernel", "sum_splits_kernel"))
+                    else (FUSED_TENANT_TC_KERNEL,))
     bsz, t = 8, 3
     ids = torch.tensor([0, 1, 2, 0, 1, 2, 0, 0], device=dev)
     scales = torch.rand((t,), generator=gen, device=dev) * 0.01 + 0.001
     tot = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
-                         "library_ms", "bound_ms")
-                        + (("prep_ms", "main_ms", "queued_ms") if pair
-                           else ()), 0.0)
+                         "library_ms", "bound_ms", "queued_ms")
+                        + (("prep_ms", "main_ms") if pair
+                           else ("per_tenant_ms",)), 0.0)
     err, err32, shapes, by = 0.0, 0.0, [], set()
+
+    def make(k, n, nb=bsz, nt=t):
+        packed = torch.randint(-2**31, 2**31 - 1, (nt, k // 32, n),
+                               generator=gen, device=dev, dtype=torch.int32)
+        sc = scales if nt == t else (
+            torch.rand((nt,), generator=gen, device=dev) * 0.01 + 0.001)
+        x = torch.randn((nb, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+        ii = ids if nb == bsz and nt == t else (
+            torch.arange(nb, device=dev) % nt)
+        if pair:
+            pd = pair_delta(BinaryDelta(packed, sc))
+            return (x, w, pd.packed_pairs, pd.colsum, pd.scale, ii), packed
+        return (x, w, packed, sc, ii), packed
+
+    def held(args, label, dtype=torch.bfloat16):
+        args = (args[0].to(dtype), args[1].to(dtype), *args[2:])
+        got = fn(*args, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        want = plain_fn(*args)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        require(e <= tol, f"{name} {label}: max|err| {e} > {tol}")
+        return e
+
     for proj, k, n in PROJ_SHAPES:
         set_bytes = k * n * 2 + t * k * n // 8 + bsz * k * 2
         sets, canonical = [], []
         for _ in range(n_sets(set_bytes)):
-            packed = torch.randint(-2**31, 2**31 - 1, (t, k // 32, n),
-                                   generator=gen, device=dev,
-                                   dtype=torch.int32)
-            x = torch.randn((bsz, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            w = (torch.randn((k, n), generator=gen, device=dev)
-                 * 0.02).to(torch.bfloat16)
-            if pair:
-                pd = pair_delta(BinaryDelta(packed, scales))
-                sets.append((x, w, pd.packed_pairs, pd.colsum, pd.scale,
-                             ids))
-            else:
-                sets.append((x, w, packed, scales, ids))
+            args, packed = make(k, n)
+            sets.append(args)
             canonical.append(packed)
-        errs = {}
-        for label, dtype in (("bf16", torch.bfloat16),
-                             ("fp32", torch.float32)):
-            args = (sets[0][0].to(dtype), sets[0][1].to(dtype),
-                    *sets[0][2:])
-            got = fn(*args, out_dtype=torch.float32)
-            torch.cuda.synchronize()
-            want = plain_fn(*args)
-            torch.cuda.synchronize()
-            errs[label] = e = (got - want).abs().max().item()
-            tol = 1e-4 * want.abs().max().item()
-            require(e <= tol, f"{name} {proj} {label}: max|err| {e} > {tol}")
-            del got, want
+        errs = {label: held(sets[0], proj + " " + label, dtype)
+                for label, dtype in (("bf16", torch.bfloat16),
+                                     ("fp32", torch.float32))}
         err, err32 = max(err, errs["bf16"]), max(err32, errs["fp32"])
         # The library calls' ±1 stack is unpacked outside the timed call.
         pm1 = unpack_to_pm1(canonical[0], torch.bfloat16)      # (T, K, N)
         del canonical
         x0, w0 = sets[0][0], sets[0][1]
+        groups = tenant_groups(ids)
+        if not pair:
+            # Row 9's yardstick computes its function (row 10's delta
+            # takes x on row 1's 12-bit grid: another function).
+            yard = per_tenant_fused(x0, w0, pm1, scales, groups)
+            want = plain_fn(*sets[0])
+            torch.cuda.synchronize()
+            e = (yard - want).abs().max().item()
+            require(e <= 1e-4 * want.abs().max().item(),
+                    f"{name} {proj}: the per-tenant yardstick is off by {e}")
+            del yard, want
 
         def library(i):
             return torch.matmul(x0, w0), torch.bmm(x0[:, None], pm1[ids])
@@ -779,15 +880,19 @@ def check_fused(dev, gen, results, name):
             f"{name} {proj}", call, len(sets), kernel_names,
             plain=lambda i: plain_fn(*sets[i]), library=library)
         if pair:
-            # As row 1: the prep and the main kernel apart, and the call
-            # queued back to back (the main kernel is the prep's
-            # programmatic dependent; the profiler's sum counts their
-            # overlap twice).
+            # As row 1: the prep and the main kernel apart (the main
+            # kernel is the prep's programmatic dependent; the profiler's
+            # sum counts their overlap twice).
             split = kernel_split_ms(call, len(sets), f"{name} {proj} kernels",
                                     FUSED_PAIR_KERNELS)
             row["prep_ms"], row["main_ms"] = (split[k_] for k_ in
                                               FUSED_PAIR_KERNELS)
-            row["queued_ms"] = queued_ms(call, len(sets))
+        # The call's device time with the calls queued back to back.
+        row["queued_ms"] = queued_ms(call, len(sets))
+        if not pair:
+            row["per_tenant_ms"] = device_ms(
+                lambda i: per_tenant_fused(x0, w0, pm1, scales, groups), 1,
+                f"{name} {proj} per-tenant matmul", iters=5)[0]
         del pm1, sets
         distinct = int(torch.unique(ids).numel())
         words = distinct * k * n // 8 + (distinct * n * 4 if pair else 0)
@@ -798,9 +903,45 @@ def check_fused(dev, gen, results, name):
             tot[key] += row[key]
         shapes.append({"proj": proj, "k": k, "n": n, **row,
                        "max_abs_err": errs})
+    extra = {}
+    if pair:
+        # Row 1's prep keeps a NaN of x in its 16-value tail (K = 1040, a
+        # multiple of 16, not 32): that row NaN, the others as before.
+        k, n = 1040, 1024
+        x = torch.randn((bsz, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+        pairs = torch.randint(-2**31, 2**31 - 1, (t, k // 16, n // 2),
+                              generator=gen, device=dev, dtype=torch.int32)
+        colsum = torch.randint(-k, k + 1, (t, n), generator=gen,
+                               device=dev).to(torch.float32)
+        args = (x, w, pairs, colsum, scales, ids)
+        extra["nan_x_tail"] = nan_row_error(
+            lambda xx: fn(xx, *args[1:], out_dtype=torch.float32),
+            lambda xx: plain_fn(xx, *args[1:]), args[0], 5, 1030,
+            f"{name} NaN in the tail", exact=False)
+    else:
+        # One launch of the tensor-core kernel at B = 8, and nothing else.
+        args, _ = make(4096, 4096)
+        extra["launches_b8"] = fused_tenant_launches(
+            lambda: fn(*args, out_dtype=torch.float32), 1, f"{name} B=8")
+        extra["nan_x"] = nan_row_error(
+            lambda xx: fn(xx, *args[1:], out_dtype=torch.float32),
+            lambda xx: plain_fn(xx, *args[1:]), args[0], 3, 100,
+            f"{name} NaN in x", exact=False)
+        # Past one slab (B = 65: launches of 32, 32 and 1 rows), and 8
+        # distinct tenants in a slab of 8 (two passes of 4 tenants' words).
+        args, _ = make(4096, 4096, nb=65)
+        extra["b65"] = held(args, "B=65")
+        extra["launches_b65"] = fused_tenant_launches(
+            lambda: fn(*args, out_dtype=torch.float32), 3, f"{name} B=65")
+        args, _ = make(4096, 4096, nt=8)
+        extra["t8_distinct"] = held(args, "8 distinct tenants")
+        del args
     results[name] = dict(
         tot, max_abs_err=err, fp32_max_abs_err=err32,
-        bound_by="+".join(sorted(by)),
+        bound_by="+".join(sorted(by)), **extra,
         tolerance="1e-4 * max|ref| with bf16 and with fp32 x and W: bf16 "
                   "products are exact in fp32 and both sides sum in fp32, "
                   "in another order" + ("; the integer pair sums and row "
@@ -808,12 +949,13 @@ def check_fused(dev, gen, results, name):
                                         else ""),
         shape="B=8 T=3 (3 distinct tenants), per decode layer: 7 "
               "projections", timing=TIMING + (
-                  "; ms / kernel_ms: " + " + ".join(FUSED_PAIR_KERNELS)
-                  + " (the wrapper launches nothing else with bf16 x); "
-                  "prep_ms / main_ms: each alone, from one more trace; "
-                  "queued_ms: device ms per call with the calls queued "
-                  "back to back (the main kernel is the prep's "
-                  "programmatic dependent)" if pair else ""),
+                  "; ms / kernel_ms: " + " + ".join(kernel_names)
+                  + " (the wrapper launches nothing else with bf16 x)"
+                  + ("; prep_ms / main_ms: each alone, from one more "
+                     "trace" if pair else "")
+                  + "; queued_ms: device ms per call with the calls queued "
+                  "back to back (CUDA events around 50 calls held behind "
+                  "a sleep kernel)"),
         bound_basis="bytes: the bf16 base (K*N*2, read once) + the "
                     "distinct tenants' words" + (" and colsums" if pair
                                                  else "")
@@ -822,6 +964,11 @@ def check_fused(dev, gen, results, name):
         library="torch.matmul(x, W) (cuBLAS) + torch.bmm(x[:, None], "
                 "pm1[ids]) on the unpacked bf16 ±1 stack (the unfused "
                 "route's base call and the gather + bmm of rows 1 and 7)",
+        **({} if pair else {"per_tenant": (
+            "per_tenant_ms: cuBLAS x @ W (fp32 out) + one cuBLAS matmul a "
+            "distinct tenant on its rows against its unpacked bf16 ±1 "
+            "matrix, scaled and added (each matrix read once; unpacked "
+            "outside the timed call)")}),
         detail=shapes)
 
 
@@ -1163,6 +1310,19 @@ def per_tenant_matmul(x, w, groups):
                       device=x.device)
     for t, rows in groups:
         out[rows] = matmul_f32(x[rows], w[t])
+    return out
+
+
+def per_tenant_fused(x, w, pm1, scales, groups):
+    """Row 9's yardstick: ``x @ W`` (cuBLAS, fp32 out), then one
+    cuBLAS matmul a distinct tenant on its rows against its unpacked bf16
+    ±1 matrix ``pm1[t]``, scaled and added; ``groups`` as
+    ``tenant_groups``."""
+    from bitdelta_torch.ops.binary_matmul import matmul_f32
+
+    out = matmul_f32(x, w)
+    for t, rows in groups:
+        out[rows] += scales[t] * matmul_f32(x[rows], pm1[t])
     return out
 
 
@@ -2694,6 +2854,7 @@ def fused(dev, name):
     from bitdelta_torch.eval.ppl import eval_ppl
     from bitdelta_torch.models import llama
     from bitdelta_torch.models.config import mistral_7b
+    from bitdelta_torch.ops import binary_gemm as bg
     from bitdelta_torch.serving.stacking import stack_nbytes, to_pair_layout
 
     import numpy as np
@@ -2736,6 +2897,7 @@ def fused(dev, name):
                 step()
                 torch.cuda.synchronize()
                 reset_counts()
+                tc0 = bg.fused_tenant_tc_launched()
                 logits[kernel] = step()[:, 0].float()
                 torch.cuda.synchronize()
                 counts = {k: v for k, v in read_counts().items() if v}
@@ -2743,17 +2905,37 @@ def fused(dev, name):
                 require(counts == want, f"{layout} {kernel} decode step: "
                                         f"launches {counts}, want {want}")
                 step_counts[(layout, kernel)] = read_counts()
+                # Row 9's projections on its tensor-core kernel alone: one
+                # launch each (the library's count), and no CUDA-core
+                # kernel of row 9 in the step's trace.
+                row9 = (layout, kernel) == ("canonical", "cuda_fused")
+                tc = bg.fused_tenant_tc_launched() - tc0
+                want_tc = 7 * cfg.num_layers if row9 else 0
+                require(tc == want_tc, f"{layout} {kernel} decode step: "
+                                       f"{tc} launches of "
+                                       f"{FUSED_TENANT_TC_KERNEL}, want "
+                                       f"{want_tc}")
                 t0 = time.perf_counter()
                 for _ in range(3):
                     step()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / 3
                 dev_ms, top = device_breakdown(
-                    step, f"fused phase {layout} {kernel} step", top=10)
+                    step, f"fused phase {layout} {kernel} step", top=None)
+                if row9:
+                    syms = [r["kernel"] for r in top]
+                    stray = [sym for sym in syms if any(
+                        re.search(rf"(?<!\w){kn}\b", sym)
+                        for kn in FUSED_TENANT_FP32_KERNELS)]
+                    require(any(FUSED_TENANT_TC_KERNEL in sym
+                                for sym in syms) and not stray,
+                            f"{layout} {kernel} decode step: the trace holds "
+                            f"{stray}, want {FUSED_TENANT_TC_KERNEL} alone "
+                            "for row 9")
                 report[f"{layout}_{kernel}_step"] = {
                     "launches": counts, "wall_ms_b8": wall,
                     "device_ms": dev_ms, "device_busy": dev_ms / wall,
-                    "top_kernels": top}
+                    "fused_tenant_tc_launches": tc, "top_kernels": top[:10]}
             # bf16 over 32 layers: recorded (the 2-layer runs hold limits).
             report[f"{layout}_fused_vs_unfused_bf16"] = held_logits(
                 logits["cuda_fused"], logits["cuda"],
@@ -2926,6 +3108,13 @@ def main(argv=None):
             entry["main_ms"] = res["main_ms"]
             entry["queued_ms"] = res["queued_ms"]
             entry["fp32_kernel"] = " + ".join(FUSED_PAIR_FP32_KERNELS)
+        if kname == "fused_tenant_matmul":
+            # Row 9: bf16 on the tensor-core kernel, timed and queued; fp32
+            # on the CUDA-core kernel and its split sum.
+            entry["kernel"] = FUSED_TENANT_TC_KERNEL
+            entry["queued_ms"] = res["queued_ms"]
+            entry["per_tenant_ms"] = res["per_tenant_ms"]
+            entry["fp32_kernel"] = " + ".join(FUSED_TENANT_FP32_KERNELS)
         if kname == "tenant_dense_matmul":
             # Row 3: bf16 on the tensor-core kernel (also at B=1 and B=64,
             # beside one matmul a tenant); the fp32 head on its own.

@@ -294,6 +294,51 @@ def test_cuda_pair_quantize_matches_the_cpu(cuda, dtype):
           int((old != new).sum()), "of", rng.numel())
 
 
+def _nan_row(call, plain, x, row, kk, exact):
+    """One NaN at ``x[row, kk]``: row ``row`` NaN throughout in the call
+    and the plain version; every other row bit-equal to the call on the
+    clean x, and equal to the plain version (``exact``) or within 1e-4 of
+    its largest |value|."""
+    clean = call(x)
+    xn = x.clone()
+    xn[row, kk] = float("nan")
+    got, want = call(xn), plain(xn)
+    torch.cuda.synchronize()
+    assert want[row].isnan().all() and got[row].isnan().all()
+    keep = torch.arange(x.shape[0], device=x.device) != row
+    assert not got[keep].isnan().any()
+    assert torch.equal(got[keep], clean[keep])
+    atol = 0.0 if exact else 1e-4 * want[keep].abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=atol, equal_nan=True)
+
+
+# Row 1's prep keeps a NaN of x in its min and max, as the plain version's
+# (and JAX's) min and max do: that row's output is NaN, every other row is
+# as before. The NaN inside a 32-K step (row 1, K = 4096, exact against
+# plain) and in the 16-value tail that only row 10 sends (K = 1040: the
+# bf16 kernel shares row 1's prep; fp32 takes the plain-torch prep), at B
+# = 8 and at B = 65 (row 64: the second slab of both main kernels).
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz,row", [(8, 3), (65, 64)])
+@pytest.mark.parametrize("where", ["step", "tail"])
+def test_cuda_pair_delta_nan_in_x(cuda, dtype, bsz, row, where):
+    if where == "step":
+        x, args = _pair_inputs(cuda, bsz, 3, 4096, 1024, seed=bsz + row,
+                               dtype=dtype)
+        _nan_row(lambda xx: tbg.tenant_delta_matmul_pair(
+                     xx, *args, out_dtype=torch.float32),
+                 lambda xx: tbg.tenant_delta_matmul_pair_plain(xx, *args),
+                 x, row, 100, exact=True)
+    else:
+        x, w, args = _fused_pair_inputs(cuda, dtype, bsz, 3, 1040, 1024,
+                                        seed=bsz + row)
+        _nan_row(lambda xx: tbg.fused_base_pair_matmul(
+                     xx, w, *args, out_dtype=torch.float32),
+                 lambda xx: tbg.fused_base_pair_matmul_plain(xx, w, *args),
+                 x, row, 1030, exact=False)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,n,rows", [(4096, 1024, 8), (14336, 4096, 16),
@@ -855,6 +900,174 @@ def test_cuda_fused_tenant_matches_plain(cuda, dtype, bsz, k, n):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     with pytest.raises(ValueError):
         tbg.fused_tenant_matmul(x, w.to(torch.float16), packed, scales, ids)
+
+
+FT_KERNEL = "fused_tenant_tc_kernel"
+
+
+def _ft_inputs(cuda, bsz, t, k, n, seed, ids=None, dtype=torch.bfloat16):
+    x, w, packed, scales, rand_ids = _fused_inputs(cuda, dtype, bsz, t, k,
+                                                   n, seed)
+    return x, w, packed, scales, (rand_ids if ids is None
+                                  else torch.tensor(ids, device=cuda))
+
+
+def _ft_close(x, w, packed, scales, ids):
+    got = tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    want = tbg.fused_tenant_matmul_plain(x, w, packed, scales, ids)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    return got
+
+
+# Row 9's tensor-core kernel (bf16) at every row count from one n8 tile
+# to five 32-row launches; K off the 128-K stage (1056) and the Mistral-7B
+# depths; N off the 128-column tile and off a 64-column box (776).
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz", [1, 8, 9, 33, 65, 130])
+@pytest.mark.parametrize("k,n", [(1056, 776), (4096, 1024), (14336, 4096)])
+def test_cuda_fused_tenant_any_b(cuda, bsz, k, n):
+    _ft_close(*_ft_inputs(cuda, bsz, 3, k, n, seed=bsz + k + n))
+
+
+# Tenant patterns: one tenant, every row its own, more distinct tenants in
+# a slab than a stage holds words of (4: the slab walks its K range again
+# for each further 4), 32 distinct in one slab, repeated ids, int32 and
+# int64 ids.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,t,ids", [
+    (8, 3, [1] * 8), (8, 8, list(range(8))), (32, 32, list(range(31, -1, -1))),
+    (20, 9, None), (5, 7, [6, 0, 6, 3, 3]), (40, 2, [1] * 35 + [0] * 5)])
+@pytest.mark.parametrize("k,n", [(1056, 512), (4096, 1024)])
+def test_cuda_fused_tenant_tenant_patterns(cuda, bsz, t, ids, k, n):
+    x, w, packed, scales, ids_t = _ft_inputs(cuda, bsz, t, k, n,
+                                             seed=bsz * t + k, ids=ids)
+    got = _ft_close(x, w, packed, scales, ids_t)
+    got32 = _ft_close(x, w, packed, scales, ids_t.to(torch.int32))
+    assert torch.equal(got, got32)
+
+
+# One set sign bit, or one nonzero W element, at (kk, nn) over all-clear
+# words (every sign -1) and a zero W: with integer x the sums are exact, so
+# the kernel equals the plain version bit for bit, and the output moves in
+# column nn alone (of the rows of that tenant whose x[kk] is nonzero, or of
+# every such row). A misplaced fragment or a wrong bit moves it elsewhere.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kk,nn", [(0, 0), (31, 127), (32, 128), (16, 15),
+                                   (1055, 775), (527, 700), (1024, 640)])
+def test_cuda_fused_tenant_one_hot(cuda, kk, nn):
+    k, n, t = 1056, 776, 3
+    g = torch.Generator(device=cuda).manual_seed(kk + nn)
+    x = torch.randint(-8, 9, (8, k), generator=g, device=cuda).to(
+        torch.bfloat16)
+    ids = torch.tensor([0, 1, 2, 1, 0, 1, 2, 2], device=cuda)
+    scales = torch.tensor([0.5, 0.25, 0.75], device=cuda)
+    clear = torch.zeros((t, k // 32, n), dtype=torch.int32, device=cuda)
+    one = clear.clone()
+    one[1, kk // 32, nn] = -2 ** 31 if kk % 32 == 31 else 1 << (kk % 32)
+    w = torch.zeros((k, n), dtype=torch.bfloat16, device=cuda)
+
+    def run(wt, words):
+        got = tbg.fused_tenant_matmul(x, wt, words, scales, ids,
+                                      out_dtype=torch.float32)
+        want = tbg.fused_tenant_matmul_plain(x, wt, words, scales, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        return got
+
+    y0 = run(w, clear)
+    y1 = run(w, one)
+    assert (y1 != y0).nonzero().tolist() == [
+        [b, nn] for b in range(8) if ids[b] == 1 and x[b, kk] != 0]
+    w[kk, nn] = 1.0
+    y2 = run(w, clear)
+    assert (y2 != y0).nonzero().tolist() == [
+        [b, nn] for b in range(8) if x[b, kk] != 0]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz,k,n", [(8, 4096, 1024), (65, 14336, 4096)])
+def test_cuda_fused_tenant_is_deterministic(cuda, bsz, k, n):
+    # The K splits of a column tile add their partials through distributed
+    # shared memory in rank order: no atomics, so repeated calls are equal.
+    x, w, packed, scales, ids = _ft_inputs(cuda, bsz, 3, k, n, seed=38)
+    first = tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                                    out_dtype=torch.float32)
+    for _ in range(3):
+        again = tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                                        out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+# A bf16 call launches the tensor-core kernel once a slab of 32 rows and
+# nothing else (no split sum); fp32 keeps the CUDA-core kernel and its
+# split sum. The launches are the library's own count (a profiler trace
+# may drop records); the trace only names the kernels that ran.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bsz", [8, 32, 65])
+def test_cuda_fused_tenant_launches_one_kernel_a_slab(cuda, bsz):
+    x, w, packed, scales, ids = _ft_inputs(cuda, bsz, 3, 4096, 1024,
+                                           seed=39)
+    tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    before = tbg.fused_tenant_tc_launched()
+    tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tbg.fused_tenant_tc_launched() - before == -(-bsz // 32)
+    _, events = _trace(lambda: tbg.fused_tenant_matmul(
+        x, w, packed, scales, ids, out_dtype=torch.float32), want=(FT_KERNEL,))
+    names = sorted(_kernel_counts(events))
+    assert names and all(FT_KERNEL in nm for nm in names), names
+    before = tbg.fused_tenant_tc_launched()
+    _, events = _trace(lambda: tbg.fused_tenant_matmul(
+        x.float(), w.float(), packed, scales, ids, out_dtype=torch.float32),
+        want=("fused_tenant_kernel",))
+    keys = " ".join(evt.key for evt in events)
+    assert "fused_tenant_kernel" in keys and "sum_splits_kernel" in keys
+    assert FT_KERNEL not in keys
+    assert tbg.fused_tenant_tc_launched() == before
+
+
+# A NaN in one row's x makes that row NaN, as the plain version's (and
+# JAX's masked per-row sum); every other row is as without it.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bsz,row,kk", [(8, 3, 100), (65, 64, 4095)])
+def test_cuda_fused_tenant_nan_in_x(cuda, dtype, bsz, row, kk):
+    x, w, packed, scales, ids = _ft_inputs(cuda, bsz, 3, 4096, 1024,
+                                           seed=row, dtype=dtype)
+    _nan_row(lambda xx: tbg.fused_tenant_matmul(
+                 xx, w, packed, scales, ids, out_dtype=torch.float32),
+             lambda xx: tbg.fused_tenant_matmul_plain(xx, w, packed, scales,
+                                                      ids),
+             x, row, kk, exact=False)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_tenant_refuses_what_it_does_not_take(cuda):
+    x, w, packed, scales, ids = _ft_inputs(cuda, 8, 3, 1024, 512, seed=40)
+    bad = [
+        (x.to(torch.float16), w.to(torch.float16), packed, scales, ids),
+        (x, w.float(), packed, scales, ids),
+        (x, w.cpu(), packed, scales, ids),
+        (x, w, packed.cpu(), scales, ids),
+        (x, w, packed.to(torch.int64), scales, ids),
+        (x, w, packed, scales.cpu(), ids),
+        (x, w, packed, scales, ids.cpu()),
+        (x, w, packed, scales, ids[:4]),
+        (x, w, packed, scales, ids.to(torch.float32)),
+        (x[:, :1000], w[:1000], packed[:, :31].contiguous(), scales, ids),
+    ]
+    before = tbg.fused_tenant_matmul.launches
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            tbg.fused_tenant_matmul(*args, out_dtype=torch.float32)
+    assert tbg.fused_tenant_matmul.launches == before
 
 
 @pytest.mark.requires_cuda
