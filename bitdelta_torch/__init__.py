@@ -21,19 +21,44 @@ Layering:
   serving/   tenant stacking, sampling, the engine and the HTTP server
   train/     calibration data and scale distillation (``distill_scales``)
 
+  utils/     tokenizer loading, weight diagnostics, profiling
+  cli/       ``python -m bitdelta_torch.cli.{train,serve,eval_ppl}``
+
 Entry points (``Engine``, ``stack_tenants``, ``init_params``,
-``load_delta``, the converters, the GPTQ / bnb imports) run on the card
-unless the caller passes ``device="cpu"``; ``distill_scales`` runs where
-its params lie.
+``load_delta``, ``load_hf_params``, ``load_gptq_params``, the converters,
+the GPTQ / bnb imports, the CLIs) run on the card unless the caller
+passes ``device="cpu"`` (``--device cpu``); ``distill_scales`` and
+``eval_ppl`` run where their params lie.
 """
 
 __version__ = "0.1.0"
 
+# Public names loaded on first use (``bitdelta_torch.Engine``), as the JAX
+# package exposes them: name -> submodule.
+_LAZY = {
+    "Int4Weight": "research.quantized_base",
+    "Int8Weight": "research.quantized_base",
+    "quantize_base": "research.quantized_base",
+    "roundtrip_base": "research.quantized_base",
+    "load_gptq_params": "models.quant_import",
+    "int4_from_gptq": "models.quant_import",
+    "int8_from_bnb": "models.quant_import",
+    "dequantize_gptq": "models.quant_import",
+    "eval_ppl": "eval.ppl",
+    "distill_scales": "train.distill",
+    "Engine": "serving.engine",
+    "EngineFullError": "serving.engine",
+    "Request": "serving.engine",
+    "stack_tenants": "serving.stacking",
+    "quantize_kv": "ops.kv_quant",
+    "dequantize_kv": "ops.kv_quant",
+}
+
 
 def __getattr__(name):
-    # The quantized-base names load on first use, as in the JAX package.
-    if name in ("Int4Weight", "Int8Weight", "quantize_base",
-                "roundtrip_base"):
-        from .research import quantized_base
-        return getattr(quantized_base, name)
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
     raise AttributeError(name)

@@ -1,0 +1,105 @@
+"""Shared CLI flags (port of ``bitdelta_tpu/cli/args.py``): the same flag
+groups, with the port's kernel routes and a ``--device``.
+
+``--kernel``: ``auto`` (``cuda`` on the card, ``torch`` on the CPU),
+``cuda`` (the hand-written kernels), ``cuda_fused`` (base and delta in one
+kernel at each decode projection over a dense base) or ``torch`` (the
+plain paths). ``--device``: ``cuda`` by default; ``cpu`` runs on the CPU
+(asking for the card where there is none raises). ``--mesh`` is parsed as
+in JAX, but the port runs on one card: any shape other than ``1,1``
+exits.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+KERNELS = ("auto", "cuda", "cuda_fused", "torch")
+
+
+def add_model_args(p: argparse.ArgumentParser):
+    p.add_argument("--base_model", type=str, required=True,
+                   help="local HF checkpoint dir of the base model")
+    p.add_argument("--finetuned_model", type=str, default=None,
+                   help="local HF checkpoint dir of the fine-tune")
+
+
+def add_train_args(p: argparse.ArgumentParser):
+    p.add_argument("--dataset_name", type=str, default="c4")
+    p.add_argument("--subset", type=str, default="en")
+    p.add_argument("--split", type=str, default="train")
+    p.add_argument("--text_file", type=str, default=None,
+                   help="offline calibration text file")
+    p.add_argument("--lr", type=float, default=1e-4,
+                   help="scale-distillation AdamW lr")
+    p.add_argument("--num_steps", type=int, default=100)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--max_length", type=int, default=128)
+    p.add_argument("--save_dir", type=str, required=True)
+    p.add_argument("--save_full_model", action="store_true")
+    p.add_argument("--compress_embeddings", action="store_true",
+                   help="also 1-bit-compress embeddings and lm_head "
+                        "against the base (requires matching vocab)")
+    p.add_argument("--zero_sign", type=str, default="positive",
+                   choices=("positive", "balance"),
+                   help="sign bit for exact-zero deltas: 'positive' = all "
+                        "+1 (the reference's); 'balance' = checkerboard +-1")
+    p.add_argument("--quantize_base", type=str, default=None,
+                   choices=("int8", "int4"),
+                   help="W8+W1 / W4+W1: quantize the base projections; "
+                        "deltas are taken against the dequantized base and "
+                        "serving streams the quantized base")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the "
+                        "distillation loop into this dir")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save distillation state (scales + optimizer) to "
+                        "save_dir/distill_ckpt.safetensors every N steps "
+                        "and resume from it (0 = off)")
+
+
+def add_ppl_args(p: argparse.ArgumentParser):
+    p.add_argument("--dataset_name", type=str, default="wikitext")
+    p.add_argument("--subset", type=str, default="wikitext-2-raw-v1")
+    p.add_argument("--split", type=str, default="test")
+    p.add_argument("--num_eval_samples", type=int, default=100)
+    p.add_argument("--context_size", type=int, default=1024)
+    p.add_argument("--window_size", type=int, default=512)
+    p.add_argument("--model_diff", type=str, default=None,
+                   help="delta artifact (.safetensors); omit = eval base")
+    p.add_argument("--text_file", type=str, default=None,
+                   help="offline corpus file instead of an HF dataset")
+    p.add_argument("--save_dir", type=str, default=".")
+
+
+def add_mesh_args(p: argparse.ArgumentParser):
+    p.add_argument("--mesh", type=str, default=None,
+                   help="'dp,tp' mesh shape; the port runs on one card "
+                        "(only 1,1)")
+    p.add_argument("--dtype", type=str, default="bfloat16")
+    p.add_argument("--kernel", type=str, default="auto", choices=KERNELS,
+                   help="auto: cuda on the card, torch on the CPU")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+
+
+def parse_mesh(spec):
+    """``(dp, tp)`` of ``--mesh``, or None. The port runs on one card: any
+    shape other than ``1,1`` exits."""
+    if spec is None:
+        return None
+    dp, tp = (int(x) for x in spec.split(","))
+    if (dp, tp) != (1, 1):
+        raise SystemExit(
+            f"--mesh {spec}: the PyTorch port runs on one card; data and "
+            f"tensor parallelism are ROADMAP A6 (not ported yet)")
+    return None
+
+
+def resolve_kernel(kernel: str, device: torch.device) -> str:
+    if kernel == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    return kernel

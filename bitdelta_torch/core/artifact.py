@@ -40,21 +40,34 @@ _ST_DTYPES = {"I32": np.int32, "F32": np.float32, "U16": np.uint16,
 _NP_TO_ST = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
 
 
-def write_safetensors(path: str, tensors: Dict[str, np.ndarray],
+def _st_array(value):
+    """``(safetensors dtype, little-endian C-order numpy array)`` of a
+    numpy array or a torch tensor; a bf16 tensor is written as ``BF16``
+    from its int16 bit pattern."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "BF16", t.view(torch.int16).numpy()
+        value = t.numpy()
+    # np.asarray keeps a 0-d array (an embed delta's scale) 0-d, where
+    # np.ascontiguousarray would make it 1-d.
+    arr = np.asarray(value, order="C")
+    if arr.dtype.byteorder == ">":
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+    return _NP_TO_ST[arr.dtype], arr
+
+
+def write_safetensors(path: str, tensors: Dict[str, object],
                       metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write numpy arrays as a safetensors file."""
+    """Write numpy arrays or torch tensors as a safetensors file."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     offset = 0
     arrays = []
     for name in sorted(tensors):
-        # np.asarray keeps a 0-d array (an embed delta's scale) 0-d, where
-        # np.ascontiguousarray would make it 1-d.
-        arr = np.asarray(tensors[name], order="C")
-        if arr.dtype.byteorder == ">":
-            arr = arr.astype(arr.dtype.newbyteorder("<"))
-        header[name] = {"dtype": _NP_TO_ST[arr.dtype],
+        st_dtype, arr = _st_array(tensors[name])
+        header[name] = {"dtype": st_dtype,
                         "shape": list(arr.shape),
                         "data_offsets": [offset, offset + arr.nbytes]}
         offset += arr.nbytes
@@ -65,24 +78,49 @@ def write_safetensors(path: str, tensors: Dict[str, np.ndarray],
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
         for arr in arrays:
-            f.write(arr.tobytes())
+            f.write(arr.reshape(-1).view(np.uint8).data)
 
 
-def read_safetensors(path: str):
-    """Returns ``(tensors: name -> numpy array, metadata: dict)``."""
+def _read_header(path: str):
+    """``(tensor entries, metadata, byte offset of the data)``."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = f.read()
     meta = header.pop("__metadata__", None) or {}
-    tensors = {}
-    for name, info in header.items():
+    return header, meta, 8 + n
+
+
+def read_safetensors(path: str):
+    """Returns ``(tensors: name -> numpy array, metadata: dict)``; the
+    arrays are copies (BF16 tensors are not numpy's: read them with
+    :func:`iter_safetensors`)."""
+    meta = _read_header(path)[1]
+    return {name: t.numpy().copy()
+            for name, t in iter_safetensors(path)}, meta
+
+
+def iter_safetensors(path: str):
+    """Yield ``(name, CPU tensor)`` for every tensor of a safetensors file
+    (an HF checkpoint shard or an artifact), in file order. Each tensor is
+    a view of a copy-on-write memory map of the file, so nothing is read
+    until the tensor is used; ``BF16`` comes as ``torch.bfloat16`` (its
+    int16 bit pattern viewed). Needs no ``safetensors`` package."""
+    header, _, start = _read_header(path)
+    mm = np.memmap(path, dtype=np.uint8, mode="c")
+    for name, info in sorted(header.items(),
+                             key=lambda kv: kv[1]["data_offsets"][0]):
+        st_dtype = info["dtype"]
+        if st_dtype != "BF16" and st_dtype not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported "
+                             f"dtype {st_dtype}")
+        dtype = np.dtype(np.int16 if st_dtype == "BF16"
+                         else _ST_DTYPES[st_dtype]).newbyteorder("<")
         begin, end = info["data_offsets"]
-        dtype = np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<")
-        arr = np.frombuffer(data, dtype=dtype, count=(end - begin)
-                            // dtype.itemsize, offset=begin)
-        tensors[name] = arr.reshape(info["shape"]).copy()
-    return tensors, meta
+        raw = mm[start + begin:start + end]
+        if (start + begin) % dtype.itemsize:
+            raw = np.array(raw)                  # an aligned copy
+        t = torch.from_numpy(raw.view(dtype).reshape(info["shape"]))
+        yield name, (t.view(torch.bfloat16) if st_dtype == "BF16" else t)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -56,6 +56,52 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @staticmethod
+    def from_hf_config(hf) -> "ModelConfig":
+        """Build from a transformers ``PretrainedConfig`` or any object
+        with its attributes (Llama 2/3, Mistral, TinyLlama, Qwen2)."""
+        get = lambda k, d=None: getattr(hf, k, d)
+        raw_scaling = get("rope_scaling", None)
+        scaling = None
+        if raw_scaling:
+            rtype = raw_scaling.get("rope_type",
+                                    raw_scaling.get("type", "default"))
+            if rtype == "default":
+                scaling = None
+            elif rtype == "linear":
+                scaling = RopeScaling(rope_type="linear",
+                                      factor=raw_scaling["factor"])
+            elif rtype == "llama3":
+                scaling = RopeScaling(
+                    rope_type="llama3",
+                    factor=raw_scaling["factor"],
+                    low_freq_factor=raw_scaling["low_freq_factor"],
+                    high_freq_factor=raw_scaling["high_freq_factor"],
+                    original_max_position_embeddings=raw_scaling[
+                        "original_max_position_embeddings"])
+            else:
+                raise ValueError(f"unsupported rope_scaling type {rtype!r}")
+        # Qwen2 always uses q/k/v biases (its config has no flag);
+        # Llama-family configs carry an explicit attention_bias.
+        attention_bias = bool(get(
+            "attention_bias", get("model_type", "") == "qwen2"))
+        return ModelConfig(
+            vocab_size=hf.vocab_size,
+            hidden_size=hf.hidden_size,
+            intermediate_size=hf.intermediate_size,
+            num_layers=hf.num_hidden_layers,
+            num_heads=hf.num_attention_heads,
+            num_kv_heads=get("num_key_value_heads", hf.num_attention_heads),
+            head_dim=get("head_dim", None),
+            rope_theta=get("rope_theta", 10000.0),
+            rope_scaling=scaling,
+            rms_norm_eps=get("rms_norm_eps", 1e-5),
+            max_seq_len=get("max_position_embeddings", 4096),
+            sliding_window=get("sliding_window", None),
+            attention_bias=attention_bias,
+            tie_word_embeddings=get("tie_word_embeddings", False),
+        )
+
     @classmethod
     def from_dict(cls, raw: dict) -> "ModelConfig":
         """Inverse of ``dataclasses.asdict`` (artifact metadata); a

@@ -191,9 +191,10 @@ def _base_matmul(x: torch.Tensor, w, compute_dtype, kernel: str = "torch"
     (``w4_matmul``). The gate is JAX's (2-D x, at most 64 rows, K a
     multiple of 128) with one condition of the port's in place of the
     last: the scale has exactly K/128 rows (so K is a multiple of 128).
-    An imported GPTQ layer can carry groups of 16-64 rows, which
-    ``int4_matmul`` takes and the kernel does not (JAX's Pallas kernel
-    would fail its assert there). JAX's gate also misses N; the port's
+    A GPTQ layer imported on the CPU can carry groups of 16-64 rows,
+    which ``int4_matmul`` takes and the kernel does not (JAX's Pallas
+    kernel would fail its assert there); ``load_gptq_params`` dequantizes
+    such a layer on the card. JAX's gate also misses N; the port's
     kernel masks its last column tile, so it needs no N condition. The
     choice is made by shape before any launch."""
     if isinstance(w, Int8Weight):

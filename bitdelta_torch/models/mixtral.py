@@ -1,6 +1,6 @@
 """The Mixtral (sparse MoE) decoder in PyTorch (port of
 ``bitdelta_tpu/models/mixtral.py``, single device: the ``tp_axis``
-branches and the HF import are not ported).
+branches are not ported; the HF import is ``models/hf_import.py``).
 
 Attention is llama's (the same RoPE / GQA blocks, and llama's ``_proj``
 for the four attention projections, so their deltas take the same kernel
@@ -49,6 +49,18 @@ from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
 class MixtralConfig(ModelConfig):
     num_experts: int = 8
     experts_per_token: int = 2
+
+    @staticmethod
+    def from_hf_config(hf) -> "MixtralConfig":
+        base = ModelConfig.from_hf_config(hf)
+        # Shallow field copy (dataclasses.asdict would recurse into the
+        # frozen RopeScaling and hand MixtralConfig a plain dict).
+        fields = {f.name: getattr(base, f.name)
+                  for f in dataclasses.fields(base)}
+        return MixtralConfig(
+            **fields,
+            num_experts=getattr(hf, "num_local_experts", 8),
+            experts_per_token=getattr(hf, "num_experts_per_tok", 2))
 
 
 def mixtral_8x7b() -> MixtralConfig:

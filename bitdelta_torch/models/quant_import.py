@@ -15,19 +15,23 @@ on top (``deq = (q - zero) * scale`` per K group with the legacy
   is what the reference does for every checkpoint.
 
 GPTQ stores ``(K_in, N_out)``, the port's layout, so imports need no
-transpose. Loading a whole checkpoint directory (``load_gptq_params``)
-is not ported yet.
+transpose. :func:`load_gptq_params` loads a whole checkpoint directory.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+import warnings
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from ..research.quantized_base import Int4Weight, Int8Weight
+from ..device import resolve_device, torch_dtype
+from .config import ModelConfig
+from .hf_import import _LAYER_MAP, _iter_safetensors, load_hf_config
+from ..research.quantized_base import INT4_GROUP, Int4Weight, Int8Weight
 
 _SYM_NIBBLES = np.uint32(0x77777777)   # zero-point nibble 7 => zero == 8
 _SYM_NIBBLES_V2 = np.uint32(0x88888888)  # gptq_v2 stores zeros unshifted
@@ -126,3 +130,129 @@ def int8_from_bnb(cb: np.ndarray, scb: np.ndarray,
     q = torch.from_numpy(np.ascontiguousarray(cb.T).copy())
     scale = torch.from_numpy(np.asarray(scb, np.float32) / np.float32(127.0))
     return Int8Weight(q=q.to(device), scale=scale.to(device))
+
+
+# HF sub-name -> our name, for the seven projections (the transposed
+# matrices of the dense import's map).
+_PROJ_SUBS = {hf: ours for hf, (ours, transpose) in _LAYER_MAP.items()
+              if transpose}
+
+
+def _checkpoint_format(ckpt_dir: str) -> str:
+    """``checkpoint_format`` of ``quantize_config.json``: gptqmodel writes
+    ``"gptq_v2"`` (zeros unshifted); the legacy AutoGPTQ format ``"gptq"``
+    (the default) shifts them by -1."""
+    path = os.path.join(ckpt_dir, "quantize_config.json")
+    fmt = "gptq"
+    if os.path.exists(path):
+        with open(path) as f:
+            fmt = json.load(f).get("checkpoint_format", "gptq")
+    if fmt not in ("gptq", "gptq_v2"):
+        raise ValueError(f"unsupported GPTQ checkpoint_format {fmt!r} "
+                         f"in {path}")
+    return fmt
+
+
+def _w4_native(k: int, n_groups: int, device: torch.device) -> bool:
+    """Whether a symmetric projection of ``n_groups`` scale groups over
+    ``k`` rows keeps its packed words on ``device``. On the card only at
+    the W4 kernel's 128-row groups: ``llama._base_matmul`` sends the
+    kernel nothing else, so another group would decode in plain PyTorch.
+    On the CPU at any group dividing ``k``, as JAX's importer."""
+    return device.type != "cuda" or n_groups * INT4_GROUP == k
+
+
+def load_gptq_params(ckpt_dir: str, cfg: Optional[ModelConfig] = None,
+                     dtype=torch.bfloat16, native: bool = True,
+                     device="cuda") -> Tuple[ModelConfig, Dict]:
+    """Load an AutoGPTQ-format llama-family checkpoint directory into the
+    port's params on ``device``.
+
+    A projection whose layers are all symmetric (and not act-order)
+    becomes a stacked :class:`Int4Weight` (``packed (L, K//8, N)``,
+    ``scale (L, G, N)``) when ``native=True``, served through the W4 path
+    with no dequantization error. On the CPU its scales pass through
+    whatever the group size (``int4_matmul`` takes any that divides K),
+    as JAX's importer does. On the card only 128-row groups do, the W4
+    kernel's: a symmetric projection of another group size (AutoGPTQ's
+    32 or 64) is dequantized to the dense stack, served by the dense
+    matmul, with a warning naming it. Anything else (asymmetric zeros,
+    ``g_idx`` act-order) is dequantized to a dense ``dtype`` stack, which
+    is what the reference does for every checkpoint. Embeddings, norms and
+    lm_head load as a dense HF checkpoint's. Each stacked tensor is
+    allocated on the device once and filled a layer at a time."""
+    device, dtype = resolve_device(device), torch_dtype(dtype)
+    cfg = cfg or load_hf_config(ckpt_dir)
+    fmt = _checkpoint_format(ckpt_dir)
+    # The quantized arrays are small (a quarter of the dense weights):
+    # held as host views of the memory-mapped shards until stacked.
+    tensors = dict(_iter_safetensors(ckpt_dir))
+    L = cfg.num_layers
+
+    def dense(name, transpose=False):
+        t = tensors[name].to(device)
+        return (t.t() if transpose else t).to(dtype).contiguous()
+
+    def stacked(fmt_name):
+        first = tensors[fmt_name.format(0)]
+        out = torch.empty((L,) + tuple(first.shape), dtype=dtype,
+                          device=device)
+        for i in range(L):
+            out[i].copy_(tensors[fmt_name.format(i)].to(device))
+        return out
+
+    params: Dict[str, object] = {
+        "embed": dense("model.embed_tokens.weight"),
+        "final_norm": dense("model.norm.weight"),
+        "layers": {
+            "attn_norm": stacked("model.layers.{}.input_layernorm.weight"),
+            "mlp_norm": stacked(
+                "model.layers.{}.post_attention_layernorm.weight"),
+        },
+    }
+    if "lm_head.weight" in tensors:
+        params["lm_head"] = dense("lm_head.weight", transpose=True)
+
+    layers = params["layers"]
+    regrouped = []
+    for sub, ours in _PROJ_SUBS.items():
+        def arr(i, field):
+            key = f"model.layers.{i}.{sub}.{field}"
+            return tensors[key].numpy() if key in tensors else None
+
+        qw = [arr(i, "qweight") for i in range(L)]
+        qz = [arr(i, "qzeros") for i in range(L)]
+        gi = [arr(i, "g_idx") for i in range(L)]
+        sym = native and all(
+            gptq_is_symmetric(z, g, w.shape[0] * 8, fmt)
+            for w, z, g in zip(qw, qz, gi))
+        if sym and not _w4_native(qw[0].shape[0] * 8, qz[0].shape[0],
+                                  device):
+            regrouped.append(ours)
+            sym = False
+        if sym:
+            packed = torch.empty((L,) + qw[0].shape, dtype=torch.int32,
+                                 device=device)
+            scale = torch.empty((L,) + tuple(arr(0, "scales").shape),
+                                dtype=torch.float32, device=device)
+            for i in range(L):
+                w4 = int4_from_gptq(qw[i], qz[i], arr(i, "scales"), gi[i],
+                                    fmt, device=device)
+                packed[i].copy_(w4.packed)
+                scale[i].copy_(w4.scale)
+            layers[ours] = Int4Weight(packed=packed, scale=scale)
+        else:
+            k, n = qw[0].shape[0] * 8, qw[0].shape[1]
+            out = torch.empty((L, k, n), dtype=dtype, device=device)
+            for i in range(L):
+                w = dequantize_gptq(qw[i], qz[i], arr(i, "scales"), gi[i],
+                                    fmt)
+                out[i].copy_(torch.from_numpy(w).to(device))
+            layers[ours] = out
+    if regrouped:
+        warnings.warn(
+            f"{ckpt_dir}: GPTQ groups of other than {INT4_GROUP} rows; the "
+            f"W4 kernel takes {INT4_GROUP}-row groups, so "
+            f"{', '.join(regrouped)} load dequantized to dense {dtype}",
+            stacklevel=2)
+    return cfg, params

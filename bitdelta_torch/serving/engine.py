@@ -35,6 +35,7 @@ import torch
 from ..device import resolve_device, torch_dtype
 from ..models import llama
 from ..models.config import ModelConfig
+from ..utils.profiling import StepTimer
 from .sampling import sample_tokens
 from .stacking import TenantStack, to_pair_layout
 
@@ -104,29 +105,6 @@ class StepEvent:
     finish_reason: Optional[str] = None  # "stop" | "length"
     # False for finish-only events whose token was already delivered.
     new_token: bool = True
-
-
-class StepTimer:
-    """Rolling decode step-time / tokens-per-second meter (host clock
-    around each chunk readback)."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times: list = []
-        self.tokens: list = []
-
-    def add(self, seconds: float, tokens: int) -> None:
-        self.times.append(seconds)
-        self.tokens.append(tokens)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-            self.tokens.pop(0)
-
-    def summary(self) -> Dict[str, float]:
-        total = sum(self.times)
-        return {"mean_step_time_s": total / max(len(self.times), 1),
-                "tokens_per_sec": sum(self.tokens) / total if total else 0.0,
-                "steps_measured": len(self.times)}
 
 
 class Engine:
@@ -218,6 +196,7 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._cancelled: set = set()          # rids cancelled mid-prefill
         self.timer = StepTimer()
+        self.warmed: Dict[str, list] = {"prefill": [], "decode": []}
 
     # ------------------------------------------------------------------
     # Device functions
@@ -325,6 +304,60 @@ class Engine:
                     ev.record()
                     probe = (flag, ev)
         return toks, tokens, live, rem
+
+    # ------------------------------------------------------------------
+    # Warmup
+    # ------------------------------------------------------------------
+
+    def warmup(self) -> Dict[str, list]:
+        """Run every path a request takes once before the first request:
+        a dummy prefill at every bucket, alone (``submit``) and with all
+        slots (``generate``'s burst), the insert into the engine's cache,
+        and one decode step of the whole batch against it. In eager
+        PyTorch nothing compiles, but the first call of each path loads
+        the kernel libraries, creates the cuBLAS handles and grows the
+        allocator's pools; this keeps that out of a live request. The
+        cache lengths and the sampling generator are left as they were.
+        Safe only while no request is in flight. Returns
+        ``{"prefill": buckets, "decode": [decode_chunk]}``: one decode
+        program serves every chunk size (the chunk is a Python loop over
+        the same step)."""
+        with self._lock:
+            if any(s.active or s.reserved for s in self.slots):
+                raise RuntimeError("warmup requires an idle engine")
+        gen_state = self._gen.get_state()
+        rowcache = None
+        for bucket in self.prefill_buckets:
+            for rows in sorted({1, self.max_slots}):
+                tokens = np.zeros((rows, bucket), np.int64)
+                tokens[:, 0] = 1
+                _first, rowcache = self._prefill(
+                    tokens, np.ones((rows,), np.int32),
+                    np.zeros((rows,), np.int32), np.zeros((rows,), np.float32),
+                    np.zeros((rows,), np.int32), np.ones((rows,), np.float32))
+        bsz = self.max_slots
+        with self._lock, torch.no_grad():
+            if rowcache is not None:
+                # Row length 0: the inserted row stays dead.
+                self._insert(rowcache, [0], [0], [0])
+            length = self.cache.length.clone()
+            logits, cache = self.model.decode_step(
+                self.cfg, self.stack.params,
+                torch.zeros((bsz, 1), dtype=torch.int64, device=self.device),
+                self.cache, deltas=self.stack.deltas,
+                tenant_ids=self._t(self.tenant_ids, torch.int64),
+                compute_dtype=self.compute_dtype, kernel=self.kernel)
+            sample_tokens(self._gen, logits[:, 0].to(torch.float32),
+                          self._t(self.temps, torch.float32),
+                          self._t(self.top_ks, torch.int32),
+                          self._t(self.top_ps, torch.float32))
+            self.cache = cache._replace(length=length)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._gen.set_state(gen_state)
+        self.warmed = {"prefill": list(self.prefill_buckets),
+                       "decode": [self.decode_chunk]}
+        return self.warmed
 
     # ------------------------------------------------------------------
     # Host-side scheduling

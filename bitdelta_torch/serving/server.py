@@ -44,6 +44,13 @@ class ByteTokenizer:
         return bytes(i - 1 for i in ids
                      if 1 <= i <= 256).decode("utf-8", errors="replace")
 
+    def __call__(self, text, **kw):
+        # The HF tokenizer call (eval corpus and calibration tokenization);
+        # padding / truncation arguments are ignored, as in JAX.
+        if isinstance(text, str):
+            return {"input_ids": self.encode(text)}
+        return {"input_ids": [self.encode(t) for t in text]}
+
 
 def render_chat(tokenizer, messages: List[dict], system_prompt: str = ""
                 ) -> str:

@@ -13,6 +13,10 @@ the per-matrix delta scales against the fine-tuned teacher's logits.
 Functions (the binary matmul forward and its transposed kernel backward,
 flash prefill with its blockwise backward), the counterpart of JAX's
 ``"pallas_train"``; ``"torch"`` runs the plain path, JAX's ``"xla"``.
+``model=`` picks the decoder (llama by default; ``models.mixtral``
+distills the attention, expert and router scales: its attention
+projections take the same kernel route, the experts and the router the
+plain path, as JAX leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -75,12 +79,18 @@ def _adam_step(optimizer: torch.optim.Optimizer) -> int:
 def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
                       finetuned_params, compressed: CompressedModel,
                       scales: Dict[str, torch.Tensor],
-                      optimizer: torch.optim.Optimizer):
+                      optimizer: torch.optim.Optimizer, model=None):
     """The step ``batch (B, S) int64 -> loss`` (a detached 0-d fp32
     tensor). It updates ``scales`` in place through ``optimizer`` and
-    leaves this step's gradients in ``scales[name].grad``."""
+    leaves this step's gradients in ``scales[name].grad``. ``model``: the
+    decoder module (default llama; ``models.mixtral`` for MoE, whose
+    student params come from ``mixtral_student_params``)."""
+    model = model if model is not None else llama
     compute_dtype = torch_dtype(dcfg.compute_dtype)
-    s_params = student_params(base_params, compressed)
+    if model is llama:
+        s_params = student_params(base_params, compressed)
+    else:
+        s_params = model.mixtral_student_params(base_params, compressed)
     packed = {name: d.packed for name, d in compressed.deltas.items()}
     kernel = resolve_kernel(dcfg.kernel, base_params["embed"].device)
 
@@ -89,12 +99,12 @@ def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
         for group in optimizer.param_groups:
             group["lr"] = lr
         with torch.no_grad():
-            teacher = llama.forward(cfg, finetuned_params, batch,
+            teacher = model.forward(cfg, finetuned_params, batch,
                                     compute_dtype=compute_dtype,
                                     kernel="torch")
         deltas = {name: BinaryDelta(packed=packed[name], scale=scales[name])
                   for name in packed}
-        student = llama.forward(cfg, s_params, batch, deltas=deltas,
+        student = model.forward(cfg, s_params, batch, deltas=deltas,
                                 compute_dtype=compute_dtype, kernel=kernel)
         diff = (teacher - student).to(torch.float32)
         loss = torch.mean(diff * diff)
@@ -145,7 +155,7 @@ def load_distill_checkpoint(path: str, scales: Dict[str, torch.Tensor],
 def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
                    compressed: CompressedModel, batches,
                    dcfg: DistillConfig = DistillConfig(), *,
-                   progress: bool = False,
+                   progress: bool = False, model=None,
                    checkpoint_path: Optional[str] = None,
                    checkpoint_every: int = 0
                    ) -> Tuple[CompressedModel, List[float]]:
@@ -157,7 +167,8 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
     its scales. With ``checkpoint_path`` and ``checkpoint_every`` the
     state is saved every ``checkpoint_every`` steps; when the file
     exists, the run resumes from it and, given the same batches, lands
-    on the trajectory of a run without a break.
+    on the trajectory of a run without a break. ``model``: the decoder
+    module, as :func:`make_distill_step` takes it.
     """
     device = base_params["embed"].device
     scales = {name: s.detach().to(torch.float32).clone().requires_grad_()
@@ -170,7 +181,7 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
             print(f"[distill] resuming from {checkpoint_path} at step "
                   f"{start}", flush=True)
     step = make_distill_step(cfg, dcfg, base_params, finetuned_params,
-                             compressed, scales, optimizer)
+                             compressed, scales, optimizer, model=model)
     losses: List[float] = []
     for i, batch in enumerate(batches):
         if i < start:

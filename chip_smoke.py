@@ -85,7 +85,28 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    side by side on one line; ``Engine(kernel="cuda_fused")`` over HTTP
    with the three tenants, as phase 4; then one tenant's perplexity (3 windows of
    1024 + 512 seeded tokens) densely fused by ``fuse_compressed`` and
-   through its deltas, which must agree within 1%.
+   through its deltas, which must agree within 1%;
+10. cli: every earlier world freed, a full-width Mistral-7B at 4 layers
+   written as an HF checkpoint pair (``config.json`` and two ``BF16``
+   shards each, in HF's names and ``(out, in)`` layout, by the port's
+   exporter and writer; the fine-tune = base + seeded noise) and driven
+   through the port's CLIs: ``load_hf_params`` timed; ``cli.train`` in this process
+   (3 steps, batch 4, length 128, ``--checkpoint_every 2 --debug
+   --save_full_model``: both artifacts, the checkpoint and three finite
+   losses; ``diff_untrained``'s words bit-equal to ``compress_model``'s;
+   rows 4, 5, 6 launched); ``calibrated_model/`` loaded back equal to
+   ``fuse_compressed(base, diff)``; ``cli.serve --smoke_test`` with two
+   tenants under ``cuda`` (rows 1, 2, 3, 4, 5) and ``cuda_fused`` (row
+   10 for row 1); ``python -m bitdelta_torch.cli.serve`` as its own
+   process, one broadcast ``/generate`` over HTTP (first-token ms);
+   ``cli.eval_ppl`` on the byte tokenizer within 0.3% of the library's
+   PPL through the deltas, while the base alone must score at least four
+   times that far from it; a symmetric group-128 GPTQ checkpoint through
+   ``load_gptq_params`` (every projection an ``Int4Weight``) and one B=8
+   decode step under a tenant's deltas (row 8 28 times; logits within 2%
+   of the dense dequantized base's); then a full-width 2-layer
+   Mixtral-8x7B pair through the train (rows 5, 6), serve and eval CLIs.
+   Each checkpoint is deleted once its step is done.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -95,6 +116,7 @@ Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -793,7 +815,9 @@ def check_fused(dev, gen, results, name):
     """Row 9 (``fused_tenant_matmul``, canonical) or row 10
     (``fused_base_pair_matmul``, pair layout) at the seven Mistral-7B
     projections, B=8 over T=3 tenants: against its plain version with
-    bf16 and fp32 x and W, timed with bf16 (profiler and queued). Row 9
+    bf16 and fp32 x and W, timed with bf16 (profiler and queued) and
+    with fp32 (profiler, the CUDA-core kernels; ``results[name]["fp32"]``).
+    Row 9
     also at B = 65 (three launches), with 8 distinct tenants in one slab
     (more than a stage holds words of), one launch a call at B = 8, and a
     NaN in x, and beside one cuBLAS matmul for the base and one a distinct
@@ -815,6 +839,12 @@ def check_fused(dev, gen, results, name):
                         + (("prep_ms", "main_ms") if pair
                            else ("per_tenant_ms",)), 0.0)
     err, err32, shapes, by = 0.0, 0.0, [], set()
+    # The fp32 x and W calls (the CUDA-core kernels), timed apart.
+    fp32_names = (FUSED_PAIR_FP32_KERNELS if pair
+                  else FUSED_TENANT_FP32_KERNELS)
+    tot32 = dict.fromkeys(("ms", "kernel_ms", "event_ms", "plain_ms",
+                           "library_ms", "bound_ms"), 0.0)
+    by32 = set()
 
     def make(k, n, nb=bsz, nt=t):
         packed = torch.randint(-2**31, 2**31 - 1, (nt, k // 32, n),
@@ -893,16 +923,33 @@ def check_fused(dev, gen, results, name):
             row["per_tenant_ms"] = device_ms(
                 lambda i: per_tenant_fused(x0, w0, pm1, scales, groups), 1,
                 f"{name} {proj} per-tenant matmul", iters=5)[0]
-        del pm1, sets
+        # fp32 x and W: the same inputs widened (exact), on the CUDA-core
+        # kernels; the library call is the same two calls in fp32 (TF32
+        # off).
+        sets32 = [(a[0].float(), a[1].float(), *a[2:]) for a in sets]
+        x32, w32, pm1_32 = x0.float(), w0.float(), pm1.float()
+        row32 = time_wrapper(
+            f"{name} {proj} fp32",
+            lambda i: fn(*sets32[i], out_dtype=torch.float32), len(sets32),
+            fp32_names, plain=lambda i: plain_fn(*sets32[i]),
+            library=lambda i: (torch.matmul(x32, w32),
+                               torch.bmm(x32[:, None], pm1_32[ids])))
+        del pm1, sets, sets32, x32, w32, pm1_32
         distinct = int(torch.unique(ids).numel())
         words = distinct * k * n // 8 + (distinct * n * 4 if pair else 0)
         nbytes = k * n * 2 + words + bsz * k * 2 + bsz * n * 4
         row["bound_ms"], b_by = bound(nbytes, 2 * (2 * bsz * k * n))
         by.add(b_by)
+        row32["bound_ms"], b_by32 = bound(
+            k * n * 4 + words + bsz * k * 4 + bsz * n * 4,
+            2 * (2 * bsz * k * n), PEAK_FP32_S)
+        by32.add(b_by32)
         for key in tot:
             tot[key] += row[key]
+        for key in tot32:
+            tot32[key] += row32[key]
         shapes.append({"proj": proj, "k": k, "n": n, **row,
-                       "max_abs_err": errs})
+                       "max_abs_err": errs, "fp32": row32})
     extra = {}
     if pair:
         # Row 1's prep keeps a NaN of x in its 16-value tail (K = 1040, a
@@ -942,6 +989,13 @@ def check_fused(dev, gen, results, name):
     results[name] = dict(
         tot, max_abs_err=err, fp32_max_abs_err=err32,
         bound_by="+".join(sorted(by)), **extra,
+        fp32=dict(tot32, max_abs_err=err32, bound_by="+".join(sorted(by32)),
+                  kernel=" + ".join(fp32_names),
+                  bound_basis="bytes: the fp32 base (K*N*4) + the distinct "
+                              "tenants' words + x fp32 + fp32 out; ops: "
+                              "4*B*K*N at the fp32 CUDA-core rate",
+                  library="torch.matmul(x, W) + torch.bmm(x[:, None], "
+                          "pm1[ids]) in fp32 (TF32 off)"),
         tolerance="1e-4 * max|ref| with bf16 and with fp32 x and W: bf16 "
                   "products are exact in fp32 and both sides sum in fp32, "
                   "in another order" + ("; the integer pair sums and row "
@@ -2999,6 +3053,550 @@ def fused(dev, name):
 
 
 # ---------------------------------------------------------------------------
+# 10. The entry points: checkpoints on disk through the CLIs
+# ---------------------------------------------------------------------------
+
+CLI_LAYERS = 4               # Mistral-7B's full width at 4 layers
+CLI_MIXTRAL_LAYERS = 2       # Mixtral-8x7B's full width at 2 layers
+CLI_PPL_RTOL = 3e-3          # the CLI's dense-fused PPL vs the deltas'
+# The base alone (a CLI that ignored --model_diff) must score at least this
+# many tolerances away from the deltas' PPL, or the check above could not
+# tell the two apart.
+CLI_PPL_MARGIN = 4
+CLI_GPTQ_LIMIT = 2e-2        # W4 (GPTQ) step vs its dense dequantized base
+# The kernels each CLI run must launch (phase 10's paths).
+CLI_PATHS = {
+    "train": PATHS["train"],
+    "serve": ("tenant_delta_matmul_pair", "flash_decode_attention",
+              "tenant_dense_matmul", "flash_prefill_attention",
+              "binary_matmul"),
+    "serve_fused": ("fused_base_pair_matmul", "flash_decode_attention",
+                    "tenant_dense_matmul", "flash_prefill_attention",
+                    "binary_matmul"),
+    "mixtral_train": ("binary_matmul", "binary_matmul_t"),
+    "mixtral_serve": PATHS["mixtral"],
+}
+def write_hf_checkpoint(cfg, params, out_dir, shards=2):
+    """``params`` (the port's layout, on the card) as an HF checkpoint:
+    ``config.json`` and ``shards`` BF16 safetensors files, both from the
+    port's exporter (``core/export.py``: HF's names and ``(out, in)``
+    layout, transposed on the card) and written by the port's writer, the
+    layers split evenly over the shards. Returns the bytes written."""
+    from bitdelta_torch.core.artifact import write_safetensors
+    from bitdelta_torch.core.export import hf_config_dict, hf_state_dict
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True)
+    (out_dir / "config.json").write_text(
+        json.dumps(hf_config_dict(cfg, dtype=torch.bfloat16)))
+    sd = hf_state_dict(cfg, params, dtype=torch.bfloat16)
+    per = -(-cfg.num_layers // shards)
+
+    def shard(key):
+        m = re.match(r"model\.layers\.(\d+)\.", key)
+        if m:
+            return int(m.group(1)) // per
+        return 0 if key == "model.embed_tokens.weight" else shards - 1
+
+    for s in range(shards):
+        write_safetensors(str(out_dir / f"model-{s + 1:05d}-of-"
+                                        f"{shards:05d}.safetensors"),
+                          {k: v for k, v in sd.items() if shard(k) == s},
+                          {"format": "pt"})
+    del sd
+    return sum(f.stat().st_size for f in out_dir.glob("*.safetensors"))
+
+
+def write_gptq_checkpoint(cfg, out_dir, gen, dev, group=128):
+    """A symmetric AutoGPTQ checkpoint of ``cfg``'s shape (every zero point
+    8, contiguous groups of ``group`` rows) from seeded draws: random
+    nibbles, fp16 scales near 0.004, fp16 embed / norms / head."""
+    from bitdelta_torch.core.artifact import write_safetensors
+    from bitdelta_torch.core.export import HF_NAMES, hf_config_dict
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True)
+    (out_dir / "config.json").write_text(
+        json.dumps(hf_config_dict(cfg, dtype=torch.float16)))
+    dims = {"q_proj": (cfg.hidden_size, cfg.q_dim),
+            "k_proj": (cfg.hidden_size, cfg.kv_dim),
+            "v_proj": (cfg.hidden_size, cfg.kv_dim),
+            "o_proj": (cfg.q_dim, cfg.hidden_size),
+            "gate_proj": (cfg.hidden_size, cfg.intermediate_size),
+            "up_proj": (cfg.hidden_size, cfg.intermediate_size),
+            "down_proj": (cfg.intermediate_size, cfg.hidden_size)}
+
+    def f16(*shape, scale=0.02, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(torch.float16).cpu()
+
+    t = {"model.embed_tokens.weight": f16(cfg.vocab_size, cfg.hidden_size),
+         "model.norm.weight": f16(cfg.hidden_size, shift=1.0),
+         "lm_head.weight": f16(cfg.vocab_size, cfg.hidden_size)}
+    for layer in range(cfg.num_layers):
+        pre = f"model.layers.{layer}"
+        t[f"{pre}.input_layernorm.weight"] = f16(cfg.hidden_size, shift=1.0)
+        t[f"{pre}.post_attention_layernorm.weight"] = f16(cfg.hidden_size,
+                                                          shift=1.0)
+        for name, (k, n) in dims.items():
+            q = f"{pre}.{HF_NAMES[name][0]}"
+            t[f"{q}.qweight"] = torch.randint(
+                -2**31, 2**31 - 1, (k // 8, n), generator=gen, device=dev,
+                dtype=torch.int32).cpu()
+            t[f"{q}.qzeros"] = torch.full((k // group, n // 8), 0x77777777,
+                                          dtype=torch.int32)
+            t[f"{q}.scales"] = (torch.rand((k // group, n), generator=gen,
+                                           device=dev) * 0.002
+                                + 0.003).to(torch.float16).cpu()
+            t[f"{q}.g_idx"] = (torch.arange(k, dtype=torch.int32) // group)
+    write_safetensors(str(out_dir / "model.safetensors"), t,
+                      {"format": "pt"})
+    return sum(v.numel() * v.element_size() for v in t.values())
+
+
+def seeded_corpus(path, n_words, seed):
+    import numpy as np
+
+    words = ("the of and to in is was for on as with by at from that "
+             "model delta base tenant scale weight token layer sign bit "
+             "serve train eval card memory kernel").split()
+    rng = np.random.default_rng(seed)
+    text = " ".join(words[i] for i in rng.integers(0, len(words), n_words))
+    Path(path).write_text(text)
+
+
+class CliCounts:
+    """Launch counts summed over the CLI runs of phase 10 (each run reset
+    just before and read just after; the checks between runs launch
+    outside them)."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(KERNELS, 0)
+        self.by_run = {}
+
+    def run(self, label, fn, want=()):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            self.total[k] += v
+        self.by_run[label] = {k: v for k, v in counts.items() if v}
+        for kname in want:
+            require(counts[kname] > 0,
+                    f"cli {label}: kernel {kname} was never launched")
+        return out, seconds
+
+
+def run_cli(main, argv):
+    """``main(argv)`` in this process with its standard output captured
+    (and echoed, shortened, to ours)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv)
+    out = buf.getvalue()
+    tail = out if len(out) < 4000 else out[:1500] + "\n...\n" + out[-2000:]
+    print(tail, end="" if tail.endswith("\n") else "\n", flush=True)
+    return ret, out
+
+
+def smoke_lines(out, tenants, label):
+    """The NDJSON lines of a ``--smoke_test`` run, checked well formed:
+    every line's keys, ids in the vocabulary, each tenant done once."""
+    require("[smoke ok]" in out, f"{label}: no [smoke ok]")
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    require(lines and all(set(line) == {"tenant", "token_id", "text",
+                                        "done"} for line in lines),
+            f"{label}: malformed NDJSON")
+    require(sorted(line["tenant"] for line in lines if line["done"])
+            == sorted(tenants), f"{label}: not every tenant finished")
+    return {t: [line["token_id"] for line in lines if line["tenant"] == t]
+            for t in tenants}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_subprocess(base_dir, deltas, report):
+    """``python -m bitdelta_torch.cli.serve`` in its own process: wait for
+    its "serving" line, POST one broadcast ``/generate``, time the first
+    NDJSON line, and terminate it. Fails if it exits on its own."""
+    import os
+    import queue
+
+    port = free_port()
+    repo = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "bitdelta_torch.cli.serve", "--base_model",
+           base_dir, "--host", "127.0.0.1", "--port", str(port),
+           "--max_seq", "1024"]
+    for name, path in deltas.items():
+        cmd += ["--delta", f"{name}={path}"]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(repo), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout],
+        daemon=True)
+    reader.start()
+    log = []
+    try:
+        deadline = time.perf_counter() + 600
+        while True:
+            require(time.perf_counter() < deadline,
+                    "serve subprocess: no 'serving' line in 600 s")
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                require(proc.poll() is None,
+                        f"serve subprocess exited with {proc.returncode}: "
+                        + "".join(log[-20:]))
+                continue
+            log.append(line)
+            if line.startswith("serving "):
+                break
+        report["subprocess_ready_s"] = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(url + "/models", timeout=60) as r:
+            require(json.loads(r.read()) == {"models": list(deltas)},
+                    "serve subprocess: /models answered wrongly")
+        got, first_s, total_s = _post(url, {"prompt": "Hello from the card",
+                                            "max_new_tokens": 8})
+        require({line["tenant"] for line in got} == set(deltas)
+                and sum(line["done"] for line in got) == len(deltas),
+                "serve subprocess: the broadcast did not answer from every "
+                "tenant")
+        require(proc.poll() is None, "serve subprocess exited on its own")
+        report["subprocess_first_token_ms"] = first_s * 1e3
+        report["subprocess_broadcast_s"] = total_s
+        report["subprocess_log"] = [line.rstrip() for line in log
+                                    if not line.startswith("{")][-8:]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
+
+
+@contextlib.contextmanager
+def without_module(mod):
+    """Make ``import mod`` fail inside the block, as on a machine without
+    it, whatever this one has installed."""
+    had, old = mod in sys.modules, sys.modules.get(mod)
+    sys.modules[mod] = None
+    try:
+        yield
+    finally:
+        if had:
+            sys.modules[mod] = old
+        else:
+            del sys.modules[mod]
+
+
+def cli(dev, name):
+    """Phase 10: full-width Mistral-7B (CLI_LAYERS layers) and Mixtral-8x7B
+    (CLI_MIXTRAL_LAYERS) checkpoints written to disk and driven through
+    the port's train, serve and eval CLIs; the export round trip; a GPTQ
+    checkpoint through ``load_gptq_params`` and one decode step."""
+    import dataclasses
+    import shutil
+
+    from bitdelta_torch.cli.eval_ppl import main as eval_main
+    from bitdelta_torch.cli.serve import main as serve_main
+    from bitdelta_torch.cli.train import main as train_main
+    from bitdelta_torch.core.artifact import load_delta
+    from bitdelta_torch.core.compress import (compress_model,
+                                              fuse_compressed,
+                                              student_params)
+    from bitdelta_torch.eval.ppl import eval_ppl, tokenize_corpus
+    from bitdelta_torch.models import llama, mixtral
+    from bitdelta_torch.models.config import mistral_7b
+    from bitdelta_torch.models.hf_import import load_hf_config, \
+        load_hf_params
+    from bitdelta_torch.models.quant_import import load_gptq_params
+    from bitdelta_torch.research.quantized_base import Int4Weight
+    from bitdelta_torch.serving.server import ByteTokenizer
+    from bitdelta_torch.serving.stacking import stack_tenants
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp_root = tempfile.gettempdir()
+    usage = shutil.disk_usage(tmp_root)
+    report = {"card": name, "tmp": tmp_root,
+              "disk_free_gb": usage.free / 1e9,
+              "disk_total_gb": usage.total / 1e9}
+    emit({"phase": "cli_disk", **report})
+    counts = CliCounts()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=CLI_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    # The checkpoints carry no tokenizer files: every CLI here takes the
+    # byte-level fallback, as on a machine without transformers (an
+    # installed transformers may build a tokenizer from config.json alone).
+    with tempfile.TemporaryDirectory() as tmp, without_module("transformers"):
+        tmp = Path(tmp)
+        base_dir, fine_dir = str(tmp / "base"), str(tmp / "fine")
+        out = tmp / "out"
+        # The checkpoints: seeded base, fine-tune = base + seeded noise.
+        t0 = time.perf_counter()
+        params = llama.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device=dev)
+        ckpt_bytes = write_hf_checkpoint(cfg, params, base_dir)
+        fine = synthetic_finetune(cfg, params, gen)
+        write_hf_checkpoint(cfg, fine, fine_dir)
+        del params, fine
+        torch.cuda.empty_cache()
+        report["write_checkpoints_s"] = time.perf_counter() - t0
+        report["checkpoint_bytes"] = ckpt_bytes
+        require(load_hf_config(base_dir) == cfg,
+                "config.json did not load as the Mistral config")
+
+        # The import alone, timed (the files were just written, so they
+        # are read from the page cache).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, base = load_hf_params(base_dir, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        report["load_hf_params_s"] = load_s
+        report["load_hf_params_gb_s"] = ckpt_bytes / load_s / 1e9
+        _, fine = load_hf_params(fine_dir, dtype=torch.bfloat16, device=dev)
+        want_untrained = compress_model(base, fine)
+        del fine
+        torch.cuda.empty_cache()
+
+        # Train CLI.
+        argv = ["--base_model", base_dir, "--finetuned_model", fine_dir,
+                "--save_dir", str(out), "--num_steps", "3",
+                "--batch_size", "4", "--max_length", "128",
+                "--dataset_name", "synthetic", "--checkpoint_every", "2",
+                "--debug", "--save_full_model"]
+        _, report["train_cli_s"] = counts.run(
+            "train", lambda: run_cli(train_main, argv), CLI_PATHS["train"])
+        shutil.rmtree(fine_dir)
+        for f in ("diff.safetensors", "diff_untrained.safetensors",
+                  "distill_ckpt.safetensors", "corr_stddev.csv",
+                  "train_loss.json", "calibrated_model/model.safetensors"):
+            require((out / f).exists(), f"train CLI wrote no {f}")
+        losses = json.loads((out / "train_loss.json").read_text())
+        require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+                f"train CLI losses {losses}")
+        report["train_losses"] = losses
+        untrained, _ = load_delta(str(out / "diff_untrained.safetensors"),
+                                  device=dev)
+        for pname, d in want_untrained.deltas.items():
+            require(torch.equal(untrained.deltas[pname].packed, d.packed),
+                    f"diff_untrained {pname}: packed words differ from "
+                    "compress_model's")
+        del want_untrained
+
+        # Export round trip: calibrated_model/ == fuse_compressed(base, diff).
+        diff, _ = load_delta(str(out / "diff.safetensors"), device=dev)
+        want = fuse_compressed(base, diff)
+        _, got = load_hf_params(str(out / "calibrated_model"),
+                                dtype=torch.bfloat16, device=dev)
+        for key in ("embed", "final_norm", "lm_head"):
+            require(torch.equal(got[key], want[key]),
+                    f"export round trip: {key} differs")
+        for lname, w in want["layers"].items():
+            require(torch.equal(got["layers"][lname], w),
+                    f"export round trip: {lname} differs")
+        del got, want
+        shutil.rmtree(out / "calibrated_model")
+        torch.cuda.empty_cache()
+        deltas = {"tuned": str(out / "diff.safetensors"),
+                  "untrained": str(out / "diff_untrained.safetensors")}
+
+        # Serve CLI in this process, on both routes.
+        serve_argv = ["--base_model", base_dir, "--max_seq", "1024",
+                      "--smoke_test"]
+        for tname, path in deltas.items():
+            serve_argv += ["--delta", f"{tname}={path}"]
+        for kernel, label in (("cuda", "serve"), ("cuda_fused",
+                                                  "serve_fused")):
+            (_, text), report[f"{label}_cli_s"] = counts.run(
+                label, lambda: run_cli(serve_main,
+                                       serve_argv + ["--kernel", kernel]),
+                CLI_PATHS[label])
+            report[f"{label}_tokens"] = smoke_lines(text, list(deltas),
+                                                    label)
+        # ... and as its own process over HTTP (not counted: another
+        # process's launches).
+        serve_subprocess(base_dir, deltas, report)
+
+        # Eval CLI on the byte tokenizer, against the library's PPL
+        # through the deltas on the card.
+        corpus = str(tmp / "corpus.txt")
+        seeded_corpus(corpus, 700, seed=52)
+        ppl_argv = ["--base_model", base_dir, "--model_diff",
+                    deltas["tuned"], "--text_file", corpus,
+                    "--context_size", "1024", "--window_size", "512",
+                    "--save_dir", str(out)]
+        (ppl_cli, text), report["eval_cli_s"] = counts.run(
+            "eval", lambda: run_cli(eval_main, ppl_argv))
+        require("using byte-level fallback" in text,
+                "eval CLI: not on the byte-level tokenizer")
+        tokens = tokenize_corpus(ByteTokenizer(), [Path(corpus).read_text()])
+        ppl_lib = eval_ppl(cfg, student_params(base, diff), tokens,
+                           deltas=diff.deltas, kernel="cuda")
+        ppl_base = eval_ppl(cfg, base, tokens, kernel="cuda")
+        rel = abs(ppl_cli - ppl_lib) / ppl_lib
+        base_rel = abs(ppl_base - ppl_lib) / ppl_lib
+        report["ppl"] = {"cli_dense": ppl_cli, "library_deltas": ppl_lib,
+                         "rel_diff": rel, "tolerance": CLI_PPL_RTOL,
+                         "base_only": ppl_base, "base_rel_diff": base_rel,
+                         "tokens": int(tokens.size)}
+        require(math.isfinite(ppl_cli) and rel <= CLI_PPL_RTOL,
+                f"eval CLI PPL {ppl_cli} vs library {ppl_lib}: rel {rel}")
+        require(base_rel >= CLI_PPL_MARGIN * CLI_PPL_RTOL,
+                f"base-only PPL {ppl_base} is within {base_rel} of the "
+                f"deltas' {ppl_lib}: the CLI check cannot tell a CLI that "
+                "ignored --model_diff")
+        del base
+        shutil.rmtree(base_dir)
+        torch.cuda.empty_cache()
+
+        # GPTQ: a symmetric group-128 checkpoint of the same shape, one B=8
+        # decode step under the tuned tenant's deltas (the W4 kernel at
+        # every projection) against its dense dequantized base.
+        gptq_dir = str(tmp / "gptq")
+        write_gptq_checkpoint(cfg, gptq_dir, gen, dev)
+        _, w4 = load_gptq_params(gptq_dir, device=dev)
+        require(all(isinstance(w4["layers"][p], Int4Weight)
+                    for p in llama.PROJ_NAMES),
+                "load_gptq_params: not every projection is an Int4Weight")
+        _, dense = load_gptq_params(gptq_dir, native=False, device=dev)
+        shutil.rmtree(gptq_dir)
+        tids = torch.zeros(8, dtype=torch.int64, device=dev)
+        toks = torch.randint(1, cfg.vocab_size, (8, 1), generator=gen,
+                             device=dev)
+        logits = {}
+        for label, p in (("w4", w4), ("dense", dense)):
+            stack = stack_tenants(cfg, p, [diff], device=dev)
+            cache = llama.init_cache(cfg, 8, 64, torch.bfloat16, dev)
+
+            def step():
+                with torch.no_grad():
+                    return llama.decode_step(
+                        cfg, stack.params, toks, cache, deltas=stack.deltas,
+                        tenant_ids=tids, kernel="cuda")[0][:, 0].float()
+
+            if label == "w4":
+                logits[label], _ = counts.run("gptq_step", step)
+                n_w4 = counts.by_run["gptq_step"].get("w4_matmul", 0)
+                require(n_w4 == 7 * cfg.num_layers,
+                        f"GPTQ decode step: {n_w4} W4 launches, want "
+                        f"{7 * cfg.num_layers}")
+            else:
+                logits[label] = step()
+            del stack, cache
+        err = (logits["w4"] - logits["dense"]).abs().max().item()
+        scale = logits["dense"].abs().max().item()
+        report["gptq"] = {"w4_launches": n_w4, "max_abs_err": err,
+                          "logit_scale": scale, "limit": CLI_GPTQ_LIMIT}
+        require(math.isfinite(err) and err <= CLI_GPTQ_LIMIT * scale,
+                f"GPTQ step: max|err| {err} > {CLI_GPTQ_LIMIT} of {scale}")
+        del w4, dense, diff, untrained, logits
+        shutil.rmtree(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Mixtral-8x7B: train, serve and eval CLIs.
+        mcfg = dataclasses.replace(mixtral.mixtral_8x7b(),
+                                   num_layers=CLI_MIXTRAL_LAYERS)
+        mbase, mfine = str(tmp / "mx_base"), str(tmp / "mx_fine")
+        mout = tmp / "mx_out"
+        t0 = time.perf_counter()
+        params = mixtral.init_params(mcfg, gen, dtype=torch.bfloat16,
+                                     device=dev)
+        report["mixtral_checkpoint_bytes"] = write_hf_checkpoint(
+            mcfg, params, mbase)
+        fine = synthetic_finetune(mcfg, params, gen)
+        del params
+        write_hf_checkpoint(mcfg, fine, mfine)
+        del fine
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["mixtral_write_checkpoints_s"] = time.perf_counter() - t0
+        require(load_hf_config(mbase) == mcfg,
+                "config.json did not load as the Mixtral config")
+        argv = ["--base_model", mbase, "--finetuned_model", mfine,
+                "--save_dir", str(mout), "--num_steps", "2",
+                "--batch_size", "4", "--max_length", "128",
+                "--dataset_name", "synthetic", "--debug"]
+        _, report["mixtral_train_cli_s"] = counts.run(
+            "mixtral_train", lambda: run_cli(train_main, argv),
+            CLI_PATHS["mixtral_train"])
+        shutil.rmtree(mfine)
+        losses = json.loads((mout / "train_loss.json").read_text())
+        require(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+                f"Mixtral train CLI losses {losses}")
+        report["mixtral_train_losses"] = losses
+        # Every scale (attention, each expert, router) took a gradient
+        # step: AdamW's first steps move a scale by about lr (1e-4); weight
+        # decay alone would move it by about 1e-9.
+        before, _ = load_delta(str(mout / "diff_untrained.safetensors"),
+                               device=dev)
+        after, _ = load_delta(str(mout / "diff.safetensors"), device=dev)
+        least = {}
+        for pname, d in after.deltas.items():
+            least[pname] = (d.scale - before.deltas[pname].scale).abs().min(
+            ).item()
+            require(least[pname] > 1e-6,
+                    f"Mixtral train CLI: a {pname} scale moved only "
+                    f"{least[pname]} (no gradient reached it)")
+        report["mixtral_least_scale_move"] = least
+        del before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+        margv = ["--base_model", mbase, "--max_seq", "256", "--smoke_test",
+                 "--delta", f"moe={mout / 'diff.safetensors'}",
+                 "--delta", f"moe_untrained={mout / 'diff_untrained.safetensors'}"]
+        (_, text), report["mixtral_serve_cli_s"] = counts.run(
+            "mixtral_serve", lambda: run_cli(serve_main, margv),
+            CLI_PATHS["mixtral_serve"])
+        report["mixtral_serve_tokens"] = smoke_lines(
+            text, ["moe", "moe_untrained"], "mixtral serve")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mppl_argv = ["--base_model", mbase, "--model_diff",
+                     str(mout / "diff.safetensors"), "--text_file", corpus,
+                     "--context_size", "1024", "--window_size", "512",
+                     "--save_dir", str(mout)]
+        (mppl, _), report["mixtral_eval_cli_s"] = counts.run(
+            "mixtral_eval", lambda: run_cli(eval_main, mppl_argv))
+        require(math.isfinite(mppl) and mppl > 1.0,
+                f"Mixtral eval CLI PPL {mppl}")
+        report["ppl"]["mixtral_cli_dense"] = mppl
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches_by_run"] = counts.by_run
+    report["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "cli", "seconds": report["seconds"],
+          "load_hf_params_gb_s": report["load_hf_params_gb_s"],
+          "first_token_ms": report["subprocess_first_token_ms"],
+          "ppl": report["ppl"], "launches": counts.by_run})
+    emit({"phase": "cli_detail", **report})
+    return counts.total, report
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -3066,6 +3664,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     fused_canon_counts, fused_counts, report["fused"] = fused(dev, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_counts, report["cli"] = cli(dev, name)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
@@ -3075,7 +3676,8 @@ def main(argv=None):
                    "mixtral": mixtral_counts[kname],
                    "mixtral_canonical": canon_counts[kname],
                    "fused": fused_counts[kname],
-                   "fused_canonical": fused_canon_counts[kname]}
+                   "fused_canonical": fused_canon_counts[kname],
+                   "cli": cli_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3108,6 +3710,8 @@ def main(argv=None):
             entry["main_ms"] = res["main_ms"]
             entry["queued_ms"] = res["queued_ms"]
             entry["fp32_kernel"] = " + ".join(FUSED_PAIR_FP32_KERNELS)
+            entry["fp32"] = dict(_timing_keys(res["fp32"]),
+                                 kernel=res["fp32"]["kernel"])
         if kname == "fused_tenant_matmul":
             # Row 9: bf16 on the tensor-core kernel, timed and queued; fp32
             # on the CUDA-core kernel and its split sum.
@@ -3115,6 +3719,8 @@ def main(argv=None):
             entry["queued_ms"] = res["queued_ms"]
             entry["per_tenant_ms"] = res["per_tenant_ms"]
             entry["fp32_kernel"] = " + ".join(FUSED_TENANT_FP32_KERNELS)
+            entry["fp32"] = dict(_timing_keys(res["fp32"]),
+                                 kernel=res["fp32"]["kernel"])
         if kname == "tenant_dense_matmul":
             # Row 3: bf16 on the tensor-core kernel (also at B=1 and B=64,
             # beside one matmul a tenant); the fp32 head on its own.

@@ -1568,3 +1568,184 @@ def test_cuda_flash_decode_head_dim_64_matches_plain(cuda, kind):
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[
         q.dtype]
+
+
+# ---------------------------------------------------------------------------
+# The entry points on the card: a tiny checkpoint pair through the CLIs
+# ---------------------------------------------------------------------------
+
+def _tiny_checkpoints(root):
+    """A tiny llama base and fine-tune (base + seeded noise) written as HF
+    checkpoints by the port's own exporter (head_dim 64: flash prefill
+    takes 64 or 128)."""
+    from bitdelta_torch.core.export import save_full_model
+    from bitdelta_torch.models import llama as tl
+    from bitdelta_torch.models.config import tiny_test_config
+
+    cfg = tiny_test_config(vocab_size=256, hidden_size=128,
+                           intermediate_size=256, num_layers=2, num_heads=2,
+                           num_kv_heads=1)
+    g = torch.Generator().manual_seed(7)
+    base = tl.init_params(cfg, g, torch.float32, scale=0.05, device="cpu")
+    fine = dict(base, layers={
+        n: w + 0.01 * torch.randn(w.shape, generator=g)
+        if n in tl.PROJ_NAMES else w for n, w in base["layers"].items()})
+    save_full_model(cfg, base, str(root / "base"))
+    save_full_model(cfg, fine, str(root / "fine"))
+    return cfg, str(root / "base"), str(root / "fine")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_load_hf_params_matches_the_cpu(cuda, tmp_path, dtype):
+    from bitdelta_torch.models.hf_import import load_hf_params
+
+    _, base, _ = _tiny_checkpoints(tmp_path)
+    _, got = load_hf_params(base, dtype=dtype)
+    _, want = load_hf_params(base, dtype=dtype, device="cpu")
+    assert got["embed"].is_cuda
+    for name, w in want["layers"].items():
+        assert torch.equal(got["layers"][name].cpu(), w), name
+    for name in ("embed", "final_norm", "lm_head"):
+        assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def _tiny_gptq(root, group):
+    """A tiny symmetric AutoGPTQ checkpoint (every zero point 8, contiguous
+    groups of ``group`` rows) from seeded draws."""
+    import json
+
+    from bitdelta_torch.core.artifact import write_safetensors
+
+    hidden, inter, kv = 256, 512, 128
+    dims = {"self_attn.q_proj": (hidden, hidden),
+            "self_attn.k_proj": (hidden, kv),
+            "self_attn.v_proj": (hidden, kv),
+            "self_attn.o_proj": (hidden, hidden),
+            "mlp.gate_proj": (hidden, inter), "mlp.up_proj": (hidden, inter),
+            "mlp.down_proj": (inter, hidden)}
+    root.mkdir()
+    (root / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": 128, "hidden_size": hidden,
+        "intermediate_size": inter, "num_hidden_layers": 1,
+        "num_attention_heads": 4, "num_key_value_heads": 2,
+        "max_position_embeddings": 64, "tie_word_embeddings": False}))
+    g = torch.Generator().manual_seed(group)
+    f16 = lambda *shape: (0.05 * torch.randn(shape, generator=g)).half()
+    t = {"model.embed_tokens.weight": f16(128, hidden),
+         "model.norm.weight": 1 + f16(hidden),
+         "lm_head.weight": f16(128, hidden),
+         "model.layers.0.input_layernorm.weight": 1 + f16(hidden),
+         "model.layers.0.post_attention_layernorm.weight": 1 + f16(hidden)}
+    for sub, (k, n) in dims.items():
+        pre = f"model.layers.0.{sub}"
+        t[f"{pre}.qweight"] = torch.randint(-2**31, 2**31 - 1, (k // 8, n),
+                                            generator=g, dtype=torch.int32)
+        t[f"{pre}.qzeros"] = torch.full((k // group, n // 8), 0x77777777,
+                                        dtype=torch.int32)
+        t[f"{pre}.scales"] = f16(k // group, n).abs() + 0.01
+        t[f"{pre}.g_idx"] = torch.arange(k, dtype=torch.int32) // group
+    write_safetensors(str(root / "model.safetensors"), t, {"format": "pt"})
+    return str(root)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("group", [32, 64, 128])
+def test_cuda_load_gptq_params_keeps_words_only_at_group_128(cuda, tmp_path,
+                                                            group):
+    """On the card a symmetric projection stays an ``Int4Weight`` only at
+    the W4 kernel's 128-row groups; at 32 or 64 it loads as the dense
+    dequantized stack (equal to ``native=False``), with a warning."""
+    import warnings
+
+    from bitdelta_torch.models.quant_import import load_gptq_params
+    from bitdelta_torch.research.quantized_base import Int4Weight
+
+    path = _tiny_gptq(tmp_path / "gptq", group)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        _, got = load_gptq_params(path, dtype=torch.float32)
+    _, dense = load_gptq_params(path, dtype=torch.float32, native=False)
+    projs = {n: w for n, w in got["layers"].items() if n.endswith("_proj")}
+    if group == 128:
+        assert not rec
+        assert all(isinstance(w, Int4Weight) for w in projs.values())
+    else:
+        assert any("128-row groups" in str(r.message) for r in rec)
+        for name, w in projs.items():
+            assert isinstance(w, torch.Tensor) and w.is_cuda, name
+            assert torch.equal(w, dense["layers"][name]), name
+
+
+@pytest.mark.requires_cuda
+def test_cuda_cli_pipeline_tiny(cuda, tmp_path, capsys, monkeypatch):
+    """train -> serve --smoke_test -> eval_ppl on the card (the default
+    device): the training kernels (rows 4, 5, 6) and the serving kernels
+    (rows 1, 2, 3, 4, 5) launch; the untrained artifact's words equal
+    the CPU run's, its scales within 1e-6 (summed in another order).
+    ``transformers`` is blocked, so every CLI takes the byte tokenizer
+    whatever the machine has installed (a checkpoint directory without
+    tokenizer files is not a tokenizer)."""
+    import json
+    import os
+    import sys
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+
+    from bitdelta_torch.cli.eval_ppl import main as eval_main
+    from bitdelta_torch.cli.serve import main as serve_main
+    from bitdelta_torch.cli.train import main as train_main
+    from bitdelta_torch.core.artifact import read_safetensors
+    from bitdelta_torch.ops import flash_decode as tfd2
+
+    _, base, fine = _tiny_checkpoints(tmp_path)
+    common = ["--base_model", base, "--finetuned_model", fine,
+              "--num_steps", "2", "--batch_size", "2", "--max_length", "16",
+              "--dataset_name", "synthetic"]
+    counters = {"binary_matmul": tbg.binary_matmul,
+                "binary_matmul_t": tbg.binary_matmul_t,
+                "flash_prefill": tfp.flash_prefill_attention,
+                "pair": tbg.tenant_delta_matmul_pair,
+                "decode": tfd2.flash_decode_attention,
+                "dense": tbg.tenant_dense_matmul}
+    before = {k: f.launches for k, f in counters.items()}
+    train_main(common + ["--save_dir", str(tmp_path / "card")])
+    moved = {k: f.launches - before[k] for k, f in counters.items()}
+    assert moved["binary_matmul"] and moved["binary_matmul_t"]
+    assert moved["flash_prefill"]
+    train_main(common + ["--save_dir", str(tmp_path / "cpu"), "--device",
+                         "cpu"])
+    got, _ = read_safetensors(str(tmp_path / "card" /
+                                  "diff_untrained.safetensors"))
+    want, _ = read_safetensors(str(tmp_path / "cpu" /
+                                   "diff_untrained.safetensors"))
+    for key, w in want.items():
+        if key.endswith(".scale"):
+            np_close = abs(got[key] - w).max() <= 1e-6 * abs(w).max()
+            assert np_close, key
+        else:
+            assert (got[key] == w).all(), key
+
+    diff = str(tmp_path / "card" / "diff.safetensors")
+    capsys.readouterr()
+    before = {k: f.launches for k, f in counters.items()}
+    serve_main(["--base_model", base, "--delta", f"a={diff}", "--delta",
+                f"b={tmp_path / 'card' / 'diff_untrained.safetensors'}",
+                "--max_seq", "64", "--smoke_test"])
+    out = capsys.readouterr().out
+    assert "[smoke ok]" in out
+    lines = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    assert sorted(line["tenant"] for line in lines if line["done"]) == [
+        "a", "b"]
+    moved = {k: f.launches - before[k] for k, f in counters.items()}
+    for k in ("pair", "decode", "dense", "flash_prefill", "binary_matmul"):
+        assert moved[k], k
+
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_text("pack my box with five dozen liquor jugs. " * 40)
+    ppl = eval_main(["--base_model", base, "--model_diff", diff,
+                     "--text_file", str(corpus), "--context_size", "64",
+                     "--window_size", "32", "--save_dir", str(tmp_path)])
+    assert ppl > 1.0 and ppl == float(open(os.path.join(
+        tmp_path, "ppl.txt")).read())
