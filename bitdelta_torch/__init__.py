@@ -17,11 +17,14 @@ Layering:
   models/    the Llama/Mistral and Mixtral (MoE) decoders (forward /
              decode_step), GPTQ / bnb layer import
   research/  the W8 / W4 quantized base under the deltas; Mixtral
-             mean-expert compression
+             mean-expert compression; the delta-fidelity variants
+             (LoRA, ternary, per-column scales)
   serving/   tenant stacking, sampling, the engine and the HTTP server
   train/     calibration data and scale distillation (``distill_scales``)
-
-  utils/     tokenizer loading, weight diagnostics, profiling
+  eval/      strided-window perplexity (``eval_ppl``)
+  utils/     tokenizer loading, weight diagnostics, profiling, the
+             serving check (``serving_compiled_check``)
+  tools/     ``python -m bitdelta_torch.tools.convert_reference``
   cli/       ``python -m bitdelta_torch.cli.{train,serve,eval_ppl}``
 
 Entry points (``Engine``, ``stack_tenants``, ``init_params``,
@@ -33,9 +36,32 @@ passes ``device="cpu"`` (``--device cpu``); ``distill_scales`` and
 
 __version__ = "0.1.0"
 
-# Public names loaded on first use (``bitdelta_torch.Engine``), as the JAX
-# package exposes them: name -> submodule.
+# Public names loaded on first use (``bitdelta_torch.compress_model``,
+# ``bitdelta_torch.Engine``): every name the JAX package's root resolves,
+# eager or lazy, so ``import bitdelta_torch`` imports no torch module
+# until a name is used. name -> submodule.
 _LAZY = {
+    "BinaryDelta": "core.delta",
+    "apply_delta": "core.delta",
+    "delta_linear": "core.delta",
+    "dequantize_delta": "core.delta",
+    "quantize_delta": "core.delta",
+    "pack_signs": "ops.packing",
+    "unpack_signs": "ops.packing",
+    "unpack_to_pm1": "ops.packing",
+    "binary_bmm": "ops.binary_matmul",
+    "binary_matmul": "ops.binary_matmul",
+    "tenant_binary_matmul": "ops.binary_matmul",
+    "CompressedModel": "core.compress",
+    "compress_model": "core.compress",
+    "fuse_compressed": "core.compress",
+    "student_params": "core.compress",
+    "load_delta": "core.artifact",
+    "save_delta": "core.artifact",
+    "ColumnScaleDelta": "research.variants",
+    "LoRADelta": "research.variants",
+    "TernaryDelta": "research.variants",
+    "fuse_variant_model": "research.variants",
     "Int4Weight": "research.quantized_base",
     "Int8Weight": "research.quantized_base",
     "quantize_base": "research.quantized_base",

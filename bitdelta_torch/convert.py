@@ -7,9 +7,11 @@ handed over as numpy (``jax.tree.map(np.asarray, tree)``). bf16 arrays
 (numpy's ``bfloat16`` extension dtype) cross as their 16-bit pattern, so
 every value arrives bit-exact. NamedTuple leaves (``BinaryDelta``,
 ``PairedBinaryDelta``, ``CompressedModel``, ``Int8Weight``,
-``Int4Weight``) are matched by their class name, and their fields must
-agree: JAX's ``Int4Weight`` and ``BinaryDelta`` share the fields
-``(packed, scale)``, so the fields alone cannot tell them apart.
+``Int4Weight`` and the research variants ``LoRADelta``, ``TernaryDelta``,
+``ColumnScaleDelta``) are matched by their class name, and their fields
+must agree: JAX's ``Int4Weight``, ``BinaryDelta`` and
+``ColumnScaleDelta`` share the fields ``(packed, scale)``, so the fields
+alone cannot tell them apart.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from .core.compress import CompressedModel
 from .core.delta import BinaryDelta, PairedBinaryDelta
 from .device import resolve_device
 from .research.quantized_base import Int4Weight, Int8Weight
+from .research.variants import ColumnScaleDelta, LoRADelta, TernaryDelta
 from .serving.stacking import TenantStack
 
 _TUPLES = {cls.__name__: cls for cls in (BinaryDelta, PairedBinaryDelta,
                                          CompressedModel, Int8Weight,
-                                         Int4Weight)}
+                                         Int4Weight, LoRADelta,
+                                         TernaryDelta, ColumnScaleDelta)}
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:

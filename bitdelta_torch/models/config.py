@@ -112,6 +112,31 @@ class ModelConfig:
         return cls(**raw)
 
 
+# Canonical configs for the families the reference evaluates.
+def llama2_7b() -> ModelConfig:
+    return ModelConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008, num_layers=32, num_heads=32,
+                       num_kv_heads=32, max_seq_len=4096)
+
+
+def llama2_13b() -> ModelConfig:
+    return ModelConfig(vocab_size=32000, hidden_size=5120,
+                       intermediate_size=13824, num_layers=40, num_heads=40,
+                       num_kv_heads=40, max_seq_len=4096)
+
+
+def llama2_70b() -> ModelConfig:
+    return ModelConfig(vocab_size=32000, hidden_size=8192,
+                       intermediate_size=28672, num_layers=80, num_heads=64,
+                       num_kv_heads=8, max_seq_len=4096)
+
+
+def tinyllama_1_1b() -> ModelConfig:
+    return ModelConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_layers=22, num_heads=32,
+                       num_kv_heads=4, max_seq_len=2048)
+
+
 def mistral_7b() -> ModelConfig:
     return ModelConfig(vocab_size=32000, hidden_size=4096,
                        intermediate_size=14336, num_layers=32, num_heads=32,

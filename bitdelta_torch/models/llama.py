@@ -701,3 +701,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = n(D, cfg.vocab_size)
     return params
+
+
+def param_count(params) -> int:
+    """Elements over every tensor leaf of nested dicts / lists /
+    NamedTuples, as ``jax.tree.leaves`` counts them: an ``Int8Weight``
+    or ``Int4Weight`` counts its words and its scales."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (tuple, list)):
+        return sum(param_count(v) for v in params)
+    return 0 if params is None else params.numel()

@@ -499,3 +499,16 @@ def mixtral_student_params(base_params: Params, compressed) -> Params:
         elif "lm_head" in params:
             del params["lm_head"]
     return params
+
+
+def params_from_torch_mixtral(cfg: MixtralConfig, torch_model,
+                              dtype=torch.float32, device="cuda") -> Params:
+    """Convert a live transformers ``MixtralForCausalLM`` to the port's
+    params on ``device`` (the counterpart of
+    ``hf_import.params_from_torch_model``). Every tensor of its state dict
+    is widened to fp32 first, as the JAX converter does."""
+    from .hf_import import mixtral_params_from_state_dict
+
+    sd = ((k, v.detach().float())
+          for k, v in torch_model.state_dict().items())
+    return mixtral_params_from_state_dict(cfg, sd, dtype, device)

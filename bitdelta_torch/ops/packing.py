@@ -14,6 +14,7 @@ complement wrap (``_to_i32``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 N_BITS = 32
@@ -112,3 +113,16 @@ def column_popcount(packed: torch.Tensor) -> torch.Tensor:
     for s in range(N_BITS):
         count += ((u >> s) & 1).sum(dim=-2)
     return count.to(torch.int32)
+
+
+def pack_signs_np(signs, n_bits: int = N_BITS) -> np.ndarray:
+    """NumPy variant of :func:`pack_signs` for host-side artifact IO: a
+    boolean ``(*, K, N)`` array -> ``(*, K//32, N)`` int32, the same bits.
+    One bit position at a time in uint32 (no ``(K, N)`` word temporary)."""
+    *lead, k, n = signs.shape
+    k32 = packed_rows(k, n_bits)
+    bits = np.asarray(signs, dtype=np.uint32).reshape(*lead, k32, n_bits, n)
+    words = np.zeros((*lead, k32, n), dtype=np.uint32)
+    for s in range(n_bits):
+        words |= bits[..., s, :] << np.uint32(s)
+    return words.view(np.int32)

@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    bf16 and fp32 input, flash decode also on a full cache, lengths
    S + 1, and timed at uniform lengths of 128, 512 and 2048 keys; flash
    prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
-   timed; the W4 matmul's bf16 tensor-core kernel and its fp32
+   timed; flash decode and flash prefill also at Llama-2-7B's one query
+   head a KV head (B = 8, H = KV = 32), bf16 and fp32, bf16 timed; the W4 matmul's bf16 tensor-core kernel and its fp32
    CUDA-core kernel each timed; the pair delta's x prep and its 1-bit
    tensor-core kernel timed apart, and the call back to back, and a NaN
    of x kept to its row (B = 8 and 65, bf16 and fp32 x); the fused
@@ -106,7 +107,25 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    decode step under a tenant's deltas (row 8 28 times; logits within 2%
    of the dense dequantized base's); then a full-width 2-layer
    Mixtral-8x7B pair through the train (rows 5, 6), serve and eval CLIs.
-   Each checkpoint is deleted once its step is done.
+   Each checkpoint is deleted once its step is done;
+11. rest: every earlier world freed, (a) ``serving_compiled_check()``
+   (the tiny fp32 two-tenant world greedy-decoded by ``Engine(kernel=
+   "cuda")`` and ``"cuda_fused"`` against ``"torch"`` on the card, and
+   over a W4 base; every row but 6 launches); (b) a full-width 2-layer
+   Llama-2-7B (32 query and 32 KV heads: rows 2 and 4 at one query head
+   a KV head), bf16, with one synthetic fine-tune written as a
+   reference-format ``diff.pt`` and converted by ``python -m
+   bitdelta_torch.tools.convert_reference`` in a subprocess (words
+   bit-exact with ``compress_model``'s, scales within 1e-5), served by
+   ``Engine(kernel="cuda")``: a B=8 prefill and decode step on its stack
+   within 2% of the logit scale of the CPU's plain versions, then
+   ``generate``; (c) ``fuse_variant_model`` for binary, binary_median,
+   ternary (0.5), lora (16) and column at that width (each closer to the
+   fine-tune than the base at every projection, column no worse than
+   binary; one gate_proj's median scale and ternary planes equal to the
+   CPU's; the seconds of one gate_proj's SVD), then each model's
+   perplexity through ``kernel="cuda"`` (2 windows), and the binary
+   deltas' within 1% of their dense fusion's.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -1093,7 +1112,63 @@ def check_decode(dev, gen, results):
         shape="B=8 H=32 KV=8 hd=128 cache 2048, lengths "
               f"{lengths.tolist()}, window {window}",
         library="torch.nn.functional.scaled_dot_product_attention "
-                "(padded cache, boolean mask)")
+                "(padded cache, boolean mask)",
+        group1=check_decode_group1(dev, gen, lengths, window))
+
+
+def check_group1(label, fn, plain, sets, hd, window, kernel_names, library,
+                 n_bytes, n_ops):
+    """Rows 2 and 4 at one query head a KV head (Llama-2-7B: H = KV = 32),
+    the G = 1 instance phase 11b's engine runs: bf16 held per (row, head)
+    as :func:`attention_error` holds it, fp32 inputs within 1e-4, and
+    timed as the G = 4 rows are."""
+    got = fn(*sets[0], window=window)
+    torch.cuda.synchronize()
+    want = plain(*sets[0], window=window)
+    torch.cuda.synchronize()
+    err, bad = attention_error(got, want, hd)
+    require(not bad, f"{label} group 1: {bad} (row, head) pairs off by "
+                     f"more than 2^-7 of their max |ref| (max|err| {err})")
+    err32 = fp32_attention_error(fn, plain, sets[0], window)
+    require(err32 <= 1e-4, f"{label} group 1 fp32: max|err| {err32} > 1e-4")
+    row = time_wrapper(f"{label} group 1",
+                       lambda i: fn(*sets[i], window=window), len(sets),
+                       kernel_names,
+                       plain=lambda i: plain(*sets[i], window=window),
+                       library=library)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return dict(row, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                fp32_max_abs_err=err32)
+
+
+def check_decode_group1(dev, gen, lengths, window):
+    """Row 2 at Llama-2-7B's heads: B=8 H=KV=32 hd=128, cache 2048."""
+    import torch.nn.functional as F
+
+    from bitdelta_torch.ops import flash_decode as fd
+
+    bsz, h, hd, s = 8, 32, 128, 2048
+    live = int(lengths.sum())
+    set_bytes = live * h * hd * 2 * 2
+    sets = []
+    for _ in range(n_sets(set_bytes)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((bsz, h, hd), (bsz, s, h, hd),
+                                          (bsz, s, h, hd)))
+        sets.append((q, k, v, lengths))
+    q, k, v, _ = sets[0]
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None] < lengths[:, None])[:, None, None, :]
+    q4, kk, vv = (q[:, :, None, :], k.transpose(1, 2).contiguous(),
+                  v.transpose(1, 2).contiguous())
+    res = check_group1(
+        "flash decode", fd.flash_decode_attention,
+        fd.flash_decode_attention_plain, sets, hd, window, DECODE_KERNELS,
+        lambda i: F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask),
+        set_bytes + 2 * bsz * h * hd * 2, 4 * h * hd * live)
+    res["shape"] = (f"B=8 H=KV=32 hd=128 cache 2048, lengths "
+                    f"{lengths.tolist()}, window {window}")
+    return res
 
 
 def check_decode_int8(dev, gen, results):
@@ -1556,7 +1631,43 @@ def check_prefill(dev, gen, results):
         shape=f"B=1 bucket 512 length 500 H=32 KV=8 hd=128, "
               f"{visible} visible (query, key) pairs per head",
         library="torch.nn.functional.scaled_dot_product_attention "
-                "(boolean mask)")
+                "(boolean mask)",
+        group1=check_prefill_group1(dev, gen, window))
+
+
+def check_prefill_group1(dev, gen, window):
+    """Row 4 at Llama-2-7B's heads: B=8 bucket 256 H=KV=32 hd=128, one
+    length a row from a full bucket down to 1."""
+    import torch.nn.functional as F
+
+    from bitdelta_torch.ops import flash_prefill as fp
+
+    bsz, sq, h, hd = 8, 256, 32, 128
+    lengths = torch.tensor([256, 200, 129, 128, 64, 33, 16, 1], device=dev,
+                           dtype=torch.int32)
+    set_bytes = bsz * sq * 3 * h * hd * 2
+    sets = []
+    for _ in range(n_sets(set_bytes)):
+        q, k, v = (torch.randn((bsz, sq, h, hd), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        sets.append((q, k, v, lengths))
+    mask = fp.prefill_mask(sq, sq, lengths, window)
+    visible = int(mask.sum())
+    q, k, v, _ = sets[0]
+    q4, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    res = check_group1(
+        "flash prefill", fp.flash_prefill_attention,
+        fp.flash_prefill_attention_plain, sets, hd, window,
+        (PREFILL_TC_KERNEL,),
+        lambda i: F.scaled_dot_product_attention(q4, kk, vv,
+                                                 attn_mask=mask[:, None]),
+        bsz * sq * h * hd * 2 * 2 + int(lengths.sum()) * h * hd * 2 * 2,
+        4 * hd * h * visible)
+    res["shape"] = (f"B=8 bucket 256 H=KV=32 hd=128, lengths "
+                    f"{lengths.tolist()}, {visible} visible (query, key) "
+                    f"pairs per head")
+    return res
 
 
 def check_binary(dev, gen, results):
@@ -3597,6 +3708,353 @@ def cli(dev, name):
 
 
 # ---------------------------------------------------------------------------
+# 11. The rest: the serving check, a reference artifact converted at
+#     Llama-2-7B's full width, and the delta-fidelity variants there
+# ---------------------------------------------------------------------------
+
+# The kernel rows the serving check launches: the pair delta, flash
+# decode, flash prefill, the binary matmul (the W4 half's single-request
+# prefill), the W4 matmul and the fused pair kernel ("cuda_fused"); the
+# canonical tenant delta and the fused canonical kernel at k/v_proj (N =
+# 128 does not pair, so those leaves keep the canonical layout); the
+# dense head in the W4 half (its tenant's head is not compressed; the
+# two-tenant half shares a compressed head). Every row but the training
+# path's transposed binary matmul.
+CHECK_KERNELS = ("tenant_delta_matmul_pair", "flash_decode_attention",
+                 "flash_prefill_attention", "binary_matmul", "w4_matmul",
+                 "fused_base_pair_matmul", "tenant_delta_matmul",
+                 "fused_tenant_matmul", "tenant_dense_matmul")
+# Llama-2-7B's B=8 prefill and decode through the engine's pair stack.
+LLAMA_KERNELS = ("tenant_delta_matmul_pair", "flash_decode_attention",
+                 "tenant_dense_matmul", "flash_prefill_attention")
+# eval_ppl of the fused variants (row 4) and of the binary deltas (row 5).
+VARIANT_KERNELS = ("flash_prefill_attention", "binary_matmul")
+REST_LAYERS = 2
+VARIANTS = (("binary", {}), ("binary_median", {}),
+            ("ternary", {"fraction": 0.5}), ("lora", {"rank": 16}),
+            ("column", {}))
+VARIANT_PPL_WINDOWS = 2
+
+def rest_check(smi):
+    """11a: ``serving_compiled_check()`` on the card."""
+    from bitdelta_torch.utils.compiled_check import serving_compiled_check
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serving_compiled_check(log=lambda msg: print(msg, flush=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    require(out["status"] == "ok", f"serving check: {out}")
+    for kname in CHECK_KERNELS:
+        require(counts[kname] > 0, f"serving check missed kernel {kname}")
+    emit({"phase": "rest_check", "card": smi, "status": out["status"],
+          "tokens": out["tokens"], "w4_tokens": out["w4_tokens"],
+          "seconds": seconds,
+          "rows_moved": sorted(k for k, v in counts.items() if v),
+          "launches": counts})
+    return counts
+
+
+def reference_diff_dict(cfg, base, fine):
+    """A reference-format ``diff.pt`` dict (the reference's ``save_diff``:
+    ``{name}.mask`` packed int32 and ``{name}.coeff`` per projection, plus
+    the student's trainable tensors under HF's names) from the port's
+    ``(K, N)`` params, with the semantics tests/test_convert_reference.py
+    builds from transformers models: per projection the fp32 diff of the
+    transposed HF weight (the port's layout), ``coeff = mean |diff|``,
+    ``mask`` the ``diff >= 0`` bits packed along K, LSB-first. Computed
+    where the params lie, returned on the CPU."""
+    from bitdelta_torch.models.llama import PROJ_NAMES
+
+    out = {}
+    shifts = torch.arange(32, device=base["embed"].device).view(1, 32, 1)
+    for i in range(cfg.num_layers):
+        for proj in PROJ_NAMES:
+            mod = "mlp" if proj in ("gate_proj", "up_proj",
+                                    "down_proj") else "self_attn"
+            diff = (fine["layers"][proj][i].float()
+                    - base["layers"][proj][i].float())          # (K, N)
+            k, n = diff.shape
+            bits = (diff >= 0).to(torch.int64).view(k // 32, 32, n)
+            name = f"model.layers.{i}.{mod}.{proj}"
+            out[f"{name}.mask"] = (bits << shifts).sum(1).to(
+                torch.int32).cpu()
+            out[f"{name}.coeff"] = diff.abs().mean().cpu()
+            del diff, bits
+        out[f"model.layers.{i}.input_layernorm.weight"] = \
+            fine["layers"]["attn_norm"][i].cpu()
+        out[f"model.layers.{i}.post_attention_layernorm.weight"] = \
+            fine["layers"]["mlp_norm"][i].cpu()
+    out["model.embed_tokens.weight"] = fine["embed"].cpu()
+    out["model.norm.weight"] = fine["final_norm"].cpu()
+    out["lm_head.weight"] = fine["lm_head"].t().contiguous().cpu()
+    return out
+
+
+def convert_subprocess(diff_pt, out_path):
+    """``python -m bitdelta_torch.tools.convert_reference`` in its own
+    process (on the card, its default device)."""
+    import os
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    proc = subprocess.run(
+        [sys.executable, "-m", "bitdelta_torch.tools.convert_reference",
+         str(diff_pt), str(out_path)], cwd=str(repo), env=env,
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0 and f"wrote {out_path}" in proc.stdout,
+            f"convert_reference exited with {proc.returncode}: "
+            f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+
+def rest_llama(cfg, dev, smi, base, fine):
+    """11b: the fine-tune through a reference ``diff.pt`` and the converter
+    CLI; its words against ``compress_model``'s; the artifact served by
+    ``Engine(kernel="cuda")``: a B=8 prefill and decode step on the
+    engine's stack against the same steps on the CPU with the plain
+    versions, then ``generate``."""
+    from bitdelta_torch.core.artifact import load_delta
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.serving.engine import Engine, Request
+    from bitdelta_torch.serving.stacking import stack_tenants
+
+    report = {"phase": "rest_llama", "card": smi, "model": "llama2_7b",
+              "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+              "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = reference_diff_dict(cfg, base, fine)
+    report["reference_dict_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        diff_pt = Path(tmp) / "diff.pt"
+        out_path = Path(tmp) / "diff.safetensors"
+        torch.save(ref, diff_pt)
+        report["diff_pt_bytes"] = diff_pt.stat().st_size
+        del ref
+        t0 = time.perf_counter()
+        convert_subprocess(diff_pt, out_path)
+        report["convert_cli_s"] = time.perf_counter() - t0
+        report["artifact_bytes"] = out_path.stat().st_size
+        comp, _ = load_delta(str(out_path), device=dev)
+    ours = compress_model(base, fine)
+    worst = 0.0
+    for name, d in ours.deltas.items():
+        got = comp.deltas[name]
+        require(torch.equal(got.packed, d.packed),
+                f"converted {name}: packed words differ from "
+                "compress_model's")
+        rel = ((got.scale - d.scale).abs() / d.scale.abs()).max().item()
+        worst = max(worst, rel)
+        require(rel <= 1e-5, f"converted {name}: scale rel err {rel} > 1e-5")
+    for name, x in ours.extras.items():
+        require(torch.equal(comp.extras[name], x),
+                f"converted extra {name} differs from the fine-tune's")
+    report["words_bit_exact"] = True
+    report["scale_max_rel_err"] = worst
+    del ours
+
+    stack = stack_tenants(cfg, base, [comp], device=dev)
+    eng = Engine(cfg, stack, max_slots=8, max_seq=64, prefill_buckets=(16,),
+                 kernel="cuda", device=dev)
+    del stack, comp
+    g = torch.Generator().manual_seed(11)
+    tokens = torch.randint(1, cfg.vocab_size, (8, 16), generator=g)
+    lengths = torch.tensor([16, 9, 12, 5, 16, 7, 11, 14], dtype=torch.int32)
+    tids = torch.zeros(8, dtype=torch.int64)
+    nxt = torch.randint(1, cfg.vocab_size, (8, 1), generator=g)
+
+    def run(st, device):
+        with torch.no_grad():
+            logits, cache = llama.forward(
+                cfg, st.params, tokens.to(device), lengths=lengths.to(device),
+                deltas=st.deltas, tenant_ids=tids.to(device),
+                return_cache=True, cache_max_seq=64, kernel="cuda")
+            step, _ = llama.decode_step(cfg, st.params, nxt.to(device), cache,
+                                        deltas=st.deltas,
+                                        tenant_ids=tids.to(device),
+                                        kernel="cuda")
+        last = logits[torch.arange(8, device=device),
+                      lengths.to(device).long() - 1]
+        return last.float().cpu(), step[:, 0].float().cpu()
+
+    t0 = time.perf_counter()
+    card_pre, card_step = run(eng.stack, dev)
+    torch.cuda.synchronize()
+    report["card_steps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_pre, cpu_step = run(stack_to_cpu(eng.stack), torch.device("cpu"))
+    report["cpu_steps_s"] = time.perf_counter() - t0
+    for which, a, b in (("prefill", card_pre, cpu_pre),
+                        ("decode", card_step, cpu_step)):
+        require(torch.isfinite(a).all().item(),
+                f"llama2_7b {which} logits not finite")
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        report[which] = {"max_abs_err": err, "ref_max_abs": scale,
+                         "rel_err": err / scale,
+                         "argmax_agreement": (a.argmax(-1) == b.argmax(-1))
+                         .float().mean().item()}
+        # bf16 activations, sums in other orders: as phase 5, 2% of the
+        # logit scale over 2 layers.
+        require(err <= 2e-2 * scale, f"llama2_7b {which} logits: max|err| "
+                                     f"{err} > 2% of {scale}")
+    t0 = time.perf_counter()
+    outs = eng.generate([Request(prompt_ids=tokens[b, :int(lengths[b])]
+                                 .tolist(), tenant_id=0, max_new_tokens=4)
+                         for b in range(8)])
+    torch.cuda.synchronize()
+    report["generate_s"] = time.perf_counter() - t0
+    require([len(o) for o in outs] == [4] * 8
+            and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+            f"llama2_7b generate: {outs}")
+    report["generated"] = [list(map(int, o)) for o in outs]
+    counts = read_counts()
+    for kname in LLAMA_KERNELS:
+        require(counts[kname] > 0, f"llama2_7b missed kernel {kname}")
+    report["launches"] = counts
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(report)
+    return counts
+
+
+def _proj_errors(fused, fine):
+    """mean |W - W_fine| of each projection."""
+    from bitdelta_torch.models.llama import PROJ_NAMES
+
+    return {name: (fused["layers"][name].float()
+                   - fine["layers"][name].float()).abs().mean().item()
+            for name in PROJ_NAMES}
+
+
+def rest_variants(cfg, dev, smi, base, fine):
+    """11c: ``fuse_variant_model`` of every kind at full width; each fused
+    model closer to the fine-tune than the base at every projection and
+    ``column`` no worse than ``binary``; one gate_proj's median scale and
+    ternary planes against the CPU's; each model's perplexity through
+    ``kernel="cuda"``."""
+    import numpy as np
+
+    from bitdelta_torch.core.compress import compress_model, student_params
+    from bitdelta_torch.eval.ppl import eval_ppl
+    from bitdelta_torch.research import variants as rv
+
+    report = {"phase": "rest_variants", "card": smi, "model": "llama2_7b",
+              "layers": cfg.num_layers}
+    # One gate_proj (4096 x 11008, 45,088,768 elements: above 2^24) on the
+    # card and on the CPU.
+    b0, f0 = base["layers"]["gate_proj"][0], fine["layers"]["gate_proj"][0]
+    t0 = time.perf_counter()
+    med = rv.quantize_ternary(b0, f0, binary_median=True)
+    med_cpu = rv.quantize_ternary(b0.cpu(), f0.cpu(), binary_median=True)
+    require(med.scale.item() == med_cpu.scale.item(),
+            f"binary_median scale {med.scale.item()} on the card != "
+            f"{med_cpu.scale.item()} on the CPU")
+    ter = rv.quantize_ternary(b0, f0, fraction=0.5)
+    ter_cpu = rv.quantize_ternary(b0.cpu(), f0.cpu(), fraction=0.5)
+    require(torch.equal(ter.plus.cpu(), ter_cpu.plus)
+            and torch.equal(ter.minus.cpu(), ter_cpu.minus),
+            "ternary planes of gate_proj differ between the card and the CPU")
+    report["gate_proj_card_vs_cpu"] = {
+        "median_scale": med.scale.item(), "ternary_planes_equal": True,
+        "ternary_scale": ter.scale.item(),
+        "ternary_scale_cpu": ter_cpu.scale.item(),
+        "seconds": time.perf_counter() - t0}
+    del med, med_cpu, ter, ter_cpu
+
+    diff = f0.float() - b0.float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.linalg.svd(diff, full_matrices=False, driver="gesvd")
+    torch.cuda.synchronize()
+    report["svd_s_per_4096x11008_fp32"] = time.perf_counter() - t0
+    del diff
+
+    tokens = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, 1024 + 512 * VARIANT_PPL_WINDOWS)
+    ppl_kw = dict(context_size=1024, window_size=512, kernel="cuda")
+    reset_counts()
+    report["ppl"] = {"base": eval_ppl(cfg, base, tokens, **ppl_kw),
+                     "finetune": eval_ppl(cfg, fine, tokens, **ppl_kw)}
+    report["mean_abs_err"] = {"base": _proj_errors(base, fine)}
+    report["seconds"] = {}
+    for kind, kw in VARIANTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = rv.fuse_variant_model(base, fine, kind, **kw)
+        torch.cuda.synchronize()
+        report["seconds"][kind] = time.perf_counter() - t0
+        err = _proj_errors(fused, fine)
+        report["mean_abs_err"][kind] = err
+        base_err = report["mean_abs_err"]["base"]
+        for name, e in err.items():
+            require(e < base_err[name],
+                    f"{kind} {name}: mean|W - W_fine| {e} not below the "
+                    f"base's {base_err[name]}")
+        report["ppl"][kind] = eval_ppl(cfg, fused, tokens, **ppl_kw)
+        del fused
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, e in report["mean_abs_err"]["column"].items():
+        b = report["mean_abs_err"]["binary"][name]
+        require(e <= b, f"column {name}: {e} above binary's {b}")
+    # The binary deltas unfused (rows 4 and 5), within 1% of the dense
+    # fusion's perplexity, as phase 9 holds them.
+    comp = compress_model(base, fine)
+    report["ppl"]["binary_deltas"] = eval_ppl(
+        cfg, student_params(base, comp), tokens, deltas=comp.deltas,
+        **ppl_kw)
+    del comp
+    rel = (abs(report["ppl"]["binary_deltas"] - report["ppl"]["binary"])
+           / report["ppl"]["binary"])
+    require(rel <= FUSED_PPL_RTOL, f"binary PPL dense "
+                                   f"{report['ppl']['binary']} vs deltas "
+                                   f"{report['ppl']['binary_deltas']}")
+    require(all(math.isfinite(p) and p > 1.0
+                for p in report["ppl"].values()), f"PPL {report['ppl']}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for kname in VARIANT_KERNELS:
+        require(counts[kname] > 0, f"variants missed kernel {kname}")
+    report["launches"] = counts
+    emit(report)
+    return counts
+
+
+def rest(dev, smi):
+    """Phase 11: the serving check, then Llama-2-7B (full width, 2
+    layers: 32 query and 32 KV heads, so rows 2 and 4 run at one query
+    head a KV head) through a converted reference artifact and the
+    variants. Returns the launches of the three sub-phases summed."""
+    import dataclasses
+
+    from bitdelta_torch.models.config import llama2_7b
+    from bitdelta_torch.models.llama import init_params
+
+    t_phase = time.perf_counter()
+    counts = [rest_check(smi)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama2_7b(), num_layers=REST_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    base = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    fine = synthetic_finetune(cfg, base, gen)
+    counts.append(rest_llama(cfg, dev, smi, base, fine))
+    counts.append(rest_variants(cfg, dev, smi, base, fine))
+    del base, fine
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: sum(c[k] for c in counts) for k in KERNELS}
+    emit({"phase": "rest", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in total.items() if v}})
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -3667,6 +4125,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     cli_counts, report["cli"] = cli(dev, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rest_counts = rest(dev, smi)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
@@ -3677,7 +4138,8 @@ def main(argv=None):
                    "mixtral_canonical": canon_counts[kname],
                    "fused": fused_counts[kname],
                    "fused_canonical": fused_canon_counts[kname],
-                   "cli": cli_counts[kname]}
+                   "cli": cli_counts[kname],
+                   "rest": rest_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3688,6 +4150,9 @@ def main(argv=None):
             entry["kernel"] = " + ".join(DECODE_KERNELS)
             entry["int8"] = _timing_keys(
                 checks["flash_decode_attention_int8"])
+        if kname in ("flash_decode_attention", "flash_prefill_attention"):
+            # Rows 2 and 4 at one query head a KV head (phase 11b's).
+            entry["group1"] = _timing_keys(res["group1"])
         if kname == "tenant_delta_matmul_pair":
             # Row 1: the x prep and the integer MMA product, timed apart.
             entry["kernel"] = " + ".join(PAIR_KERNELS)

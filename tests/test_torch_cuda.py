@@ -572,10 +572,13 @@ def test_cuda_binary_matmul_matches_plain(cuda, m, k, n, dtype):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window", [None, 100])
-def test_cuda_flash_decode_matches_plain(cuda, window, dtype):
+@pytest.mark.parametrize("kvh", [8, 32])
+def test_cuda_flash_decode_matches_plain(cuda, window, dtype, kvh):
+    """32 query heads over 8 KV heads (Mistral) or 32 (Llama-2-7B: the
+    kernel's one-query-head-a-KV-head instance)."""
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn((4, 32, 128), generator=g, device=cuda).to(dtype)
-    k = torch.randn((4, 512, 8, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((4, 512, kvh, 128), generator=g, device=cuda).to(dtype)
     v = torch.randn_like(k)
     lengths = torch.tensor([512, 1, 300, 77], device=cuda)
     got = tfd.flash_decode_attention(q, k, v, lengths, window=window)
@@ -587,10 +590,12 @@ def test_cuda_flash_decode_matches_plain(cuda, window, dtype):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("window", [None, 50])
-def test_cuda_flash_prefill_matches_plain(cuda, window, dtype):
+@pytest.mark.parametrize("kvh", [8, 32])
+def test_cuda_flash_prefill_matches_plain(cuda, window, dtype, kvh):
+    """32 query heads over 8 KV heads or 32, as flash decode's test."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn((2, 128, 32, 128), generator=g, device=cuda).to(dtype)
-    k = torch.randn((2, 192, 8, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((2, 192, kvh, 128), generator=g, device=cuda).to(dtype)
     v = torch.randn_like(k)
     lengths = torch.tensor([128, 70], device=cuda)
     got = tfp.flash_prefill_attention(q, k, v, lengths, window=window)
@@ -1749,3 +1754,40 @@ def test_cuda_cli_pipeline_tiny(cuda, tmp_path, capsys, monkeypatch):
                      "--window_size", "32", "--save_dir", str(tmp_path)])
     assert ppl > 1.0 and ppl == float(open(os.path.join(
         tmp_path, "ppl.txt")).read())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_variants_match_the_cpu(cuda):
+    """LoRA and the column variant on the card against the same matrix on
+    the CPU (binary_median's scale and the ternary planes are held so in
+    chip_smoke.py's phase 11c, on a 45 M-element gate_proj): the column
+    signs exactly and its scales within 1e-6 (sums in another order);
+    LoRA's ``a @ b`` within 1e-5 of its largest element on an exact
+    rank-4 delta plus small noise, where the truncation is unique, and
+    on a random delta (where the factors may rotate among near-equal
+    singular values) its reconstruction error's norm within 1e-5
+    relative."""
+    from bitdelta_torch.research import variants as tv
+
+    g = torch.Generator().manual_seed(0)
+    base = torch.randn((4096, 4112), generator=g) * 0.02
+    fine = base + torch.randn((4096, 4112), generator=g) * 0.002
+    col = tv.quantize_column(base.to(cuda), fine.to(cuda))
+    col_cpu = tv.quantize_column(base, fine)
+    assert torch.equal(col.packed.cpu(), col_cpu.packed)
+    assert torch.allclose(col.scale.cpu(), col_cpu.scale, rtol=1e-6, atol=0)
+    small_b, small_f = base[:512, :384], fine[:512, :384]
+    diff = small_f - small_b
+    errs = [(tv.dequantize_lora(tv.quantize_lora(b, f, rank=16)).cpu()
+             - diff).norm().item()
+            for b, f in ((small_b.to(cuda), small_f.to(cuda)),
+                         (small_b, small_f))]
+    assert abs(errs[0] - errs[1]) <= 1e-5 * errs[1], errs
+    low = (torch.randn((512, 4), generator=g)
+           @ torch.randn((4, 384), generator=g)) * 0.01
+    low_f = small_b + low + torch.randn((512, 384), generator=g) * 1e-5
+    lora = tv.dequantize_lora(tv.quantize_lora(small_b.to(cuda),
+                                               low_f.to(cuda), rank=4))
+    lora_cpu = tv.dequantize_lora(tv.quantize_lora(small_b, low_f, rank=4))
+    assert (lora.cpu() - lora_cpu).abs().max() <= (
+        1e-5 * lora_cpu.abs().max())
