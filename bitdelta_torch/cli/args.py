@@ -77,8 +77,10 @@ def add_ppl_args(p: argparse.ArgumentParser):
 
 def add_mesh_args(p: argparse.ArgumentParser):
     p.add_argument("--mesh", type=str, default=None,
-                   help="'dp,tp' mesh shape; the port runs on one card "
-                        "(only 1,1)")
+                   help="'dp,tp' mesh shape: serve runs one rank a "
+                        "device under python -m torch.distributed.run "
+                        "--nproc-per-node dp*tp; train and eval_ppl take "
+                        "only 1,1")
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--kernel", type=str, default="auto", choices=KERNELS,
                    help="auto: cuda on the card, torch on the CPU")
@@ -87,16 +89,23 @@ def add_mesh_args(p: argparse.ArgumentParser):
 
 
 def parse_mesh(spec):
-    """``(dp, tp)`` of ``--mesh``, or None. The port runs on one card: any
-    shape other than ``1,1`` exits."""
+    """``(dp, tp)`` of ``--mesh``, or None."""
     if spec is None:
         return None
     dp, tp = (int(x) for x in spec.split(","))
-    if (dp, tp) != (1, 1):
+    return (dp, tp)
+
+
+def refuse_mesh(spec) -> None:
+    """Exit on a ``--mesh`` other than ``1,1``: distillation and the
+    perplexity eval run on one device (their data and tensor parallelism
+    are ROADMAP A7)."""
+    shape = parse_mesh(spec)
+    if shape not in (None, (1, 1)):
         raise SystemExit(
-            f"--mesh {spec}: the PyTorch port runs on one card; data and "
-            f"tensor parallelism are ROADMAP A6 (not ported yet)")
-    return None
+            f"--mesh {spec}: distillation and the perplexity eval run on "
+            f"one device in the PyTorch port; their data and tensor "
+            f"parallelism are ROADMAP A7 (not ported yet)")
 
 
 def resolve_kernel(kernel: str, device: torch.device) -> str:

@@ -32,7 +32,7 @@ def main(argv=None):
     A.add_ppl_args(p)
     A.add_mesh_args(p)
     args = p.parse_args(argv)
-    A.parse_mesh(args.mesh)
+    A.refuse_mesh(args.mesh)
     device = resolve_device(args.device)
     dtype = torch_dtype(args.dtype)
 

@@ -11,12 +11,20 @@ Usage:
       --delta zephyr=out/zephyr/diff.safetensors --port 8000
 
 Runs on the card; ``--device cpu`` runs on the CPU.
+
+Tensor and data parallelism: ``--mesh dp,tp`` with one process a rank,
+started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
+bitdelta_torch.cli.serve --mesh dp,tp ...``. Every rank loads the base
+and the tenants and keeps its shard; rank 0 serves HTTP and the other
+ranks replay its engine calls until it stops (on SIGTERM or SIGINT, which
+the other ranks leave to it).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 
 from . import args as A
 from ..core.artifact import load_delta
@@ -57,7 +65,20 @@ def main(argv=None):
     p.add_argument("--smoke_test", action="store_true",
                    help="generate a few tokens from every tenant and exit")
     args = p.parse_args(argv)
-    A.parse_mesh(args.mesh)
+    mesh_shape = A.parse_mesh(args.mesh)
+    mesh = None
+    if mesh_shape is not None:
+        from ..parallel import mesh as pmesh
+
+        try:
+            # Before any weight is loaded: the mesh puts the rank on its
+            # card.
+            mesh = pmesh.make_mesh(mesh_shape, device=args.device)
+        except ValueError as e:
+            raise SystemExit(
+                f"--mesh {args.mesh}: {e}; start one process a rank with "
+                f"python -m torch.distributed.run --nproc-per-node "
+                f"{mesh_shape[0] * mesh_shape[1]}") from e
     device = resolve_device(args.device)
 
     tenant_specs = []
@@ -110,6 +131,9 @@ def main(argv=None):
                           system_prompt=spec.get("system_prompt", ""))
                for spec in tenant_specs]
 
+    if mesh is not None:
+        print(f"sharding stack over mesh {mesh_shape} (data, model)",
+              flush=True)
     model_mod = resolve_model_module(cfg)
     if model_mod is not llama:
         print("mixtral checkpoint: serving the MoE decoder", flush=True)
@@ -118,8 +142,38 @@ def main(argv=None):
                     kernel=A.resolve_kernel(args.kernel, device),
                     compute_dtype=dtype, model=model_mod,
                     decode_chunk=args.decode_chunk, device=device,
-                    kv_dtype=args.kv_dtype)
+                    kv_dtype=args.kv_dtype, mesh=mesh)
     del stack
+    if engine.rank != 0:
+        _follow(engine)
+        return
+    try:
+        _lead(args, engine, tenants)
+    finally:
+        engine.stop_followers()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _follow(engine: Engine) -> None:
+    """A rank > 0: replay rank 0's calls; stop when rank 0 says so."""
+    import torch.distributed as dist
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, signal.SIG_IGN)
+    print(f"[rank {engine.rank}] following rank 0", flush=True)
+    engine.follow()
+    dist.destroy_process_group()
+    print(f"[rank {engine.rank}] stopped", flush=True)
+
+
+def _lead(args, engine: Engine, tenants) -> None:
+    if engine.mesh is not None and engine.mesh.size() > 1:
+        # SIGTERM (torchrun's stop) ends serve_forever like Ctrl-C, so the
+        # followers are released.
+        signal.signal(signal.SIGTERM, signal.default_int_handler)
     if not args.no_warmup:
         print("warming prefill buckets "
               f"{list(engine.prefill_buckets)} + decode ...", flush=True)
@@ -138,7 +192,13 @@ def main(argv=None):
     server = make_http_server(app, args.host, args.port)
     print(f"serving {len(tenants)} tenants on "
           f"http://{args.host}:{args.port}", flush=True)
-    server.serve_forever()
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("[rank 0] stopping", flush=True)
+    finally:
+        server.server_close()
+        app.close()
 
 
 if __name__ == "__main__":

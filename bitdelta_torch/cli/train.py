@@ -37,7 +37,7 @@ def main(argv=None):
     A.add_train_args(p)
     A.add_mesh_args(p)
     args = p.parse_args(argv)
-    A.parse_mesh(args.mesh)
+    A.refuse_mesh(args.mesh)
     device = resolve_device(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
 

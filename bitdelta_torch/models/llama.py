@@ -28,6 +28,13 @@ along D: ``(D//32, V)``, tenant-stacked ``(T, D//32, V)``) and, untied,
 ``"lm_head"`` (``(D//32, V)`` / ``(T, D//32, V)``) over a shared base
 embed / head; a tied model's embed delta is also its head delta.
 
+Under tensor parallelism (``tp_group``, a ``(data, model)`` mesh from
+``parallel/mesh.py``) each rank runs these same functions on its shard
+with its LOCAL head counts, as JAX's ``shard_map`` bodies do with
+``tp_axis``: the embedding sums its rank's vocab rows over the model
+axis, o_proj and down_proj sum their partial outputs, and the logits
+come back vocab-sharded.
+
 bf16 rounding follows JAX: ``rms_norm`` casts to the input dtype before
 the weight multiply, RoPE and silu run in fp32 and cast once, and every
 projection accumulates in fp32 and casts once.
@@ -51,12 +58,17 @@ from ..ops.int4 import MAX_M as W4_MAX_M
 from ..ops.int4 import w4_matmul
 from ..ops.kv_quant import dequantize_kv, quantize_kv
 from ..ops.packing import unpair_packed
+from ..parallel.collectives import axis_index, psum
+from ..parallel.mesh import MODEL_AXIS
 from ..research.quantized_base import (INT4_GROUP, Int4Weight, Int8Weight,
                                        int4_matmul)
 from .config import ModelConfig
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
               "gate_proj", "up_proj", "down_proj")
+# Row-parallel under tensor parallelism: their K inputs are head- or
+# channel-local, so their partial outputs are summed over the model axis.
+ROW_PARALLEL_PROJS = ("o_proj", "down_proj")
 # The kernel routes: the values of ``kernel`` that take JAX's Pallas
 # branches on the card (and the kernels' plain versions on the CPU).
 CARD_KERNELS = ("cuda", "cuda_fused")
@@ -209,6 +221,17 @@ def _base_matmul(x: torch.Tensor, w, compute_dtype, kernel: str = "torch"
     return matmul_f32(x.to(compute_dtype), w.to(compute_dtype))
 
 
+def pair_colsum(delta: PairedBinaryDelta) -> torch.Tensor:
+    """The colsum the pair kernels take, ``(*, N)``. A row-parallel pair
+    delta's model-axis shard carries its own K shard's colsum with a unit
+    shard axis, ``(*, 1, N)`` (``stacking.to_pair_layout(tp=)``): that
+    axis goes (the full-K correction would be wrong for a K slice)."""
+    colsum = delta.colsum
+    if colsum.ndim == delta.packed_pairs.ndim:
+        colsum = colsum[..., 0, :]
+    return colsum
+
+
 def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
           kernel: str = "torch") -> torch.Tensor:
     """Linear with an optional fused 1-bit delta; the branch choices of
@@ -232,16 +255,16 @@ def _proj(x: torch.Tensor, w, delta, tenant_ids, compute_dtype,
     if isinstance(delta, PairedBinaryDelta):
         if decode:
             xd = x[:, 0].to(compute_dtype)
+            colsum = pair_colsum(delta)
             if fused:
                 y = binary_gemm.fused_base_pair_matmul(
-                    xd, w.to(compute_dtype), delta.packed_pairs,
-                    delta.colsum, delta.scale, tenant_ids,
-                    out_dtype=torch.float32)
+                    xd, w.to(compute_dtype), delta.packed_pairs, colsum,
+                    delta.scale, tenant_ids, out_dtype=torch.float32)
             else:
                 # Base matmul + pair-packed delta kernel.
                 y = _base_matmul(x[:, 0], w, compute_dtype, kernel)
                 y = y + binary_gemm.tenant_delta_matmul_pair(
-                    xd, delta.packed_pairs, delta.colsum, delta.scale,
+                    xd, delta.packed_pairs, colsum, delta.scale,
                     tenant_ids, out_dtype=torch.float32)
             return y.to(compute_dtype)[:, None, :]
         delta = BinaryDelta(packed=unpair_packed(delta.packed_pairs),
@@ -332,30 +355,45 @@ def _split_deltas(deltas: Optional[Deltas], names=PROJ_NAMES):
 
 def _embed_lookup(params: Params, tokens: torch.Tensor,
                   tenant_ids: Optional[torch.Tensor],
-                  embed_delta=None) -> torch.Tensor:
+                  embed_delta=None, tp_group=None) -> torch.Tensor:
     """Token embedding; ``embed`` may be tenant-stacked ``(T, V, D)``, or
     shared ``(V, D)`` with a 1-bit per-tenant delta (``embed_delta``,
     packed along D, so a token's sign row is one packed-word column):
-    ``base + alpha * ±1`` in fp32, cast to the embed's dtype."""
+    ``base + alpha * ±1`` in fp32, cast to the embed's dtype.
+
+    ``tp_group``: a mesh whose model axis shards the vocabulary — each
+    rank looks up only its local vocab rows and the results are summed
+    over the axis (exactly one rank contributes per token)."""
     e = params["embed"]
+    valid, lookup = None, tokens
+    if tp_group is not None:
+        vloc = e.shape[-2]
+        rel = tokens - axis_index(tp_group, MODEL_AXIS) * vloc
+        valid = ((rel >= 0) & (rel < vloc))[..., None]
+        lookup = torch.clamp(rel, 0, vloc - 1)
     if e.ndim == 3 and tenant_ids is not None:
-        base = e[tenant_ids[:, None], tokens]
+        base = e[tenant_ids[:, None], lookup]
     else:
-        base = e[tokens]
+        base = e[lookup]
     if embed_delta is None:
+        if tp_group is not None:
+            base = psum(torch.where(valid, base, torch.zeros_like(base)),
+                        tp_group)
         return base
     packed, scale = embed_delta.packed, embed_delta.scale
     if packed.ndim == 3 and tenant_ids is not None:
         # (T, D//32, V): rows (b, s) read tenant b's column tokens[b, s].
-        words = packed[tenant_ids[:, None], :, tokens]      # (B, S, D//32)
+        words = packed[tenant_ids[:, None], :, lookup]      # (B, S, D//32)
         alpha = scale[tenant_ids][:, None, None]
     else:
-        words = packed[..., tokens].movedim(-3, -1)
+        words = packed[..., lookup].movedim(-3, -1)
         alpha = scale
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1                # (B, S, D//32, 32)
     pm1 = (2 * bits - 1).reshape(*tokens.shape, -1).to(torch.float32)
     out = base.to(torch.float32) + alpha.to(torch.float32) * pm1
+    if tp_group is not None:
+        out = psum(torch.where(valid, out, torch.zeros_like(out)), tp_group)
     return out.to(e.dtype)
 
 
@@ -461,7 +499,7 @@ def write_cache(cache: torch.Tensor, write_pos: torch.Tensor,
 def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
                q_positions, kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, kernel: str = "torch", lengths=None,
-               cache_k_scale=None, cache_v_scale=None):
+               cache_k_scale=None, cache_v_scale=None, tp_group=None):
     """One decoder block. ``p``/``d``: this layer's params / deltas. With
     ``cache_k``/``cache_v`` (``(B, S, KV, hd)`` views of the cache) the
     new K/V are written IN PLACE at ``write_pos`` per row — the JAX
@@ -474,13 +512,22 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
     scales written beside them. Decode under ``kernel="cuda"`` hands the
     int8 K/V and scales to flash decode; every other attention path,
     prefill included, attends over a dequantized view of the whole cache,
-    so prefill logits see the quantized K/V, as JAX's do."""
+    so prefill logits see the quantized K/V, as JAX's do.
+
+    ``tp_group``: Megatron TP on one rank's shard (JAX's ``tp_axis``
+    inside ``shard_map``): cfg carries LOCAL head counts, column-parallel
+    projections produce local N slices, and the row-parallel ones
+    (o_proj, down_proj) sum their partial outputs over the mesh's model
+    axis, so the residual stream stays replicated."""
     d = d or {}
     b, sq, _ = x.shape
 
     def proj(name, inp):
-        return _proj(inp, p[name], d.get(name), tenant_ids, compute_dtype,
-                     kernel)
+        y = _proj(inp, p[name], d.get(name), tenant_ids, compute_dtype,
+                  kernel)
+        if name in ROW_PARALLEL_PROJS:
+            y = psum(y, tp_group)
+        return y
 
     def norm_w(w):
         if tenant_ids is not None and w.ndim == 2:
@@ -575,21 +622,26 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             tenant_ids: Optional[torch.Tensor] = None,
             compute_dtype=None, return_cache: bool = False,
             cache_max_seq: Optional[int] = None, kernel: str = "torch",
-            kv_quant: bool = False):
+            kv_quant: bool = False, tp_group=None):
     """Full-sequence forward (prefill / eval). tokens ``(B, S)``
     right-padded; lengths ``(B,)`` (default S). Returns fp32 logits
     ``(B, S, V)`` and, with ``return_cache``, a KVCache holding this
     sequence's K/V in slots ``[0, S)`` of a cache padded to
     ``cache_max_seq`` (int8 with its scales when ``kv_quant``, the
-    engine's ``kv_dtype="int8"``)."""
+    engine's ``kv_dtype="int8"``).
+
+    ``tp_group``: a ``(data, model)`` mesh whose model axis carries
+    Megatron TP; this rank holds its shard (``parallel/sharding.py``), cfg
+    its LOCAL head counts, and the logits come back vocab-sharded, ``(B,
+    S, V/tp)`` (the caller gathers them in rank order)."""
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
     b, s = tokens.shape
     dev = tokens.device
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     deltas, embed_delta, head_delta = _split_deltas(deltas)
-    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
-        compute_dtype)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
+                      tp_group).to(compute_dtype)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -613,7 +665,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                        cache_v=cv,
                        write_pos=write_pos if cache is not None else None,
                        kernel=kernel, lengths=lengths, cache_k_scale=cks,
-                       cache_v_scale=cvs)
+                       cache_v_scale=cvs, tp_group=tp_group)
 
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
@@ -626,10 +678,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: KVCache, *, deltas: Optional[Deltas] = None,
                 tenant_ids: Optional[torch.Tensor] = None,
-                compute_dtype=None, kernel: str = "torch"):
+                compute_dtype=None, kernel: str = "torch", tp_group=None):
     """Append ``tokens`` ``(B, Sq)`` at each row's current length. The
     cache's k/v are updated in place; returns ``(logits (B, Sq, V),
-    KVCache with the same k/v and the advanced length)``."""
+    KVCache with the same k/v and the advanced length)``. ``tp_group``:
+    as :func:`forward` (the cache holds this rank's KV heads; the logits
+    come back vocab-sharded)."""
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
     b, sq = tokens.shape
     dev = tokens.device
@@ -641,15 +695,16 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     deltas, embed_delta, head_delta = _split_deltas(deltas)
-    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
-        compute_dtype)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
+                      tp_group).to(compute_dtype)
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
         ck, cv, cks, cvs = _cache_views(cache, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, tenant_ids,
                        positions, kv_valid, cos, sin,
                        cache_k=ck, cache_v=cv, write_pos=cache.length,
-                       kernel=kernel, cache_k_scale=cks, cache_v_scale=cvs)
+                       kernel=kernel, cache_k_scale=cks, cache_v_scale=cvs,
+                       tp_group=tp_group)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
                              head_delta=head_delta, embed_delta=embed_delta)

@@ -1,6 +1,6 @@
 """The Mixtral (sparse MoE) decoder in PyTorch (port of
-``bitdelta_tpu/models/mixtral.py``, single device: the ``tp_axis``
-branches are not ported; the HF import is ``models/hf_import.py``).
+``bitdelta_tpu/models/mixtral.py``; the HF import is
+``models/hf_import.py``).
 
 Attention is llama's (the same RoPE / GQA blocks, and llama's ``_proj``
 for the four attention projections, so their deltas take the same kernel
@@ -21,6 +21,12 @@ an attention projection over a dense base (llama's ``_proj``): the
 experts' base runs densely over all experts, apart from their routed
 deltas. Compressed embed / head deltas take llama's helpers. The KV cache
 is bf16 (llama's ``init_cache``).
+
+Under tensor parallelism (``tp_group``, as in llama) each rank holds its
+shard of every expert — w1/w3 column-parallel on the intermediate, w2
+row-parallel — and the router whole: the MoE block's combine is summed
+once over the model axis, and o_proj's output is summed in fp32, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -37,12 +43,13 @@ from ..ops.binary_matmul import (binary_matmul, matmul_f32,
                                  tenant_binary_matmul)
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.packing import unpack_to_pm1, unpair_packed
+from ..parallel.collectives import psum
 from ..research.quantized_base import Int8Weight
 from .config import ModelConfig
 from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
                     _embed_lookup, _final_norm_w, _layer, _lm_head_logits,
-                    _proj, _split_deltas, apply_rope, on_card, rms_norm,
-                    rope_tables, write_cache)
+                    _proj, _split_deltas, apply_rope, on_card, pair_colsum,
+                    rms_norm, rope_tables, write_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,8 +130,9 @@ def _routed_expert_delta(x_rows, delta, flat_ids, compute_dtype,
     if isinstance(delta, PairedBinaryDelta):
         if on_card(kernel):
             return binary_gemm.tenant_delta_matmul_pair(
-                x_rows.to(compute_dtype), delta.packed_pairs, delta.colsum,
-                delta.scale, flat_ids, out_dtype=torch.float32)
+                x_rows.to(compute_dtype), delta.packed_pairs,
+                pair_colsum(delta), delta.scale, flat_ids,
+                out_dtype=torch.float32)
         delta = _unpair(delta)
     if on_card(kernel):
         return binary_gemm.tenant_delta_matmul(
@@ -197,9 +205,11 @@ def _route(router_logits: torch.Tensor, k: int):
 
 
 def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
-             kernel: str = "torch"):
+             kernel: str = "torch", tp_group=None):
     """Top-k routed SwiGLU, dense over experts: x ``(B, S, D)``. With
-    ``tenant_ids`` the deltas are tenant-stacked and routed per row."""
+    ``tenant_ids`` the deltas are tenant-stacked and routed per row.
+    ``tp_group``: the experts hold this rank's intermediate columns; the
+    combine is summed over the model axis (one reduction a block)."""
     b, s, _ = x.shape
     e, topk = cfg.num_experts, cfg.experts_per_token
 
@@ -253,19 +263,20 @@ def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
                                       dim=1).reshape(b * topk, -1)
             yd2 = routed(x2, "w2")                             # (B, k, D)
             y = y + torch.einsum("bkd,bk->bd", yd2, gates[:, 0])[:, None]
-        return y.to(compute_dtype)
+        return psum(y, tp_group).to(compute_dtype)
 
     h1 = _expert_matmul(x, p["w1"], d.get("w1"), compute_dtype, tenant_ids)
     h3 = _expert_matmul(x, p["w3"], d.get("w3"), compute_dtype, tenant_ids)
     h = torch.nn.functional.silu(h1.to(torch.float32)).to(compute_dtype) * h3
     out = _expert_matmul(h, p["w2"], d.get("w2"), compute_dtype, tenant_ids)
     y = torch.einsum("bsed,bse->bsd", out.to(torch.float32), weight)
-    return y.to(compute_dtype)
+    return psum(y, tp_group).to(compute_dtype)
 
 
 def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
                kv_valid, cos, sin, cache_k=None, cache_v=None,
-               write_pos=None, tenant_ids=None, kernel: str = "torch"):
+               write_pos=None, tenant_ids=None, kernel: str = "torch",
+               tp_group=None):
     """One Mixtral block. With ``cache_k``/``cache_v`` (``(B, S, KV,
     hd)`` views) the new K/V are written IN PLACE at ``write_pos`` per
     row and attention runs over the cache. Decode under ``kernel="cuda"``
@@ -280,8 +291,12 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
         return w
 
     def attn_proj(xx, name):
-        return _proj(xx, p[name], d.get(name), tenant_ids, compute_dtype,
-                     kernel)
+        y = _proj(xx, p[name], d.get(name), tenant_ids, compute_dtype,
+                  kernel)
+        if name == "o_proj":
+            # Row-parallel: heads are rank-local; the sum runs in fp32.
+            y = psum(y, tp_group, dtype=torch.float32)
+        return y
 
     h = rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps)
     q = attn_proj(h, "q_proj").reshape(b, sq, cfg.num_heads, cfg.head_dim)
@@ -307,7 +322,8 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
         attn = _attention(cfg, q, k_all, v_all, positions, kv_valid)
     x = x + attn_proj(attn, "o_proj")
     h = rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps)
-    return x + _moe_ffn(cfg, compute_dtype, h, p, d, tenant_ids, kernel)
+    return x + _moe_ffn(cfg, compute_dtype, h, p, d, tenant_ids, kernel,
+                        tp_group)
 
 
 def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
@@ -315,12 +331,15 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
             deltas: Optional[Dict[str, Any]] = None,
             tenant_ids: Optional[torch.Tensor] = None,
             compute_dtype=None, return_cache: bool = False,
-            cache_max_seq: Optional[int] = None, kernel: str = "torch"):
+            cache_max_seq: Optional[int] = None, kernel: str = "torch",
+            tp_group=None):
     """Full-sequence Mixtral forward. tokens ``(B, S)`` right-padded;
     lengths ``(B,)`` (default S); deltas layer-stacked ``(L, ...)`` (a
     tenant axis after the layer axis with ``tenant_ids``). Returns fp32
     logits ``(B, S, V)`` and, with ``return_cache``, a bf16 KVCache of
-    ``cache_max_seq`` slots holding this sequence's K/V."""
+    ``cache_max_seq`` slots holding this sequence's K/V. ``tp_group``:
+    as llama's (this rank's shard, LOCAL head counts, vocab-sharded
+    logits)."""
     from .llama import init_cache
 
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
@@ -329,8 +348,8 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     deltas, embed_delta, head_delta = _split_deltas(deltas, MOE_PARTS)
-    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
-        compute_dtype)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
+                      tp_group).to(compute_dtype)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
@@ -350,7 +369,8 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
         ck, cv, _, _ = _cache_views(cache, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, positions, kv_valid,
                        cos, sin, cache_k=ck, cache_v=cv, write_pos=write_pos,
-                       tenant_ids=tenant_ids, kernel=kernel)
+                       tenant_ids=tenant_ids, kernel=kernel,
+                       tp_group=tp_group)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
                              head_delta=head_delta, embed_delta=embed_delta)
@@ -362,10 +382,11 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
 def decode_step(cfg: MixtralConfig, params: Params, tokens: torch.Tensor,
                 cache: KVCache, *, deltas: Optional[Dict[str, Any]] = None,
                 tenant_ids: Optional[torch.Tensor] = None,
-                compute_dtype=None, kernel: str = "torch"):
+                compute_dtype=None, kernel: str = "torch", tp_group=None):
     """Append ``tokens`` ``(B, Sq)`` at each row's current length (the
     cache's k/v are updated in place); MoE routing runs per token.
-    Returns ``(logits (B, Sq, V), KVCache with the advanced length)``."""
+    Returns ``(logits (B, Sq, V), KVCache with the advanced length)``;
+    ``tp_group`` as :func:`forward`."""
     if cache.quantized:
         raise ValueError("mixtral keeps a bf16 cache (the int8 cache is "
                          "wired for the llama family only)")
@@ -380,14 +401,15 @@ def decode_step(cfg: MixtralConfig, params: Params, tokens: torch.Tensor,
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     deltas, embed_delta, head_delta = _split_deltas(deltas, MOE_PARTS)
-    x = _embed_lookup(params, tokens, tenant_ids, embed_delta).to(
-        compute_dtype)
+    x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
+                      tp_group).to(compute_dtype)
     for layer in range(cfg.num_layers):
         lp, ld = _layer(params, deltas, layer)
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, positions, kv_valid,
                        cos, sin, cache_k=cache.k[layer],
                        cache_v=cache.v[layer], write_pos=cache.length,
-                       tenant_ids=tenant_ids, kernel=kernel)
+                       tenant_ids=tenant_ids, kernel=kernel,
+                       tp_group=tp_group)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
                              head_delta=head_delta, embed_delta=embed_delta)

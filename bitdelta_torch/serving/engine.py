@@ -1,6 +1,7 @@
 """Multi-tenant continuous-batching generation engine (port of
-``bitdelta_tpu/serving/engine.py``, single device: the llama family with
-a bf16 or int8 KV cache, or Mixtral with a bf16 cache).
+``bitdelta_tpu/serving/engine.py``: the llama family with a bf16 or int8
+KV cache, or Mixtral with a bf16 cache; on one device or over a ``(data,
+model)`` mesh).
 
 * ``max_slots`` decode lanes share one KV cache; each slot carries its
   own tenant id, length, sampling params and stop set;
@@ -20,21 +21,42 @@ the compile locks have no counterpart here; the chunk's device
 ``while_loop`` is a Python loop over ``decode_step``. The cache is
 updated in place, so every cache mutation (a chunk, an admission's
 insert) happens under the engine lock.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs an engine
+on its shard: the weights and deltas split Megatron-style over the model
+axis, the cache's slot rows over the data axis and its KV heads over the
+model axis. A decode step runs each rank's rows through the model with
+its LOCAL head counts and gathers the logits to the whole ``(B, V)`` on
+every rank, which then samples the whole batch with the same seeded
+generator: every rank's host state stays identical. Admission is one
+request at a time (JAX's ``_tp_serial_admission``): its prefill runs on
+every rank, tensor-parallel over the model axis, and only the data rank
+that owns the slot keeps the row. JAX drives all devices from one
+controller; here rank 0 is the controller and the other ranks replay
+its calls (:meth:`Engine.follow`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import functools
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device, torch_dtype
 from ..models import llama
 from ..models.config import ModelConfig
+from ..parallel.collectives import (all_gather, axis_index, axis_size,
+                                    broadcast_object)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import ROW_PARALLEL, shard_stack
+from ..research.quantized_base import INT4_GROUP, Int4Weight
 from ..utils.profiling import StepTimer
 from .sampling import sample_tokens
 from .stacking import TenantStack, to_pair_layout
@@ -45,6 +67,10 @@ NEG_INF = float("-inf")
 # Requests with more stop ids still stop correctly — the host re-check
 # catches the rest — but their lanes may run on to the chunk's end.
 DEVICE_STOPS = 4
+
+# A follower waits on the control channel for as long as the leader's
+# server stays idle.
+FOLLOW_TIMEOUT = datetime.timedelta(days=365)
 
 
 class EngineFullError(RuntimeError):
@@ -107,13 +133,35 @@ class StepEvent:
     new_token: bool = True
 
 
+def _replicated(method):
+    """An engine call that mutates state. Over a mesh of more than one
+    rank, rank 0 broadcasts ``(name, args, kwargs)`` to the followers
+    before it runs the call, under one lock, so every rank runs the same
+    calls in the same order (their collectives then pair up); a call made
+    from inside another (``generate`` submits and pumps) is not sent."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self._ctl is None:
+            return method(self, *args, **kwargs)
+        with self._op_lock:
+            if self._op_depth == 0 and self.rank == 0:
+                broadcast_object((method.__name__, args, kwargs),
+                                 group=self._ctl)
+            self._op_depth += 1
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                self._op_depth -= 1
+    return call
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, stack: TenantStack, *,
                  max_slots: int = 8, max_seq: int = 1024,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512, 1024),
                  kernel: str = "auto", compute_dtype=None, seed: int = 0,
                  decode_chunk: int = 1, device="cuda",
-                 kv_dtype: Optional[str] = None, model=None):
+                 kv_dtype: Optional[str] = None, model=None, mesh=None):
         """``kernel``: ``"cuda"`` (the hand-written kernels; on CPU
         tensors their plain versions), ``"cuda_fused"`` (the same, with
         base and delta in one kernel at each decode projection over a
@@ -129,7 +177,19 @@ class Engine:
         decoder module to serve, anything with ``forward`` /
         ``decode_step`` of the llama signatures (default
         :mod:`..models.llama`; :mod:`..models.mixtral` for multi-tenant
-        MoE serving, whose cache stays bf16)."""
+        MoE serving, whose cache stays bf16).
+
+        ``mesh``: a ``(data, model)`` DeviceMesh (``parallel/mesh.py``)
+        over the ranks that serve together, each of which builds its
+        engine from the same whole stack in the same order; the engine
+        keeps this rank's shard (``parallel/sharding.py::shard_stack``,
+        after ``to_pair_layout(tp=)`` on a kernel route) and drops its
+        reference to the rest. ``max_slots`` must split over the data
+        axis and the KV heads, query heads and padded vocabulary over the
+        model axis (every route runs the same per-rank code here; JAX
+        needs the last two on its Pallas route only), and a W4
+        row-parallel K into whole 128-row groups a rank. Rank 0 takes the
+        calls; the other ranks run :meth:`follow`."""
         self.device = resolve_device(device)
         if kernel == "auto":
             kernel = "cuda" if self.device.type == "cuda" else "torch"
@@ -156,10 +216,38 @@ class Engine:
                   "bandwidth win", flush=True)
         self.cfg = cfg
         self.kernel = kernel
+        self.mesh = mesh
+        dp, tp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
+        # Padded vocabulary (the sampler's mask width), before sharding.
+        self._vocab = int(stack.params["embed"].shape[-2])
+        if mesh is not None:
+            self._check_mesh(cfg, stack, max_slots, dp, tp)
         # Decode hot path: pair-packed delta layout (prefill un-pairs on
-        # the fly); same bytes as the canonical layout.
-        self.stack = (to_pair_layout(stack) if llama.on_card(kernel)
+        # the fly); same bytes as the canonical layout. Under TP the
+        # row-parallel colsums are per K shard.
+        self.stack = (to_pair_layout(stack, tp=tp) if llama.on_card(kernel)
                       else stack)
+        del stack
+        if mesh is not None:
+            self.stack = shard_stack(cfg, self.stack, mesh)
+        # The per-rank model sees its LOCAL heads (JAX's cfg_local).
+        self._cfg_local = dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // tp,
+            num_kv_heads=cfg.num_kv_heads // tp)
+        # This rank's slot rows of the batch.
+        local = max_slots // dp
+        self._r0 = axis_index(mesh, DATA_AXIS) * local
+        self._rows = slice(self._r0, self._r0 + local)
+        # Leader / follower control (rank 0 broadcasts every call).
+        self._ctl = None
+        self.rank = 0
+        self._op_lock = threading.RLock()
+        self._op_depth = 0
+        if mesh is not None and mesh.size() > 1:
+            self.rank = dist.get_rank()
+            self._ctl = dist.new_group(
+                ranks=mesh.mesh.flatten().tolist(), backend="gloo",
+                timeout=FOLLOW_TIMEOUT)
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.prefill_buckets = sorted(b for b in prefill_buckets
@@ -168,7 +256,8 @@ class Engine:
         self.decode_chunk = max(1, int(decode_chunk))
 
         self.slots = [SlotState() for _ in range(max_slots)]
-        self.cache = llama.init_cache(cfg, max_slots, max_seq,
+        # This rank's block of the cache (its rows, its KV heads).
+        self.cache = llama.init_cache(self._cfg_local, local, max_seq,
                                       self.compute_dtype, self.device,
                                       kv_dtype=kv_dtype)
         self._stop_ids = np.full((max_slots, DEVICE_STOPS), -1, np.int32)
@@ -198,6 +287,37 @@ class Engine:
         self.timer = StepTimer()
         self.warmed: Dict[str, list] = {"prefill": [], "decode": []}
 
+    @staticmethod
+    def _check_mesh(cfg, stack, max_slots, dp, tp):
+        """JAX's mesh checks (``engine.py:216-257``)."""
+        if max_slots % dp:
+            raise ValueError(f"max_slots {max_slots} must be a "
+                             f"multiple of the data axis ({dp})")
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"num_kv_heads {cfg.num_kv_heads} must "
+                             f"be a multiple of the model axis ({tp})")
+        if tp == 1:
+            return
+        if cfg.num_heads % tp:
+            raise ValueError(
+                f"num_heads {cfg.num_heads} must be a multiple of the "
+                f"model axis ({tp}) for the per-rank decode path")
+        vmax = int(stack.params["embed"].shape[-2])
+        if vmax % tp:
+            raise ValueError(
+                f"padded vocab {vmax} must be a multiple of the model "
+                f"axis ({tp}); re-pad the tenant stack")
+        for name, w in stack.params["layers"].items():
+            # Each rank's row-parallel int4 slice must hold whole groups
+            # with their own scale rows.
+            if (isinstance(w, Int4Weight) and name in ROW_PARALLEL
+                    and w.scale.shape[-2] % tp):
+                raise ValueError(
+                    f"W4 + tp={tp}: {name}'s K="
+                    f"{w.scale.shape[-2] * INT4_GROUP} doesn't split into "
+                    f"whole {INT4_GROUP}-row groups per model shard; align "
+                    f"K to INT4_GROUP*tp")
+
     # ------------------------------------------------------------------
     # Device functions
     # ------------------------------------------------------------------
@@ -217,12 +337,16 @@ class Engine:
         kv_kw = {"kv_quant": True} if self.kv_quant else {}
         with torch.no_grad():
             logits, rowcache = self.model.forward(
-                self.cfg, self.stack.params, tok, lengths=lens,
+                self._cfg_local, self.stack.params, tok, lengths=lens,
                 deltas=self.stack.deltas, tenant_ids=tids,
                 compute_dtype=self.compute_dtype, return_cache=True,
-                cache_max_seq=tokens.shape[1], kernel=self.kernel, **kv_kw)
+                cache_max_seq=tokens.shape[1], kernel=self.kernel,
+                tp_group=self.mesh, **kv_kw)
             rows = torch.arange(tok.shape[0], device=self.device)
             last = logits[rows, lens.to(torch.int64) - 1].to(torch.float32)
+            # Every data rank prefills the same rows: only the vocabulary
+            # is sharded.
+            last = all_gather(last, self.mesh, MODEL_AXIS, dim=-1)
             vmask = (torch.arange(last.shape[-1], device=self.device)[None]
                      < self.stack.vocab_sizes[tids][:, None])
             last = torch.where(vmask, last, torch.full_like(last, NEG_INF))
@@ -233,7 +357,15 @@ class Engine:
         return first, rowcache
 
     def _insert(self, rowcache, rows, slots, lengths) -> None:
-        """Copy prefilled rows into engine slots (under ``_lock``)."""
+        """Copy prefilled rows into engine slots (under ``_lock``); over a
+        data axis a rank keeps only the slots it holds."""
+        mine = [i for i, s in enumerate(slots)
+                if self._rows.start <= s < self._rows.stop]
+        if not mine:
+            return
+        rows = [rows[i] for i in mine]
+        slots = [slots[i] - self._r0 for i in mine]
+        lengths = [lengths[i] for i in mine]
         n = rowcache.k.shape[2]
         src = torch.as_tensor(rows, device=self.device)
         dst = torch.as_tensor(slots, device=self.device)
@@ -244,12 +376,27 @@ class Engine:
             self.cache.v_scale[:, dst, :n] = rowcache.v_scale[:, src]
         self.cache.length[dst] = self._t(lengths, torch.int32)
 
+    def _step(self, tokens, tenant_ids):
+        """One decode step of the whole batch: this rank's rows through
+        the model (in place in its cache), the logits gathered to ``(B,
+        V)`` fp32 on every rank. Returns ``(logits, cache)``."""
+        rows = self._rows
+        logits, cache = self.model.decode_step(
+            self._cfg_local, self.stack.params, tokens[rows], self.cache,
+            deltas=self.stack.deltas, tenant_ids=tenant_ids[rows],
+            compute_dtype=self.compute_dtype, kernel=self.kernel,
+            tp_group=self.mesh)
+        logits = all_gather(logits[:, 0].to(torch.float32), self.mesh,
+                            MODEL_AXIS, dim=-1)
+        return all_gather(logits, self.mesh, DATA_AXIS, dim=0), cache
+
     def _parked(self, live: torch.Tensor, probe) -> bool:
         """True once the host can see, WITHOUT waiting for the device,
         that every lane is parked: on the CPU directly; on the card from
         a non-blocking copy of an earlier step's flag whose event has
-        completed (a lagging, never-blocking probe)."""
-        if self.device.type != "cuda":
+        completed (a lagging, never-blocking probe). Over a mesh every
+        rank must stop at the same step, so the host reads the flag."""
+        if self.device.type != "cuda" or self._ctl is not None:
             return not bool(live.any())
         return (probe is not None and probe[1].query()
                 and not bool(probe[0]))
@@ -272,8 +419,7 @@ class Engine:
         live = torch.where(set_mask, set_live, live_in) & (rem > 0)
         toks = torch.full((k, bsz), -1, dtype=torch.int32,
                           device=self.device)
-        vmask = (torch.arange(self.stack.params["embed"].shape[-2],
-                              device=self.device)[None]
+        vmask = (torch.arange(self._vocab, device=self.device)[None]
                  < self.stack.vocab_sizes[tenant_ids][:, None])
         probe = None
         with torch.no_grad():
@@ -281,18 +427,14 @@ class Engine:
                 if self._parked(live, probe):
                     break
                 old_len = self.cache.length
-                logits, cache = self.model.decode_step(
-                    self.cfg, self.stack.params, tokens.to(torch.int64),
-                    self.cache, deltas=self.stack.deltas,
-                    tenant_ids=tenant_ids, compute_dtype=self.compute_dtype,
-                    kernel=self.kernel)
-                logits = logits[:, 0].to(torch.float32)
+                logits, cache = self._step(tokens.to(torch.int64),
+                                           tenant_ids)
                 logits = torch.where(vmask, logits,
                                      torch.full_like(logits, NEG_INF))
                 nxt = sample_tokens(self._gen, logits, temps, top_ks, top_ps)
                 # Parked / inactive lanes don't advance.
-                self.cache = cache._replace(
-                    length=torch.where(live, cache.length, old_len))
+                self.cache = cache._replace(length=torch.where(
+                    live[self._rows], cache.length, old_len))
                 toks[i] = torch.where(live, nxt, torch.full_like(nxt, -1))
                 rem = torch.where(live, rem - 1, rem)
                 hit_stop = (nxt[:, None] == stop_ids).any(dim=1)
@@ -309,6 +451,7 @@ class Engine:
     # Warmup
     # ------------------------------------------------------------------
 
+    @_replicated
     def warmup(self) -> Dict[str, list]:
         """Run every path a request takes once before the first request:
         a dummy prefill at every bucket, alone (``submit``) and with all
@@ -327,8 +470,9 @@ class Engine:
                 raise RuntimeError("warmup requires an idle engine")
         gen_state = self._gen.get_state()
         rowcache = None
+        bursts = {1} if self._serial_admission else {1, self.max_slots}
         for bucket in self.prefill_buckets:
-            for rows in sorted({1, self.max_slots}):
+            for rows in sorted(bursts):
                 tokens = np.zeros((rows, bucket), np.int64)
                 tokens[:, 0] = 1
                 _first, rowcache = self._prefill(
@@ -341,13 +485,10 @@ class Engine:
                 # Row length 0: the inserted row stays dead.
                 self._insert(rowcache, [0], [0], [0])
             length = self.cache.length.clone()
-            logits, cache = self.model.decode_step(
-                self.cfg, self.stack.params,
+            logits, cache = self._step(
                 torch.zeros((bsz, 1), dtype=torch.int64, device=self.device),
-                self.cache, deltas=self.stack.deltas,
-                tenant_ids=self._t(self.tenant_ids, torch.int64),
-                compute_dtype=self.compute_dtype, kernel=self.kernel)
-            sample_tokens(self._gen, logits[:, 0].to(torch.float32),
+                self._t(self.tenant_ids, torch.int64))
+            sample_tokens(self._gen, logits,
                           self._t(self.temps, torch.float32),
                           self._t(self.top_ks, torch.int32),
                           self._t(self.top_ps, torch.float32))
@@ -367,6 +508,13 @@ class Engine:
         return [i for i, s in enumerate(self.slots)
                 if not s.active and not s.reserved]
 
+    @property
+    def _serial_admission(self) -> bool:
+        """Over a mesh of more than one rank admissions prefill one at a
+        time (batch 1), as JAX's shard_map TP prefill does."""
+        return self._ctl is not None
+
+    @_replicated
     def cancel(self, request_id: Optional[str]) -> bool:
         """Stop generating for ``request_id`` and free its slot. A request
         whose prefill is in flight is cancelled at admission completion.
@@ -387,6 +535,7 @@ class Engine:
                     return True
         return False
 
+    @_replicated
     def submit(self, req: Request) -> int:
         """Admit a request: prefill its prompt into a free slot. Returns
         the slot. Raises EngineFullError when full. The prefill runs
@@ -739,6 +888,7 @@ class Engine:
         self._flush_pending_firsts()
         return self._drain_flush_events()
 
+    @_replicated
     def step(self) -> List[StepEvent]:
         """One chunk for all active slots, read back at once. In-flight
         chunks left by :meth:`pump` are drained first."""
@@ -754,6 +904,7 @@ class Engine:
                 events += self._idle_flush()
             return events
 
+    @_replicated
     def pump(self) -> List[StepEvent]:
         """Pipelined :meth:`step`: run the NEXT chunk before reading the
         previous one back, so the readback overlaps device work. The
@@ -771,16 +922,28 @@ class Engine:
                 events = events + self._idle_flush()
             return events
 
+    @_replicated
     def generate(self, requests: Sequence[Request]) -> List[List[int]]:
         """Run all requests to completion with continuous admission
-        (batched prefill per burst, pipelined decode). Returns generated
-        ids per request (stop token excluded)."""
+        (batched prefill per burst, one request at a time over a mesh;
+        pipelined decode). Returns generated ids per request (stop token
+        excluded)."""
         pending = list(enumerate(requests))
         outputs: List[Optional[List[int]]] = [None] * len(requests)
         slot_to_req: Dict[int, int] = {}
 
         def admit_pending():
             while pending and self.free_slots():
+                if self._serial_admission:
+                    idx, req = pending.pop(0)
+                    try:
+                        slot = self.submit(req)
+                    except EngineFullError:
+                        pending.insert(0, (idx, req))
+                        return
+                    if not req.cancelled:
+                        slot_to_req[slot] = idx
+                    continue
                 take = min(len(pending), len(self.free_slots()))
                 taken = [pending.pop(0) for _ in range(take)]
                 admitted = self._submit_batch([r for _, r in taken])
@@ -812,3 +975,35 @@ class Engine:
                     outputs[idx] = list(self.slots[s].generated)
             admit_pending()
         return outputs
+
+    # ------------------------------------------------------------------
+    # Leader and followers
+    # ------------------------------------------------------------------
+
+    def follow(self) -> None:
+        """On a rank other than 0: replay the leader's calls, in its
+        order, until :meth:`stop_followers`. A call that the leader's
+        engine refused (a bad request, no free slot) was refused here
+        too, before any collective, and is passed over."""
+        if self._ctl is None or self.rank == 0:
+            raise RuntimeError("follow() runs on a follower rank of a mesh")
+        while True:
+            msg = broadcast_object(None, group=self._ctl)
+            if msg is None:
+                return
+            name, args, kwargs = msg
+            with self._op_lock:
+                self._op_depth += 1
+                try:
+                    getattr(self, name)(*args, **kwargs)
+                except (ValueError, EngineFullError):
+                    pass
+                finally:
+                    self._op_depth -= 1
+
+    def stop_followers(self) -> None:
+        """On rank 0: end the followers' :meth:`follow` (a no-op without
+        followers)."""
+        if self._ctl is not None and self.rank == 0:
+            with self._op_lock:
+                broadcast_object(None, group=self._ctl)

@@ -1,5 +1,5 @@
 """Tenant stacking: N compressed fine-tunes -> one serving stack (port of
-``bitdelta_tpu/serving/stacking.py``, single-device ``tp=1``).
+``bitdelta_tpu/serving/stacking.py``).
 
 Packed deltas of all tenants are stacked per projection into
 ``(L, T, K//32, N)`` (Mixtral's expert stacks keep their expert axis
@@ -22,7 +22,10 @@ from ..core.delta import BinaryDelta, PairedBinaryDelta, pair_delta
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import Params
-from ..ops.packing import PAIR_BLOCK
+from ..ops.packing import (PAIR_BLOCK, column_popcount, repack_pairs,
+                           unpair_packed)
+from ..parallel.sharding import (COLUMN_PARALLEL, EXPERT_COLUMN_PARALLEL,
+                                 EXPERT_ROW_PARALLEL, ROW_PARALLEL)
 from ..research.quantized_base import Int4Weight, Int8Weight
 
 EMBED_DELTAS = ("embed", "lm_head")   # deltas with no layer axis
@@ -131,43 +134,84 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
                        num_tenants=t)
 
 
-def _pair_by_layer(d: BinaryDelta) -> PairedBinaryDelta:
-    """:func:`pair_delta` of a stacked delta one slice of its leading axis
-    (a layer; the tenant of an lm_head delta) at a time into preallocated
+def _pair(d: BinaryDelta, tp: int) -> PairedBinaryDelta:
+    """:func:`pair_delta`; with ``tp > 1`` the colsum is per K shard,
+    ``(*, tp, N)`` = ``2*popcount(shard) - K/tp`` (a row-parallel
+    projection's model-axis shard holds K/tp rows)."""
+    if tp == 1:
+        return pair_delta(d)
+    *lead, k32, n = d.packed.shape
+    per_shard = d.packed.reshape(*lead, tp, k32 // tp, n)
+    colsum = (2.0 * column_popcount(per_shard)
+              - (k32 // tp) * 32).to(torch.float32)
+    return PairedBinaryDelta(packed_pairs=repack_pairs(d.packed),
+                             colsum=colsum,
+                             scale=d.scale.to(torch.float32))
+
+
+def _pair_by_layer(d: BinaryDelta, tp: int = 1) -> PairedBinaryDelta:
+    """:func:`_pair` of a stacked delta one slice of its leading axis (a
+    layer; the tenant of an lm_head delta) at a time into preallocated
     outputs, so the conversion's int64 transients stay one slice's size."""
-    first = pair_delta(BinaryDelta(d.packed[0], d.scale[0]))
+    first = _pair(BinaryDelta(d.packed[0], d.scale[0]), tp)
     out = PairedBinaryDelta(*(torch.empty((d.packed.shape[0], *f.shape),
                                           dtype=f.dtype, device=f.device)
                               for f in first))
     for layer in range(d.packed.shape[0]):
-        part = first if layer == 0 else pair_delta(
-            BinaryDelta(d.packed[layer], d.scale[layer]))
+        part = first if layer == 0 else _pair(
+            BinaryDelta(d.packed[layer], d.scale[layer]), tp)
         for dst, src in zip(out, part):
             dst[layer] = src
     return out
 
 
-def to_pair_layout(stack: TenantStack, *, in_place: bool = False
-                   ) -> TenantStack:
+def to_pair_layout(stack: TenantStack, *, tp: int = 1,
+                   in_place: bool = False) -> TenantStack:
     """Convert delta stacks to the pair-packed serving layout of the pair
-    decode kernel (single device). ``embed`` (read by a gather, not a
-    matmul) and the Mixtral ``router`` stay canonical by name, as in JAX;
-    so does a projection whose N is not a multiple of 256 (the model
-    dispatch handles a mixed dict). A compressed ``lm_head`` pairs where
-    V is a multiple of 256. Already-paired leaves pass through.
+    decode kernel. ``embed`` (read by a gather, not a matmul) and the
+    Mixtral ``router`` stay canonical by name, as in JAX; so does a
+    projection whose N is not a multiple of 256 (the model dispatch
+    handles a mixed dict). A compressed ``lm_head`` pairs where V is a
+    multiple of 256. Already-paired leaves pass through.
+
+    ``tp``: the model-axis shard count for tensor-parallel serving. Pair
+    words of a contiguous K or N shard equal that shard of the full pair
+    layout, so the bits never repack under TP; but the popcount
+    correction of a row-parallel projection (o_proj, down_proj, Mixtral
+    w2) must be per K shard: its colsum gains a shard axis, ``(L, T, tp,
+    N)``. An already-paired row-parallel leaf whose colsum lacks that
+    axis is rebuilt from its words. Eligibility is judged on LOCAL
+    sizes: a column-parallel projection whose N/tp is not a multiple of
+    256 stays canonical, and so does a row-parallel one whose K words do
+    not split over ``tp``. At ``tp=1`` nothing changes.
 
     ``in_place=True`` replaces the entries of ``stack.deltas`` itself,
     one projection at a time, so each canonical stack is freed as soon as
     its pair layout exists (when nothing else holds it): the conversion
     then needs one projection's stack more, not a second copy of all."""
+    row_par = ROW_PARALLEL + EXPERT_ROW_PARALLEL
+    col_par = COLUMN_PARALLEL + EXPERT_COLUMN_PARALLEL + ("lm_head",)
     deltas = stack.deltas if in_place else {}
     for name in list(stack.deltas):
         d = stack.deltas[name]
-        if (name in ("embed", "router") or isinstance(d, PairedBinaryDelta)
-                or d.packed.shape[-1] % PAIR_BLOCK):
+        if name in ("embed", "router"):
             deltas[name] = d
+            continue
+        if isinstance(d, PairedBinaryDelta):
+            if not (name in row_par and tp > 1
+                    and d.colsum.ndim == d.packed_pairs.ndim - 1):
+                deltas[name] = d
+                continue
+            # A full-K colsum is wrong for a K shard: rebuild.
+            d = BinaryDelta(packed=unpair_packed(d.packed_pairs),
+                            scale=d.scale)
+        k32, n = d.packed.shape[-2], d.packed.shape[-1]
+        if name in row_par and tp > 1:
+            eligible = n % PAIR_BLOCK == 0 and k32 % tp == 0
         else:
-            deltas[name] = _pair_by_layer(d)
+            eligible = (n // tp if name in col_par else n) % PAIR_BLOCK == 0
+        deltas[name] = (_pair_by_layer(d, tp if name in row_par else 1)
+                        if eligible else d)
         del d
     return stack._replace(deltas=deltas)
 

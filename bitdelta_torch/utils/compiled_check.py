@@ -13,8 +13,13 @@ deltas keep the canonical layout's kernels, and the W4 half's tenant
 keeps its own dense head. On the CPU the routes take their kernels'
 plain versions.
 
-The (1, 1)-mesh half waits for tensor parallelism, which the port does
-not have yet.
+The (1, 1)-mesh half: each kernel route's engine on a ``make_mesh((1,
+1))`` mesh must give the single-device engine's tokens (JAX's meshed
+engine against its single-device one). :func:`check_engines` takes a
+larger mesh too (``mesh=``, with every rank of it calling): then the
+routes run tensor- and data-parallel, each rank its shard, against the
+plain engine on one device, and the config needs KV heads that split
+over the model axis (:func:`tp_check_config`).
 
 The world (:func:`check_world`) is built apart from the engine runs
 (:func:`check_engines`), so a test can hand the engines another world
@@ -23,12 +28,16 @@ of the same config, such as JAX's.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core.compress import compress_model
 from ..device import resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
+from ..parallel.collectives import axis_size, broadcast_object
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from ..research.quantized_base import quantize_base, roundtrip_base
 from ..serving.engine import Engine, Request
 from ..serving.stacking import stack_tenants
@@ -41,6 +50,12 @@ def check_config() -> ModelConfig:
                        intermediate_size=512, num_layers=2,
                        num_heads=2, num_kv_heads=1,
                        max_seq_len=64, dtype="float32")
+
+
+def tp_check_config() -> ModelConfig:
+    """:func:`check_config` with 2 KV heads, the one change a model axis
+    of 2 needs (the KV heads split over it)."""
+    return dataclasses.replace(check_config(), num_kv_heads=2)
 
 
 def check_world(cfg: ModelConfig, device="cuda") -> dict:
@@ -61,19 +76,37 @@ def _w4_requests():
     return [Request(prompt_ids=[3, 1, 4], tenant_id=0, max_new_tokens=4)]
 
 
-def _generate(cfg, stack, kernel, requests, device, max_slots):
+def _generate(cfg, stack, kernel, requests, device, max_slots, mesh=None,
+              kv_dtype=None):
+    """Greedy tokens of one engine; over a mesh of several ranks rank 0
+    runs ``generate`` while the others follow, and every rank returns
+    rank 0's tokens."""
     eng = Engine(cfg, stack, max_slots=max_slots, max_seq=64,
-                 prefill_buckets=(16,), kernel=kernel, device=device)
-    return [list(map(int, o)) for o in eng.generate(requests)]
+                 prefill_buckets=(16,), kernel=kernel, device=device,
+                 mesh=mesh, kv_dtype=kv_dtype)
+    out = None
+    if eng.rank != 0:
+        eng.follow()
+    else:
+        try:
+            out = [list(map(int, o)) for o in eng.generate(requests)]
+        finally:
+            eng.stop_followers()
+    if mesh is not None and mesh.size() > 1:
+        out = broadcast_object(out)
+    return out
 
 
 def check_engines(cfg: ModelConfig, base: dict, log=print, *,
-                  device="cuda") -> dict:
+                  device="cuda", mesh=None, kv_dtype=None) -> dict:
     """Two tenants (every projection scaled by ``1.01 + 0.01 t``, embed
     and head by 1.01, compressed with their embeddings) greedy-decoded
     by each kernel route and by the plain engine; then one zero-delta
-    tenant over ``quantize_base(base, "int4")``. Returns ``{"status":
-    "ok", "tokens": ..., "w4_tokens": ...}`` or raises."""
+    tenant over ``quantize_base(base, "int4")``. With ``mesh`` each
+    route (the W4 one too) also runs on it and must give the plain
+    engine's tokens. ``kv_dtype``: the engines' cache (``"int8"``, or
+    the compute dtype). Returns ``{"status": "ok", "tokens": ...,
+    "w4_tokens": ...}`` or raises."""
     device = resolve_device(device)
     tenants = []
     for t in range(2):
@@ -84,15 +117,26 @@ def check_engines(cfg: ModelConfig, base: dict, log=print, *,
         fine["lm_head"] = base["lm_head"] * 1.01
         tenants.append(compress_model(base, fine, compress_embeddings=True))
     stack = stack_tenants(cfg, base, tenants, device=device)
-    want = _generate(cfg, stack, "torch", _requests(), device, 2)
+    kv = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+    want = _generate(cfg, stack, "torch", _requests(), device, 2, **kv)
     for kernel in llama.CARD_KERNELS:
-        got = _generate(cfg, stack, kernel, _requests(), device, 2)
+        got = _generate(cfg, stack, kernel, _requests(), device, 2, **kv)
         if got != want:
             raise AssertionError(
                 f"{kernel} engine diverged from the plain engine: "
                 f"{got} != {want}")
     routes = " and ".join(llama.CARD_KERNELS)
     log(f"[compiled_check] {routes} serving paths ok: {want}")
+    if mesh is not None:
+        shape = (axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
+        for kernel in llama.CARD_KERNELS:
+            got = _generate(cfg, stack, kernel, _requests(), device,
+                            2 * shape[0], mesh, **kv)
+            if got != want:
+                raise AssertionError(
+                    f"{kernel} engine on mesh {shape} diverged from the "
+                    f"single-device engine: {got} != {want}")
+        log(f"[compiled_check] {routes} on mesh {shape} ok")
 
     # W4 density path: the W4 base matmul must serve the plain engine's
     # greedy tokens over the same int4 base.
@@ -106,12 +150,21 @@ def check_engines(cfg: ModelConfig, base: dict, log=print, *,
         raise AssertionError(
             f"W4 cuda engine diverged from the plain engine: "
             f"{got4} != {want4}")
+    if mesh is not None:
+        got4 = _generate(cfg, stack_w4, "cuda", _w4_requests(), device,
+                         shape[0], mesh)
+        if got4 != want4:
+            raise AssertionError(
+                f"W4 cuda engine on mesh {shape} diverged from the plain "
+                f"engine: {got4} != {want4}")
     log(f"[compiled_check] W4 base kernel ok: {got4}")
     return {"status": "ok", "tokens": want, "w4_tokens": got4}
 
 
 def serving_compiled_check(log=print, *, device="cuda") -> dict:
     """Build the check's world on ``device`` (the card unless the caller
-    passes ``"cpu"``) and run :func:`check_engines` on it."""
+    passes ``"cpu"``) and run :func:`check_engines` on it, with its
+    (1, 1)-mesh half."""
     cfg = check_config()
-    return check_engines(cfg, check_world(cfg, device), log, device=device)
+    return check_engines(cfg, check_world(cfg, device), log, device=device,
+                         mesh=make_mesh((1, 1), device=device))

@@ -125,7 +125,26 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    binary; one gate_proj's median scale and ternary planes equal to the
    CPU's; the seconds of one gate_proj's SVD), then each model's
    perplexity through ``kernel="cuda"`` (2 windows), and the binary
-   deltas' within 1% of their dense fusion's.
+   deltas' within 1% of their dense fusion's;
+12. tp: tensor and data parallelism, two ranks (``torch.multiprocessing``
+   spawned processes over gloo) sharing the card, every earlier world
+   freed: (a) the serving check's fp32 two-tenant world with 2 KV heads
+   (``compiled_check.check_engines(mesh=)``) on ``(1, 2)`` and ``(2, 1)``
+   meshes, both kernel routes, a cache of the compute dtype and the int8
+   cache, and its W4 base, plus a tiny fp32 Mixtral at ``(1, 2)``: every
+   meshed engine gives the single-process engine's greedy tokens, and
+   every row but 6 launches on each rank (the ``(1, 1)`` mesh is phase
+   11a's check); (b) Llama-2-70B at full width cut to 2 layers (depth
+   only), two tenants, built from one seed on each rank: a B=8 prefill and
+   one decode step at tp=2 on ``"cuda"`` and ``"cuda_fused"`` within 2%
+   of the logit scale of the same world served by one process at tp=1,
+   the share of agreeing greedy ``generate`` tokens printed, and each
+   rank's shard and peak bytes, a decode step's wall and device ms with
+   its top kernels, and its psums timed alone; (c) ``python -m
+   torch.distributed.run --nproc-per-node 2 -m bitdelta_torch.cli.serve
+   --mesh 1,2`` over a tiny fp32 checkpoint written by the phase: one
+   broadcast ``/generate`` over HTTP equal to ``--mesh 1,1``'s tokens,
+   then both ranks stop cleanly on SIGTERM.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -4055,6 +4074,558 @@ def rest(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# 12. Tensor and data parallelism: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_LAYERS = 2                  # Llama-2-70B cut to 2 layers (depth only)
+TP_COLLECTIVE_TIMEOUT_S = 300  # a rank waiting longer on a peer fails
+TP_PHASE_TIMEOUT_S = 900       # the parent kills ranks still running then
+# The rows every rank of 12a must launch (all but 6, the training path).
+TP_TINY_KERNELS = tuple(k for k in KERNELS if k != "binary_matmul_t")
+TP_70B_KERNELS = ("tenant_delta_matmul_pair", "flash_decode_attention",
+                  "tenant_dense_matmul", "flash_prefill_attention",
+                  "binary_matmul", "fused_base_pair_matmul")
+
+
+def _mesh_tokens(eng, requests):
+    """Greedy tokens of a meshed engine: rank 0 generates while the other
+    ranks follow; every rank returns rank 0's tokens."""
+    from bitdelta_torch.parallel.collectives import broadcast_object
+
+    out = None
+    if eng.rank != 0:
+        eng.follow()
+    else:
+        try:
+            out = [list(map(int, o)) for o in eng.generate(requests)]
+        finally:
+            eng.stop_followers()
+    return broadcast_object(out)
+
+
+def tp_mixtral_stack(dev):
+    """12a's Mixtral world: 2 layers, hidden 256, 4 experts, fp32, two
+    seeded fine-tunes. At tp=2 the experts' w1/w3 (local N 128) keep the
+    canonical layout (row 7) and w2 pairs with per-shard colsums (row 1)."""
+    from bitdelta_torch.models import mixtral
+    from bitdelta_torch.serving.stacking import stack_tenants
+
+    cfg = mixtral.MixtralConfig(vocab_size=128, hidden_size=256,
+                                intermediate_size=256, num_layers=2,
+                                num_heads=4, num_kv_heads=2, max_seq_len=64,
+                                num_experts=4, experts_per_token=2,
+                                dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    base = mixtral.init_params(cfg, gen, scale=0.25, device=dev)
+    tenants = []
+    for _ in range(2):
+        fine = dict(base)
+        fine["layers"] = {k: v + 0.05 * torch.randn(v.shape, generator=gen,
+                                                    device=dev)
+                          for k, v in base["layers"].items()}
+        tenants.append(mixtral.compress_mixtral(base, fine))
+    return cfg, stack_tenants(cfg, base, tenants, device=dev)
+
+
+def tp_tiny(dev, meshes):
+    """12a on one rank: the serving check's fp32 two-tenant world (2 KV
+    heads) on each mesh, both kernel routes, a cache of the compute dtype
+    and the int8 one, and its W4 base: every meshed engine must give the
+    single-process engine's tokens. Then the Mixtral world at (1, 2): its
+    step logits within 1e-3 of the scale of one process's, and its
+    greedy tokens beside the single-process engine's (printed)."""
+    import dataclasses
+
+    from bitdelta_torch.models import llama, mixtral
+    from bitdelta_torch.parallel.collectives import all_gather
+    from bitdelta_torch.parallel.sharding import (gather_tree,
+                                                  serving_delta_specs,
+                                                  serving_param_specs,
+                                                  shard_stack)
+    from bitdelta_torch.serving.engine import Engine, Request
+    from bitdelta_torch.serving.stacking import to_pair_layout
+    from bitdelta_torch.utils import compiled_check as cc
+
+    cfg = cc.tp_check_config()
+    base = cc.check_world(cfg, dev)
+    out = {}
+    for shape, mesh in meshes.items():
+        for kv in (None, "int8"):
+            got = cc.check_engines(cfg, base, lambda msg: None, device=dev,
+                                   mesh=mesh, kv_dtype=kv)
+            out[f"{shape[0]}x{shape[1]}_{kv or 'f32'}"] = [
+                got["tokens"], got["w4_tokens"]]
+    mcfg, mstack = tp_mixtral_stack(dev)
+    mesh = meshes[(1, 2)]
+    reqs = [dict(prompt_ids=[5, 11, 3, 7], tenant_id=t, max_new_tokens=5)
+            for t in range(2)]
+    local_cfg = dataclasses.replace(mcfg, num_heads=mcfg.num_heads // 2,
+                                    num_kv_heads=mcfg.num_kv_heads // 2)
+    g = torch.Generator().manual_seed(17)
+    tokens = torch.randint(1, mcfg.vocab_size, (4, 8), generator=g).to(dev)
+    nxt = torch.randint(1, mcfg.vocab_size, (4, 1), generator=g).to(dev)
+    tids = torch.tensor([0, 1, 1, 0], device=dev)
+    for kernel in ("torch",) + llama.CARD_KERNELS:
+        # Teacher-forced: a prefill and a decode step, tp=2 against tp=1.
+        logits = []
+        for tp, group in ((1, None), (2, mesh)):
+            st = to_pair_layout(mstack, tp=tp) if kernel != "torch" else mstack
+            if group is not None:
+                st = shard_stack(mcfg, st, group)
+            kw = dict(deltas=st.deltas, tenant_ids=tids, kernel=kernel,
+                      tp_group=group)
+            c = mcfg if group is None else local_cfg
+            with torch.no_grad():
+                _, cache = mixtral.forward(c, st.params, tokens,
+                                           return_cache=True,
+                                           cache_max_seq=16, **kw)
+                step, _ = mixtral.decode_step(c, st.params, nxt, cache, **kw)
+            logits.append(all_gather(step[:, 0].float(), group, "model", -1))
+        err = _logit_err(logits[1].cpu(), logits[0].cpu())
+        # fp32 sums split in two, in another order: 1e-4 of the scale on
+        # the plain route (4.7e-6 on the CPU). The kernel routes' rows 1
+        # and 7 put x on a grid (a row's 12-bit one; the whole input's
+        # 14-bit one) that spans a rank's K shard of o_proj and w2, twice
+        # a layer: 2e-3 (6.8e-4 on the CPU's plain versions).
+        limit = 1e-4 if kernel == "torch" else 2e-3
+        require(err["max_abs_err"] <= limit * err["ref_max_abs"],
+                f"mixtral {kernel} tp=2 step logits: {err}")
+
+        def engine(m):
+            return Engine(mcfg, mstack, max_slots=2, max_seq=64,
+                          prefill_buckets=(16,), kernel=kernel, device=dev,
+                          model=mixtral, mesh=m)
+        want = [list(map(int, o))
+                for o in engine(None).generate([Request(**r) for r in reqs])]
+        got = _mesh_tokens(engine(mesh), [Request(**r) for r in reqs])
+        require(kernel != "torch" or got == want,
+                f"mixtral torch at (1, 2): {got} != {want}")
+        same = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+        out[f"mixtral_1x2_{kernel}"] = {
+            "tokens": got, "single_process": want, "step_logits": err,
+            "token_agreement": same / sum(len(y) for y in want)}
+    # Every rank's shard, gathered back, is the whole pair-layout stack.
+    full = to_pair_layout(mstack, tp=2)
+    local = shard_stack(mcfg, full, mesh)
+    specs = (serving_param_specs(mcfg, full.params, tp=2),
+             serving_delta_specs(full.deltas))
+    back = (gather_tree(local.params, specs[0], mesh),
+            gather_tree(local.deltas, specs[1], mesh))
+    require(all(torch.equal(a, b) for a, b in zip(
+        _tree_leaves(back), _tree_leaves((full.params, full.deltas)))),
+        "12a: the gathered Mixtral shards differ from the whole stack")
+    return out
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _logit_err(got, want):
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return {"max_abs_err": err, "ref_max_abs": scale, "rel_err": err / scale,
+            "argmax_agreement": (got.argmax(-1) == want.argmax(-1))
+            .float().mean().item()}
+
+
+def tp_70b(dev, mesh, rank, smi):
+    """12b on one rank: Llama-2-70B at full width, 2 layers, two tenants,
+    built on the card from one seed (the same on both ranks); rank 0 takes
+    the tp=1 references; then each route's engine keeps this rank's
+    shard."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import llama2_70b
+    from bitdelta_torch.parallel import collectives
+    from bitdelta_torch.parallel.mesh import MODEL_AXIS
+    from bitdelta_torch.serving.engine import Engine, Request
+    from bitdelta_torch.serving.stacking import (stack_nbytes,
+                                                 stack_tenants,
+                                                 to_pair_layout)
+
+    cfg = dataclasses.replace(llama2_70b(), num_layers=TP_LAYERS)
+    # Each rank's model sees its own heads.
+    cfg_local = dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // TP_RANKS,
+        num_kv_heads=cfg.num_kv_heads // TP_RANKS)
+    report = {"rank": rank, "card": smi, "model": "llama2_70b",
+              "layers": TP_LAYERS, "tp": TP_RANKS}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(71)
+    base = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    tenants = [compress_model(base, synthetic_finetune(cfg, base, gen))
+               for _ in range(2)]
+    stack = stack_tenants(cfg, base, tenants, device=dev)
+    del base, tenants
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    report["build_s"] = time.perf_counter() - t0
+    report["full_stack_bytes"] = stack_nbytes(stack)
+    g = torch.Generator().manual_seed(13)
+    tokens = torch.randint(1, cfg.vocab_size, (8, 64), generator=g).to(dev)
+    lengths = torch.tensor([64, 33, 50, 17, 64, 9, 41, 58],
+                           dtype=torch.int32, device=dev)
+    tids = torch.tensor([0, 1] * 4, device=dev)
+    nxt = torch.randint(1, cfg.vocab_size, (8, 1), generator=g).to(dev)
+    reqs = [dict(prompt_ids=tokens[b, :int(lengths[b])].tolist(),
+                 tenant_id=int(tids[b]), max_new_tokens=8) for b in range(8)]
+    rows = torch.arange(8, device=dev)
+
+    def steps(cfg_run, st, kernel, group):
+        """B=8 prefill (last-position logits) and one decode step, the
+        logits gathered over the model axis."""
+        kw = dict(deltas=st.deltas, tenant_ids=tids, kernel=kernel,
+                  tp_group=group)
+        with torch.no_grad():
+            logits, cache = llama.forward(
+                cfg_run, st.params, tokens, lengths=lengths,
+                return_cache=True, cache_max_seq=128, **kw)
+            step, _ = llama.decode_step(cfg_run, st.params, nxt, cache, **kw)
+        pre = logits[rows, lengths.long() - 1].float()
+        return (collectives.all_gather(pre, group, MODEL_AXIS, -1),
+                collectives.all_gather(step[:, 0].float(), group,
+                                       MODEL_AXIS, -1))
+
+    refs = {}
+    if rank == 0:
+        paired = to_pair_layout(stack)
+        for kernel in llama.CARD_KERNELS:
+            pre, dec = steps(cfg, paired, kernel, None)
+            eng = Engine(cfg, stack, max_slots=8, max_seq=128,
+                         prefill_buckets=(64,), kernel=kernel, device=dev)
+            refs[kernel] = (pre.cpu(), dec.cpu(), [
+                list(map(int, o))
+                for o in eng.generate([Request(**r) for r in reqs])])
+            del eng
+        del paired
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for kernel in llama.CARD_KERNELS:
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, stack, max_slots=8, max_seq=128,
+                     prefill_buckets=(64,), kernel=kernel, device=dev,
+                     mesh=mesh)
+        if kernel == llama.CARD_KERNELS[-1]:
+            del stack                       # the shards alone stay
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep = {"resident_bytes": torch.cuda.memory_allocated(),
+               "shard_bytes": stack_nbytes(eng.stack)}
+        pre, dec = steps(cfg_local, eng.stack, kernel, mesh)
+        require(torch.isfinite(pre).all().item()
+                and torch.isfinite(dec).all().item(),
+                f"70b tp {kernel}: logits not finite")
+        if rank == 0:
+            for which, a, b in (("prefill", pre.cpu(), refs[kernel][0]),
+                                ("decode", dec.cpu(), refs[kernel][1])):
+                rep[which] = _logit_err(a, b)
+                # bf16 activations, the row-parallel sums split over two
+                # ranks: as phases 5 and 11, 2% of the logit scale.
+                require(rep[which]["max_abs_err"]
+                        <= 2e-2 * rep[which]["ref_max_abs"],
+                        f"70b tp {kernel} {which}: {rep[which]}")
+        # One decode step of the engine's batch, alone: wall, device time
+        # and top kernels (each rank traces its own process once; both
+        # ranks share the card), and the collectives it calls.
+        step_toks = nxt
+        tids_local = tids
+
+        def one_step():
+            with torch.no_grad():
+                llama.decode_step(cfg_local, eng.stack.params,
+                                  step_toks, eng.cache,
+                                  deltas=eng.stack.deltas,
+                                  tenant_ids=tids_local, kernel=kernel,
+                                  tp_group=mesh)
+        one_step()
+        torch.cuda.synchronize()
+        calls0 = collectives.psum.calls
+        dist.barrier()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        rep["step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rep["psum_calls_per_step"] = collectives.psum.calls - calls0
+        from torch.profiler import ProfilerActivity, profile
+
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            one_step()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        rows_ = sorted(((getattr(e, "device_time_total", 0.0), e.count,
+                         e.key) for e in prof.key_averages()), reverse=True)
+        rows_ = [r for r in rows_ if r[0] > 0]
+        rep["step_device_ms"] = sum(r[0] for r in rows_) / 1e3
+        rep["step_top"] = [{"kernel": k[:80], "ms": us / 1e3, "count": c}
+                           for us, c, k in rows_[:6]]
+        # The step's collectives timed alone at its shapes: one psum of
+        # the (8, 1, 8192) bf16 residual, synchronised around.
+        x = torch.ones((8, 1, cfg.hidden_size), dtype=torch.bfloat16,
+                       device=dev)
+        times = []
+        for _ in range(12):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collectives.psum(x, mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rep["psum_ms"] = statistics.median(times[2:])
+        rep["collective_ms_per_step"] = (rep["psum_ms"]
+                                         * rep["psum_calls_per_step"])
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        got = _mesh_tokens(eng, [Request(**r) for r in reqs])
+        rep["generate_s"] = time.perf_counter() - t0
+        if rank == 0:
+            want = refs[kernel][2]
+            same = sum(a == b for x, y in zip(got, want)
+                       for a, b in zip(x, y))
+            rep["generate_tokens"] = got
+            rep["token_agreement"] = same / sum(len(y) for y in want)
+        report[kernel] = rep
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def _tp_rank(rank, store, out_dir):
+    """One rank of phase 12 (a spawned process): 12a, then 12b. Writes its
+    report, launches and any error to ``out_dir/rank{rank}.json``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from bitdelta_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    try:
+        pmesh.initialize_multihost(
+            f"file://{store}", TP_RANKS, rank, device="cuda",
+            timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+        out["backend"] = dist.get_backend()
+        dev = torch.device("cuda")
+        meshes = {s: pmesh.make_mesh(s) for s in ((1, 2), (2, 1))}
+        smi = smi_line()
+        reset_counts()
+        t0 = time.perf_counter()
+        out["tiny"] = tp_tiny(dev, meshes)
+        out["tiny_s"] = time.perf_counter() - t0
+        out["tiny_launches"] = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        out["70b"] = tp_70b(dev, meshes[(1, 2)], rank, smi)
+        out["70b_s"] = time.perf_counter() - t0
+        out["70b_launches"] = read_counts()
+        out["ok"] = True
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:                  # reported to the parent, which fails
+        out["ok"] = False
+        out["error"] = traceback.format_exc()[-4000:]
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    sys.stdout.flush()
+    sys.exit(0 if out["ok"] else 1)
+
+
+def tp_ranks(smi):
+    """12a and 12b: two spawned ranks on the card (gloo). Both must finish
+    within TP_PHASE_TIMEOUT_S; a rank still running then is killed and the
+    phase fails. Returns ``(launches summed over ranks, reports)``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_tp_rank,
+                             args=(r, str(Path(tmp) / "store"), tmp))
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_PHASE_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        reports = []
+        for r in range(TP_RANKS):
+            path = Path(tmp, f"rank{r}.json")
+            reports.append(json.loads(path.read_text()) if path.exists()
+                           else {"rank": r, "ok": False})
+    for r, rep in enumerate(reports):
+        print(json.dumps({"phase": "tp_rank", "rank": r,
+                          "ok": rep.get("ok"), "error": rep.get("error")}),
+              flush=True)
+    require(not hung, f"phase 12 ranks {hung} still ran after "
+                      f"{TP_PHASE_TIMEOUT_S} s")
+    require(all(rep.get("ok") for rep in reports)
+            and all(p.exitcode == 0 for p in procs),
+            f"phase 12 ranks failed: exit codes "
+            f"{[p.exitcode for p in procs]}")
+    for rep in reports:
+        for kname in TP_TINY_KERNELS:
+            require(rep["tiny_launches"][kname] > 0,
+                    f"12a rank {rep['rank']} missed kernel {kname}")
+        for kname in TP_70B_KERNELS:
+            require(rep["70b_launches"][kname] > 0,
+                    f"12b rank {rep['rank']} missed kernel {kname}")
+    require(reports[0]["tiny"] == reports[1]["tiny"],
+            "12a: the ranks disagree on tokens")
+    launches = {k: sum(rep["tiny_launches"][k] + rep["70b_launches"][k]
+                       for rep in reports) for k in KERNELS}
+    return launches, reports
+
+
+def _serve_tokens(cmd, env, label, deltas):
+    """Start a serve CLI command, wait for its "serving" line, POST one
+    broadcast ``/generate``, SIGTERM its process group and wait for every
+    process of it. Returns ``(tokens by tenant, output lines)``."""
+    import os
+    import queue
+    import signal
+
+    port = cmd[cmd.index("--port") + 1]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout],
+        daemon=True)
+    reader.start()
+    log = []
+    try:
+        deadline = time.perf_counter() + 300
+        while True:
+            require(time.perf_counter() < deadline,
+                    f"{label}: no 'serving' line in 300 s")
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                require(proc.poll() is None,
+                        f"{label} exited with {proc.returncode}: "
+                        + "".join(log[-30:]))
+                continue
+            log.append(line)
+            if line.startswith("serving "):
+                break
+        got, _, _ = _post(f"http://127.0.0.1:{port}",
+                          {"prompt": "Two ranks, one card",
+                           "max_new_tokens": 8})
+    finally:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
+        while not lines.empty():
+            log.append(lines.get())
+    tokens = {t: [line["token_id"] for line in got if line["tenant"] == t]
+              for t in deltas}
+    require(all(tokens.values()), f"{label}: a tenant gave no tokens")
+    return tokens, [line.rstrip() for line in log]
+
+
+def tp_cli(dev):
+    """12c: ``cli.serve --mesh 1,2`` under ``torch.distributed.run`` on a
+    tiny fp32 checkpoint written here, against ``--mesh 1,1``."""
+    import dataclasses
+    import os
+
+    from bitdelta_torch.core.artifact import save_delta
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.utils import compiled_check as cc
+
+    cfg = dataclasses.replace(cc.tp_check_config(), max_seq_len=256)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    base = llama.init_params(cfg, gen, scale=0.25, device=dev)
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo), HF_HUB_OFFLINE="1")
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_hf_checkpoint(cfg, base, Path(tmp) / "base", shards=1)
+        deltas = {}
+        for t in ("a", "b"):
+            fine = synthetic_finetune(cfg, base, gen, scale=0.05)
+            path = str(Path(tmp) / f"{t}.safetensors")
+            save_delta(path, compress_model(base, fine), cfg)
+            deltas[t] = path
+        common = ["-m", "bitdelta_torch.cli.serve", "--base_model",
+                  str(Path(tmp) / "base"), "--dtype", "float32",
+                  "--max_slots", "2", "--max_seq", "128",
+                  "--host", "127.0.0.1", "--device", dev.type]
+        for name, path in deltas.items():
+            common += ["--delta", f"{name}={path}"]
+        t0 = time.perf_counter()
+        want, _ = _serve_tokens(
+            [sys.executable, *common, "--mesh", "1,1", "--port",
+             str(free_port())], env, "serve --mesh 1,1", deltas)
+        report["mesh_1x1_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, log = _serve_tokens(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "2", "--master-port", str(free_port()),
+             *common, "--mesh", "1,2", "--port", str(free_port())],
+            env, "serve --mesh 1,2", deltas)
+        report["mesh_1x2_s"] = time.perf_counter() - t0
+    require(got == want, f"serve --mesh 1,2 tokens {got} != --mesh 1,1 "
+                         f"{want}")
+    for needed in ("sharding stack over mesh (1, 2) (data, model)",
+                   "[rank 0] stopping", "[rank 1] stopped"):
+        require(any(needed in line for line in log),
+                f"serve --mesh 1,2: no {needed!r} line")
+    report["tokens"] = got
+    report["log"] = [line for line in log if "rank" in line or
+                     line.startswith("sharding")][-8:]
+    return report
+
+
+def tp(dev, smi):
+    """Phase 12: 12a and 12b on two spawned ranks, then 12c."""
+    t_phase = time.perf_counter()
+    launches, reports = tp_ranks(smi)
+    for rep in reports:
+        emit({"phase": "tp_tiny", "rank": rep["rank"],
+              "backend": rep["backend"], "seconds": rep["tiny_s"],
+              "tokens": rep["tiny"], "launches": rep["tiny_launches"]})
+        emit({"phase": "tp_70b", "seconds": rep["70b_s"], **rep["70b"],
+              "launches": rep["70b_launches"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_report = tp_cli(dev)
+    emit({"phase": "tp_cli", "card": smi,
+          "seconds": time.perf_counter() - t0, **cli_report})
+    emit({"phase": "tp", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -4128,6 +4699,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     rest_counts = rest(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_counts = tp(dev, smi)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
@@ -4139,7 +4713,8 @@ def main(argv=None):
                    "fused": fused_counts[kname],
                    "fused_canonical": fused_canon_counts[kname],
                    "cli": cli_counts[kname],
-                   "rest": rest_counts[kname]}
+                   "rest": rest_counts[kname],
+                   "tp": tp_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

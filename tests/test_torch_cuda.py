@@ -1791,3 +1791,168 @@ def test_cuda_variants_match_the_cpu(cuda):
     lora_cpu = tv.dequantize_lora(tv.quantize_lora(small_b, low_f, rank=4))
     assert (lora.cpu() - lora_cpu).abs().max() <= (
         1e-5 * lora_cpu.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the rows at one rank's Llama-2-70B shapes (tp = 2:
+# hidden 8192, 32 query / 4 KV heads a rank, intermediate 14336 and vocab
+# 16000 a rank), and a decode step split over two ranks on the card.
+# ---------------------------------------------------------------------------
+
+TP70_PROJ = {"q_proj": (8192, 4096), "k_proj": (8192, 512),
+             "o_proj": (4096, 8192), "gate_proj": (8192, 14336),
+             "down_proj": (14336, 8192)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("proj", sorted(TP70_PROJ))
+def test_cuda_pair_rows_at_70b_tp2_local_shapes(cuda, proj):
+    """Rows 1 and 10 (k/v's local N = 512 pairs) exact / within 1e-4 of
+    their plain versions; rows 7 and 9 on the canonical words."""
+    k, n = TP70_PROJ[proj]
+    x, args = _pair_inputs(cuda, 8, 2, k, n, seed=21)
+    got = tbg.tenant_delta_matmul_pair(x, *args, out_dtype=torch.float32)
+    assert torch.equal(got, tbg.tenant_delta_matmul_pair_plain(x, *args))
+    g = torch.Generator(device=cuda).manual_seed(22)
+    w = (torch.randn((k, n), generator=g, device=cuda) * 0.02).to(x.dtype)
+    got = tbg.fused_base_pair_matmul(x, w, *args, out_dtype=torch.float32)
+    want = tbg.fused_base_pair_matmul_plain(x, w, *args)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    packed = torch.randint(-2**31, 2**31 - 1, (2, k // 32, n), generator=g,
+                           device=cuda, dtype=torch.int32)
+    scales, ids = args[2], args[3]
+    got = tbg.tenant_delta_matmul(x, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    assert torch.equal(got, tbg.tenant_delta_matmul_plain(x, packed, scales,
+                                                          ids))
+    got = tbg.fused_tenant_matmul(x, w, packed, scales, ids,
+                                  out_dtype=torch.float32)
+    want = tbg.fused_tenant_matmul_plain(x, w, packed, scales, ids)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_dense_head_and_binary_matmul_at_70b_tp2_local_shapes(cuda):
+    """Row 3 on a rank's per-tenant head (K 8192, N 16000) and row 5 on a
+    prefill of 64 tokens through o_proj's local K (4096 -> 8192)."""
+    x, w, ids = _dense_inputs(cuda, 8, 2, 8192, 16000, seed=23)
+    got = tbg.tenant_dense_matmul(x, w, ids, out_dtype=torch.float32)
+    _dense_close(got, tbg.tenant_dense_matmul_plain(x, w, ids))
+    g = torch.Generator(device=cuda).manual_seed(24)
+    xp = torch.randn((64, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    packed = torch.randint(-2**31, 2**31 - 1, (4096 // 32, 8192),
+                           generator=g, device=cuda, dtype=torch.int32)
+    scale = torch.tensor(0.01, device=cuda)
+    got = tbg.binary_matmul(xp, packed, scale, out_dtype=torch.float32)
+    want = tbg.binary_matmul_plain(xp, packed, scale)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_attention_at_70b_tp2_local_heads(cuda, dtype):
+    """Rows 2 and 4 at a rank's 32 query heads over 4 KV heads."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    q = torch.randn((8, 32, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((8, 256, 4, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([256, 1, 100, 64, 7, 255, 128, 33], device=cuda)
+    got = tfd.flash_decode_attention(q, k, v, lengths)
+    want = tfd.flash_decode_attention_plain(q, k, v, lengths)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    qp = torch.randn((2, 64, 32, 128), generator=g, device=cuda).to(dtype)
+    kp = torch.randn((2, 64, 4, 128), generator=g, device=cuda).to(dtype)
+    vp = torch.randn_like(kp)
+    lp = torch.tensor([64, 40], device=cuda)
+    got = tfp.flash_prefill_attention(qp, kp, vp, lp)
+    want = tfp.flash_prefill_attention_plain(qp, kp, vp, lp)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def _tp_decode_rank(rank, store, out_dir):
+    """One of two ranks on the card (gloo): a seeded fp32 world's B = 4
+    prefill and decode step, whole on this rank and split over both (tp =
+    2), on both kernel routes; the gathered logits go to a file."""
+    import dataclasses
+
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import ModelConfig
+    from bitdelta_torch.parallel import mesh as pmesh
+    from bitdelta_torch.parallel import sharding as psh
+    from bitdelta_torch.parallel.collectives import all_gather
+    from bitdelta_torch.serving.stacking import stack_tenants, to_pair_layout
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pmesh.initialize_multihost(f"file://{store}", 2, rank)
+    mesh = pmesh.make_mesh((1, 2))
+    dev = torch.device("cuda")
+    cfg = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                      num_layers=2, num_heads=4, num_kv_heads=4,
+                      max_seq_len=64, dtype="float32")
+    local = dataclasses.replace(cfg, num_heads=2, num_kv_heads=2)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    base = llama.init_params(cfg, gen, scale=0.1, device=dev)
+    tenants = []
+    for _ in range(2):
+        fine = dict(base)
+        fine["layers"] = {k: v + 0.02 * torch.randn(v.shape, generator=gen,
+                                                    device=dev)
+                          for k, v in base["layers"].items()}
+        tenants.append(compress_model(base, fine))
+    stack = stack_tenants(cfg, base, tenants, device=dev)
+    tokens = torch.randint(1, 512, (4, 16), generator=gen, device=dev)
+    lengths = torch.tensor([16, 9, 12, 5], dtype=torch.int32, device=dev)
+    nxt = torch.randint(1, 512, (4, 1), generator=gen, device=dev)
+    tids = torch.tensor([0, 1, 1, 0], device=dev)
+    out = {}
+    for kernel in llama.CARD_KERNELS:
+        for tp, group in ((1, None), (2, mesh)):
+            st = to_pair_layout(stack, tp=tp)
+            if group is not None:
+                st = psh.shard_stack(cfg, st, group)
+            kw = dict(deltas=st.deltas, tenant_ids=tids, kernel=kernel,
+                      tp_group=group)
+            c = cfg if group is None else local
+            with torch.no_grad():
+                _, cache = llama.forward(c, st.params, tokens,
+                                         lengths=lengths, return_cache=True,
+                                         cache_max_seq=32, **kw)
+                step, _ = llama.decode_step(c, st.params, nxt, cache, **kw)
+            out[f"{kernel}_{tp}"] = all_gather(step[:, 0], group, "model",
+                                               -1).cpu()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tp2_decode_step_matches_one_rank(cuda, tmp_path):
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_decode_rank,
+                         args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not any(alive) and all(p.exitcode == 0 for p in procs)
+    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for kernel in ("cuda", "cuda_fused"):
+        one, two = outs[0][f"{kernel}_1"], outs[0][f"{kernel}_2"]
+        # fp32, but rows 1 and 10 put x on a 12-bit grid a row, and a
+        # rank's o_proj / down_proj grid spans its K shard only, so their
+        # delta terms round differently (3.5e-4 of the scale here, the
+        # same on the CPU's plain versions, against 8e-7 on the plain
+        # route): 1e-3 of the scale.
+        assert (one - two).abs().max().item() <= 1e-3 * one.abs().max().item()
+        assert torch.equal(outs[1][f"{kernel}_2"], two)

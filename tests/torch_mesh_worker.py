@@ -1,0 +1,231 @@
+"""One rank of a CPU mesh for the port's tensor/data-parallel tests.
+
+Run by ``tests/test_torch_parallel.py`` and
+``tests/test_torch_serving_mesh.py`` (never collected by pytest)::
+
+    python tests/torch_mesh_worker.py RANK WORLD STORE JOB OUT
+
+It imports ``bitdelta_torch`` and torch only. ``JOB`` is a ``torch.save``
+file the test wrote: ``{"worlds": {name: {...}}, "cases": [...]}``.
+The rank joins a gloo world through the file store ``STORE``, runs every
+case in order on a ``(dp, tp)`` mesh of the whole world, and writes
+``{case id: result}`` to ``OUT`` (rank 0's engine tokens; every rank's
+host state for a replay). Cases:
+
+* ``engine``: greedy tokens of ``Engine(mesh=)`` on a stack (rank 0
+  generates, the other ranks follow);
+* ``refuse``: the ``ValueError`` message of an engine the mesh refuses;
+* ``logits``: a model-level prefill and one decode step, batch rows over
+  the data axis and the model over the model axis, logits gathered;
+* ``replay``: a scripted sequence of engine calls on rank 0 (warmup,
+  submit, pump, a refused request, cancel, step, generate); every rank
+  reports its host state;
+* ``roundtrip``: a serving stack in the pair layout sharded
+  (``shard_stack``) and gathered back (``gather_tree``): True when every
+  leaf comes back equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from bitdelta_torch.models import llama, mixtral  # noqa: E402
+from bitdelta_torch.parallel import mesh as pmesh  # noqa: E402
+from bitdelta_torch.parallel import sharding as psh  # noqa: E402
+from bitdelta_torch.parallel.collectives import all_gather  # noqa: E402
+from bitdelta_torch.serving.engine import Engine, Request  # noqa: E402
+from bitdelta_torch.serving.stacking import to_pair_layout  # noqa: E402
+
+MODELS = {"llama": llama, "mixtral": mixtral}
+
+
+def _engine(world, case, mesh):
+    kw = {} if case.get("kv_dtype") is None else {"kv_dtype": case["kv_dtype"]}
+    return Engine(world["cfg"], world["stack"], max_slots=case["max_slots"],
+                  max_seq=64, prefill_buckets=(16,), kernel=case["kernel"],
+                  device="cpu", model=MODELS[world.get("model", "llama")],
+                  mesh=mesh, **kw)
+
+
+def _requests(case):
+    return [Request(**r) for r in case["requests"]]
+
+
+def run_engine(world, case, mesh):
+    eng = _engine(world, case, mesh)
+    if eng.rank != 0:
+        eng.follow()
+        return None
+    try:
+        return [list(map(int, o)) for o in eng.generate(_requests(case))]
+    finally:
+        eng.stop_followers()
+
+
+def run_refuse(world, case, mesh):
+    try:
+        _engine(world, case, mesh)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def run_logits(world, case, mesh):
+    """Model-level forward (prefill with a cache) and decode step."""
+    cfg = world["cfg"]
+    model = MODELS[world.get("model", "llama")]
+    dp, tp = case["mesh"]
+    local = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                                num_kv_heads=cfg.num_kv_heads // tp)
+    params = psh.shard_model(cfg, world["params"], mesh)
+    deltas = psh.shard_deltas(cfg, world["deltas"], mesh)
+    tokens = psh.shard_tensor(case["tokens"], psh.batch_spec(), mesh)
+    nxt = psh.shard_tensor(case["next"], psh.batch_spec(), mesh)
+    kw = dict(deltas=deltas, compute_dtype=torch.float32,
+              kernel=case["kernel"], tp_group=mesh)
+    with torch.no_grad():
+        full = model.forward(local, params, tokens, **kw)
+        _, cache = model.forward(local, params, tokens, return_cache=True,
+                                 cache_max_seq=16, **kw)
+        step, _ = model.decode_step(local, params, nxt, cache, **kw)
+
+    def gather(x):
+        x = all_gather(x, mesh, pmesh.MODEL_AXIS, dim=-1)
+        return all_gather(x, mesh, pmesh.DATA_AXIS, dim=0)
+    return {"forward": gather(full), "decode": gather(step)}
+
+
+def _host_state(eng):
+    return {"slots": [(s.active, list(s.generated), s.tenant_id, s.epoch)
+                      for s in eng.slots],
+            "tenant_ids": eng.tenant_ids.tolist(),
+            "last_tokens": eng._last_tokens.tolist(),
+            "cache_length": all_gather(eng.cache.length, eng.mesh,
+                                       pmesh.DATA_AXIS, dim=0).tolist()}
+
+
+def replay_script(eng):
+    """The leader's calls (also run on one device for the reference)."""
+    out = {"warmed": eng.warmup()}
+    eng.submit(Request(prompt_ids=[3, 5, 7], tenant_id=0, max_new_tokens=6,
+                       request_id="a"))
+    out["pumped"] = [[(e.slot, e.token) for e in eng.pump()]
+                     for _ in range(2)]
+    try:
+        eng.submit(Request(prompt_ids=[], tenant_id=0))
+    except ValueError as e:
+        out["refused"] = str(e)
+    eng.submit(Request(prompt_ids=[2, 4], tenant_id=1, max_new_tokens=4,
+                       request_id="b"))
+    out["cancelled"] = eng.cancel("a")
+    steps = []
+    while any(s.active for s in eng.slots):
+        steps.append([(e.slot, e.token, e.finished) for e in eng.step()])
+    out["steps"] = steps
+    out["generated"] = eng.generate(
+        [Request(prompt_ids=[8, 1], tenant_id=t, max_new_tokens=3)
+         for t in (0, 1)])
+    return out
+
+
+def run_replay(world, case, mesh):
+    eng = _engine(world, case, mesh)
+    if eng.rank == 0:
+        try:
+            out = replay_script(eng)
+        finally:
+            eng.stop_followers()
+    else:
+        eng.follow()
+        out = {}
+    out["state"] = _host_state(eng)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def run_roundtrip(world, case, mesh):
+    cfg, tp = world["cfg"], case["mesh"][1]
+    full = to_pair_layout(world["stack"], tp=tp)
+    local = psh.shard_stack(cfg, full, mesh)
+    back = (psh.gather_tree(local.params, psh.serving_param_specs(
+                cfg, full.params, tp=tp), mesh),
+            psh.gather_tree(local.deltas,
+                            psh.serving_delta_specs(full.deltas), mesh))
+    pairs = list(zip(_leaves(back), _leaves((full.params, full.deltas))))
+    return len(pairs) > 0 and all(torch.equal(a, b) for a, b in pairs)
+
+
+RUN = {"engine": run_engine, "refuse": run_refuse, "logits": run_logits,
+       "replay": run_replay, "roundtrip": run_roundtrip}
+
+
+def spawn_world(job, world_size, tmp_path, timeout=240):
+    """Run ``job`` on ``world_size`` ranks (this file, one process each,
+    joined through a file store under ``tmp_path``). Returns each rank's
+    results; raises with the ranks' output if one fails or any is still
+    running after ``timeout`` seconds (all are killed then)."""
+    tmp_path = Path(tmp_path)
+    job_path = tmp_path / "job.pt"
+    torch.save(job, job_path)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world_size),
+         str(tmp_path / "store"), str(job_path), str(tmp_path / f"out{r}.pt")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(world_size)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise RuntimeError(f"ranks failed {bad}:\n"
+                           + "\n".join(log[-3000:] for log in logs))
+    return [torch.load(tmp_path / f"out{r}.pt", weights_only=False)
+            for r in range(world_size)]
+
+
+def main(rank, world_size, store, job_path, out_path):
+    torch.set_num_threads(1)
+    pmesh.initialize_multihost(f"file://{store}", world_size, rank,
+                               device="cpu",
+                               timeout=datetime.timedelta(seconds=60))
+    job = torch.load(job_path, weights_only=False)
+    meshes = {}
+    results = {}
+    for case in job["cases"]:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = pmesh.make_mesh(shape, device="cpu")
+        results[case["id"]] = RUN[case["kind"]](
+            job["worlds"][case["world"]], case, meshes[shape])
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(results, out_path)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+         sys.argv[5])
