@@ -15,7 +15,8 @@ Runs on the card; ``--device cpu`` runs on the CPU.
 Tensor and data parallelism: ``--mesh dp,tp`` with one process a rank,
 started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
 bitdelta_torch.cli.serve --mesh dp,tp ...``. Every rank loads the base
-and the tenants and keeps its shard; rank 0 serves HTTP and the other
+and the tenants on the host and copies its shard alone to its card, one
+leaf at a time; rank 0 serves HTTP and the other
 ranks replay its engine calls until it stops (on SIGTERM or SIGINT, which
 the other ranks leave to it).
 """
@@ -25,6 +26,8 @@ from __future__ import annotations
 import argparse
 import json
 import signal
+
+import torch
 
 from . import args as A
 from ..core.artifact import load_delta
@@ -80,6 +83,9 @@ def main(argv=None):
                 f"python -m torch.distributed.run --nproc-per-node "
                 f"{mesh_shape[0] * mesh_shape[1]}") from e
     device = resolve_device(args.device)
+    # Over a mesh the stack is built on the host and the engine copies
+    # this rank's shard of each leaf to the card: no card holds it whole.
+    build_on = torch.device("cpu") if mesh is not None else device
 
     tenant_specs = []
     for spec in args.delta:
@@ -95,13 +101,14 @@ def main(argv=None):
 
     dtype = torch_dtype(args.dtype)
     print(f"loading base {args.base_model} ...", flush=True)
-    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=device)
+    cfg, base = load_hf_params(args.base_model, dtype=dtype,
+                               device=build_on)
 
     compressed = []
     base_quants = set()
     for spec in tenant_specs:
         print(f"loading tenant {spec['name']} ...", flush=True)
-        comp, _, meta = load_delta(spec["diff_path"], device=device,
+        comp, _, meta = load_delta(spec["diff_path"], device=build_on,
                                    return_meta=True)
         base_quants.add(meta.get("base_quant"))
         compressed.append(comp)
@@ -119,7 +126,7 @@ def main(argv=None):
         print(f"artifacts were built against an {base_quant} base — "
               f"serving the quantized base", flush=True)
         base = quantize_base(base, base_quant)
-    stack = stack_tenants(cfg, base, compressed, device=device)
+    stack = stack_tenants(cfg, base, compressed, device=build_on)
     del base, compressed
     mem = stack_nbytes(stack)
     print(f"base {mem['base_bytes']/1e9:.2f} GB + "

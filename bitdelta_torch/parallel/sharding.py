@@ -268,8 +268,10 @@ def _map(fn, tree, specs):
     return fn(tree, specs)
 
 
-def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's contiguous block of ``x`` under ``spec``."""
+def shard_tensor(x: torch.Tensor, spec, mesh, device=None) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` under ``spec``, on ``device``
+    (default: ``x``'s): from a host tensor only the block is copied to
+    the card."""
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
@@ -279,6 +281,8 @@ def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
                              f"over the {axis} axis ({n})")
         size = x.shape[dim] // n
         x = x.narrow(dim, axis_index(mesh, axis) * size, size)
+    if device is not None:
+        x = x.to(device)
     return x.contiguous()
 
 
@@ -290,10 +294,11 @@ def gather_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
     return x
 
 
-def shard_tree(tree, specs, mesh):
+def shard_tree(tree, specs, mesh, device=None):
     """Every leaf's local block (a new contiguous tensor per sharded leaf;
-    the caller drops the whole tree to free it)."""
-    return _map(lambda x, s: shard_tensor(x, s, mesh), tree, specs)
+    the caller drops the whole tree to free it), on ``device`` if given:
+    one leaf's block at a time crosses to it."""
+    return _map(lambda x, s: shard_tensor(x, s, mesh, device), tree, specs)
 
 
 def gather_tree(tree, specs, mesh):
@@ -311,16 +316,20 @@ def shard_deltas(cfg: ModelConfig, deltas, mesh,
         deltas, delta_specs(cfg, tenant_stacked, keys=deltas.keys()), mesh)
 
 
-def shard_stack(cfg: ModelConfig, stack, mesh):
+def shard_stack(cfg: ModelConfig, stack, mesh, device=None):
     """This rank's shard of a serving TenantStack (canonical or pair delta
     layout): packed tenant deltas shard like their base matrices;
-    vocab_sizes replicate."""
+    vocab_sizes replicate. ``device``: where the shard goes (default: the
+    stack's own); a stack on the host then never reaches the card whole."""
     params = shard_tree(stack.params,
                         serving_param_specs(cfg, stack.params,
-                                            tp=axis_size(mesh, M)), mesh)
+                                            tp=axis_size(mesh, M)), mesh,
+                        device)
     deltas = shard_tree(stack.deltas, serving_delta_specs(stack.deltas),
-                        mesh)
-    return stack._replace(params=params, deltas=deltas)
+                        mesh, device)
+    vocab = (stack.vocab_sizes if device is None
+             else stack.vocab_sizes.to(device))
+    return stack._replace(params=params, deltas=deltas, vocab_sizes=vocab)
 
 
 def shard_cache(cache, mesh):

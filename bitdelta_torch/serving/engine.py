@@ -28,12 +28,13 @@ axis, the cache's slot rows over the data axis and its KV heads over the
 model axis. A decode step runs each rank's rows through the model with
 its LOCAL head counts and gathers the logits to the whole ``(B, V)`` on
 every rank, which then samples the whole batch with the same seeded
-generator: every rank's host state stays identical. Admission is one
-request at a time (JAX's ``_tp_serial_admission``): its prefill runs on
-every rank, tensor-parallel over the model axis, and only the data rank
-that owns the slot keeps the row. JAX drives all devices from one
-controller; here rank 0 is the controller and the other ranks replay
-its calls (:meth:`Engine.follow`).
+generator: every rank's host state stays identical. Admission is the
+single-device one: a prefill runs every row on every rank,
+tensor-parallel over the model axis, and only the data rank that owns a
+slot keeps its row (JAX admits one request at a time under TP, which its
+shard_map prefill needs; here every rank replays the same batched
+prefill). JAX drives all devices from one controller; here rank 0 is the
+controller and the other ranks replay its calls (:meth:`Engine.follow`).
 """
 
 from __future__ import annotations
@@ -184,7 +185,9 @@ class Engine:
         engine from the same whole stack in the same order; the engine
         keeps this rank's shard (``parallel/sharding.py::shard_stack``,
         after ``to_pair_layout(tp=)`` on a kernel route) and drops its
-        reference to the rest. ``max_slots`` must split over the data
+        reference to the rest. Over a mesh the stack may stay on the
+        host: each leaf's shard alone is then copied to ``device``, so no
+        rank's card ever holds the whole stack. ``max_slots`` must split over the data
         axis and the KV heads, query heads and padded vocabulary over the
         model axis (every route runs the same per-rank code here; JAX
         needs the last two on its Pallas route only), and a W4
@@ -195,7 +198,8 @@ class Engine:
             kernel = "cuda" if self.device.type == "cuda" else "torch"
         if kernel not in llama.CARD_KERNELS + ("torch",):
             raise ValueError(f"unknown kernel {kernel!r}")
-        if stack.vocab_sizes.device.type != self.device.type:
+        if (stack.vocab_sizes.device.type != self.device.type
+                and (mesh is None or stack.vocab_sizes.device.type != "cpu")):
             raise ValueError(f"stack lives on {stack.vocab_sizes.device}, "
                              f"engine on {self.device}")
         if kv_dtype not in (None, "bf16", "bfloat16", "int8"):
@@ -229,7 +233,7 @@ class Engine:
                       else stack)
         del stack
         if mesh is not None:
-            self.stack = shard_stack(cfg, self.stack, mesh)
+            self.stack = shard_stack(cfg, self.stack, mesh, self.device)
         # The per-rank model sees its LOCAL heads (JAX's cfg_local).
         self._cfg_local = dataclasses.replace(
             cfg, num_heads=cfg.num_heads // tp,
@@ -470,9 +474,8 @@ class Engine:
                 raise RuntimeError("warmup requires an idle engine")
         gen_state = self._gen.get_state()
         rowcache = None
-        bursts = {1} if self._serial_admission else {1, self.max_slots}
         for bucket in self.prefill_buckets:
-            for rows in sorted(bursts):
+            for rows in sorted({1, self.max_slots}):
                 tokens = np.zeros((rows, bucket), np.int64)
                 tokens[:, 0] = 1
                 _first, rowcache = self._prefill(
@@ -507,12 +510,6 @@ class Engine:
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots)
                 if not s.active and not s.reserved]
-
-    @property
-    def _serial_admission(self) -> bool:
-        """Over a mesh of more than one rank admissions prefill one at a
-        time (batch 1), as JAX's shard_map TP prefill does."""
-        return self._ctl is not None
 
     @_replicated
     def cancel(self, request_id: Optional[str]) -> bool:
@@ -925,8 +922,7 @@ class Engine:
     @_replicated
     def generate(self, requests: Sequence[Request]) -> List[List[int]]:
         """Run all requests to completion with continuous admission
-        (batched prefill per burst, one request at a time over a mesh;
-        pipelined decode). Returns generated ids per request (stop token
+        (batched prefill per burst; pipelined decode). Returns generated ids per request (stop token
         excluded)."""
         pending = list(enumerate(requests))
         outputs: List[Optional[List[int]]] = [None] * len(requests)
@@ -934,16 +930,6 @@ class Engine:
 
         def admit_pending():
             while pending and self.free_slots():
-                if self._serial_admission:
-                    idx, req = pending.pop(0)
-                    try:
-                        slot = self.submit(req)
-                    except EngineFullError:
-                        pending.insert(0, (idx, req))
-                        return
-                    if not req.cancelled:
-                        slot_to_req[slot] = idx
-                    continue
                 take = min(len(pending), len(self.free_slots()))
                 taken = [pending.pop(0) for _ in range(take)]
                 admitted = self._submit_batch([r for _, r in taken])

@@ -98,14 +98,18 @@ def _generate(cfg, stack, kernel, requests, device, max_slots, mesh=None,
 
 
 def check_engines(cfg: ModelConfig, base: dict, log=print, *,
-                  device="cuda", mesh=None, kv_dtype=None) -> dict:
+                  device="cuda", mesh=None, kv_dtype=None,
+                  want=None) -> dict:
     """Two tenants (every projection scaled by ``1.01 + 0.01 t``, embed
     and head by 1.01, compressed with their embeddings) greedy-decoded
     by each kernel route and by the plain engine; then one zero-delta
     tenant over ``quantize_base(base, "int4")``. With ``mesh`` each
     route (the W4 one too) also runs on it and must give the plain
     engine's tokens. ``kv_dtype``: the engines' cache (``"int8"``, or
-    the compute dtype). Returns ``{"status": "ok", "tokens": ...,
+    the compute dtype). ``want``: the result of an earlier call on the
+    same world and cache; then the single-process engines do not run
+    again, only the meshed ones (so a caller can count their kernel
+    launches alone). Returns ``{"status": "ok", "tokens": ...,
     "w4_tokens": ...}`` or raises."""
     device = resolve_device(device)
     tenants = []
@@ -117,48 +121,48 @@ def check_engines(cfg: ModelConfig, base: dict, log=print, *,
         fine["lm_head"] = base["lm_head"] * 1.01
         tenants.append(compress_model(base, fine, compress_embeddings=True))
     stack = stack_tenants(cfg, base, tenants, device=device)
-    kv = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
-    want = _generate(cfg, stack, "torch", _requests(), device, 2, **kv)
-    for kernel in llama.CARD_KERNELS:
-        got = _generate(cfg, stack, kernel, _requests(), device, 2, **kv)
-        if got != want:
-            raise AssertionError(
-                f"{kernel} engine diverged from the plain engine: "
-                f"{got} != {want}")
-    routes = " and ".join(llama.CARD_KERNELS)
-    log(f"[compiled_check] {routes} serving paths ok: {want}")
-    if mesh is not None:
-        shape = (axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
-        for kernel in llama.CARD_KERNELS:
-            got = _generate(cfg, stack, kernel, _requests(), device,
-                            2 * shape[0], mesh, **kv)
-            if got != want:
-                raise AssertionError(
-                    f"{kernel} engine on mesh {shape} diverged from the "
-                    f"single-device engine: {got} != {want}")
-        log(f"[compiled_check] {routes} on mesh {shape} ok")
-
     # W4 density path: the W4 base matmul must serve the plain engine's
     # greedy tokens over the same int4 base.
     qbase = quantize_base(base, "int4")
     deq = roundtrip_base(base, "int4", torch.float32)
     stack_w4 = stack_tenants(cfg, qbase, [compress_model(deq, deq)],
                              device=device)
-    want4 = _generate(cfg, stack_w4, "torch", _w4_requests(), device, 1)
-    got4 = _generate(cfg, stack_w4, "cuda", _w4_requests(), device, 1)
-    if got4 != want4:
-        raise AssertionError(
-            f"W4 cuda engine diverged from the plain engine: "
-            f"{got4} != {want4}")
-    if mesh is not None:
-        got4 = _generate(cfg, stack_w4, "cuda", _w4_requests(), device,
-                         shape[0], mesh)
+    kv = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+    routes = " and ".join(llama.CARD_KERNELS)
+    if want is None:
+        tokens = _generate(cfg, stack, "torch", _requests(), device, 2, **kv)
+        for kernel in llama.CARD_KERNELS:
+            got = _generate(cfg, stack, kernel, _requests(), device, 2, **kv)
+            if got != tokens:
+                raise AssertionError(
+                    f"{kernel} engine diverged from the plain engine: "
+                    f"{got} != {tokens}")
+        log(f"[compiled_check] {routes} serving paths ok: {tokens}")
+        want4 = _generate(cfg, stack_w4, "torch", _w4_requests(), device, 1)
+        got4 = _generate(cfg, stack_w4, "cuda", _w4_requests(), device, 1)
         if got4 != want4:
             raise AssertionError(
+                f"W4 cuda engine diverged from the plain engine: "
+                f"{got4} != {want4}")
+        log(f"[compiled_check] W4 base kernel ok: {got4}")
+        want = {"status": "ok", "tokens": tokens, "w4_tokens": got4}
+    if mesh is not None:
+        shape = (axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS))
+        for kernel in llama.CARD_KERNELS:
+            got = _generate(cfg, stack, kernel, _requests(), device,
+                            2 * shape[0], mesh, **kv)
+            if got != want["tokens"]:
+                raise AssertionError(
+                    f"{kernel} engine on mesh {shape} diverged from the "
+                    f"single-device engine: {got} != {want['tokens']}")
+        got4 = _generate(cfg, stack_w4, "cuda", _w4_requests(), device,
+                         shape[0], mesh)
+        if got4 != want["w4_tokens"]:
+            raise AssertionError(
                 f"W4 cuda engine on mesh {shape} diverged from the plain "
-                f"engine: {got4} != {want4}")
-    log(f"[compiled_check] W4 base kernel ok: {got4}")
-    return {"status": "ok", "tokens": want, "w4_tokens": got4}
+                f"engine: {got4} != {want['w4_tokens']}")
+        log(f"[compiled_check] {routes} and W4 on mesh {shape} ok")
+    return want
 
 
 def serving_compiled_check(log=print, *, device="cuda") -> dict:

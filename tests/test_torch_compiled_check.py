@@ -113,3 +113,33 @@ def test_serving_compiled_check_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cc.serving_compiled_check(lambda _: None)
+
+
+def test_check_engines_with_want_runs_only_the_meshed_engines(monkeypatch):
+    """``want=`` (an earlier call's result): the single-process engines
+    do not run again, only the meshed ones, held to ``want``; a meshed
+    engine that diverges from it still raises."""
+    from bitdelta_torch.parallel.mesh import make_mesh
+
+    cfg = cc.check_config()
+    base = cc.check_world(cfg, "cpu")
+    ref = cc.check_engines(cfg, base, lambda _: None, device="cpu")
+    mesh = make_mesh((1, 1), device="cpu")
+    meshes = []
+    real = cc._generate
+
+    def counting(cfg, stack, kernel, requests, device, max_slots,
+                 mesh=None, **kw):
+        meshes.append(mesh)
+        return real(cfg, stack, kernel, requests, device, max_slots, mesh,
+                    **kw)
+
+    monkeypatch.setattr(cc, "_generate", counting)
+    got = cc.check_engines(cfg, base, lambda _: None, device="cpu",
+                           mesh=mesh, want=ref)
+    assert got == ref
+    assert len(meshes) == 3 and all(m is mesh for m in meshes)
+    bad = dict(ref, tokens=[t[:-1] + [t[-1] + 1] for t in ref["tokens"]])
+    with pytest.raises(AssertionError, match=r"on mesh \(1, 1\) diverged"):
+        cc.check_engines(cfg, base, lambda _: None, device="cpu",
+                         mesh=mesh, want=bad)

@@ -314,6 +314,35 @@ def test_shards_reassemble_every_leaf(stacks, shape):
         check(trees[i], [b[i] for b in blocks], specs[i])
 
 
+def test_shard_stack_to_a_device_moves_only_the_blocks(stacks):
+    """``shard_stack(device=)``, as a meshed engine calls it on a stack
+    left on the host: every leaf's block lands on ``device`` (the meta
+    device here, the card there) with the shape and dtype of the block
+    kept on the stack's own device, and vocab_sizes goes along."""
+    jcfg, _, tstack = stacks["llama0"]
+    cfg = _tcfg(jcfg)
+    full = tst.to_pair_layout(tstack, tp=4)
+    rank = _Rank((2, 4), (1, 2))
+    here = psh.shard_stack(cfg, full, rank)
+    there = psh.shard_stack(cfg, full, rank, device="meta")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    a = leaves((here.params, here.deltas))
+    b = leaves((there.params, there.deltas))
+    assert len(a) == len(b) > 10
+    for x, y in zip(a, b):
+        assert y.device.type == "meta" and x.device.type == "cpu"
+        assert y.shape == x.shape and y.dtype == x.dtype
+    assert there.vocab_sizes.device.type == "meta"
+    assert here.vocab_sizes is full.vocab_sizes
+
+
 # ---------------------------------------------------------------------------
 # Pair layout under TP
 # ---------------------------------------------------------------------------
