@@ -5,9 +5,10 @@ groups, with the port's kernel routes and a ``--device``.
 ``cuda`` (the hand-written kernels), ``cuda_fused`` (base and delta in one
 kernel at each decode projection over a dense base) or ``torch`` (the
 plain paths). ``--device``: ``cuda`` by default; ``cpu`` runs on the CPU
-(asking for the card where there is none raises). ``--mesh`` is parsed as
-in JAX, but the port runs on one card: any shape other than ``1,1``
-exits.
+(asking for the card where there is none raises). ``--mesh dp,tp``:
+``serve`` and ``train`` run one process a rank under ``python -m
+torch.distributed.run --nproc-per-node dp*tp`` (:func:`make_cli_mesh`);
+``eval_ppl`` takes the flag and runs on one device, as JAX's does.
 """
 
 from __future__ import annotations
@@ -77,10 +78,10 @@ def add_ppl_args(p: argparse.ArgumentParser):
 
 def add_mesh_args(p: argparse.ArgumentParser):
     p.add_argument("--mesh", type=str, default=None,
-                   help="'dp,tp' mesh shape: serve runs one rank a "
-                        "device under python -m torch.distributed.run "
-                        "--nproc-per-node dp*tp; train and eval_ppl take "
-                        "only 1,1")
+                   help="'dp,tp' mesh shape: serve and train run one rank "
+                        "a device under python -m torch.distributed.run "
+                        "--nproc-per-node dp*tp; eval_ppl runs on one "
+                        "device, as JAX's")
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--kernel", type=str, default="auto", choices=KERNELS,
                    help="auto: cuda on the card, torch on the CPU")
@@ -96,16 +97,29 @@ def parse_mesh(spec):
     return (dp, tp)
 
 
-def refuse_mesh(spec) -> None:
-    """Exit on a ``--mesh`` other than ``1,1``: distillation and the
-    perplexity eval run on one device (their data and tensor parallelism
-    are ROADMAP A7)."""
+def make_cli_mesh(spec, device):
+    """The ``(data, model)`` mesh of ``--mesh`` over a world of exactly
+    ``dp * tp`` processes (None without the flag). Made before any weight
+    loads: it puts the rank on its card. A world of another size exits,
+    naming the launcher that starts one process a rank."""
     shape = parse_mesh(spec)
-    if shape not in (None, (1, 1)):
-        raise SystemExit(
-            f"--mesh {spec}: distillation and the perplexity eval run on "
-            f"one device in the PyTorch port; their data and tensor "
-            f"parallelism are ROADMAP A7 (not ported yet)")
+    if shape is None:
+        return None
+    import torch.distributed as dist
+
+    from ..parallel import mesh as pmesh
+
+    needed = shape[0] * shape[1]
+    hint = (f"; start one process a rank with python -m "
+            f"torch.distributed.run --nproc-per-node {needed}")
+    try:
+        mesh = pmesh.make_mesh(shape, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}{hint}") from e
+    if dist.get_world_size() != needed:
+        raise SystemExit(f"--mesh {spec} needs {needed} processes, got "
+                         f"{dist.get_world_size()}{hint}")
+    return mesh
 
 
 def resolve_kernel(kernel: str, device: torch.device) -> str:

@@ -8,7 +8,9 @@ Usage:
   python -m bitdelta_torch.cli.eval_ppl --base_model <dir> \\
       --model_diff out/diff.safetensors [--text_file corpus.txt]
 
-Runs on the card; ``--device cpu`` runs on the CPU.
+Runs on the card; ``--device cpu`` runs on the CPU. ``--mesh`` is taken
+and, as in JAX's CLI, the eval runs on one device (the library's
+``eval_ppl(mesh=)`` splits the windows over a mesh).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ def main(argv=None):
     A.add_ppl_args(p)
     A.add_mesh_args(p)
     args = p.parse_args(argv)
-    A.refuse_mesh(args.mesh)
     device = resolve_device(args.device)
     dtype = torch_dtype(args.dtype)
 

@@ -68,20 +68,7 @@ def main(argv=None):
     p.add_argument("--smoke_test", action="store_true",
                    help="generate a few tokens from every tenant and exit")
     args = p.parse_args(argv)
-    mesh_shape = A.parse_mesh(args.mesh)
-    mesh = None
-    if mesh_shape is not None:
-        from ..parallel import mesh as pmesh
-
-        try:
-            # Before any weight is loaded: the mesh puts the rank on its
-            # card.
-            mesh = pmesh.make_mesh(mesh_shape, device=args.device)
-        except ValueError as e:
-            raise SystemExit(
-                f"--mesh {args.mesh}: {e}; start one process a rank with "
-                f"python -m torch.distributed.run --nproc-per-node "
-                f"{mesh_shape[0] * mesh_shape[1]}") from e
+    mesh = A.make_cli_mesh(args.mesh, args.device)
     device = resolve_device(args.device)
     # Over a mesh the stack is built on the host and the engine copies
     # this rank's shard of each leaf to the card: no card holds it whole.
@@ -139,7 +126,7 @@ def main(argv=None):
                for spec in tenant_specs]
 
     if mesh is not None:
-        print(f"sharding stack over mesh {mesh_shape} (data, model)",
+        print(f"sharding stack over mesh {tuple(mesh.shape)} (data, model)",
               flush=True)
     model_mod = resolve_model_module(cfg)
     if model_mod is not llama:

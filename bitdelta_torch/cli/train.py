@@ -11,6 +11,14 @@ Usage:
 Runs on the card; ``--device cpu`` runs on the CPU. The
 ``--checkpoint_every`` file is the port's own safetensors checkpoint
 (``distill_ckpt.safetensors``), not JAX's npz.
+
+Data and tensor parallelism: ``--mesh dp,tp`` with one process a rank,
+started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
+bitdelta_torch.cli.train --mesh dp,tp ...``. Every rank loads the base
+and the fine-tune on the host and copies its shards to its card; the
+deltas are compressed on the shards and distilled over the mesh
+(``train/distill.py``), each rank taking its rows of every batch. Rank 0
+alone writes the files, the artifacts from the gathered shards.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import argparse
 import contextlib
 import json
 import os
+
+import torch
+import torch.distributed as dist
 
 from . import args as A
 from ..core.artifact import save_delta
@@ -31,22 +42,47 @@ from ..train.distill import DistillConfig, distill_scales
 from ..utils.tokenizer import get_tokenizer
 
 
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v) for v in tree))
+    return tree.cpu()
+
+
+def _whole(comp, cfg, fcfg, mesh):
+    """A compressed model's shards gathered whole on every rank."""
+    from ..parallel.sharding import delta_specs, extras_specs, gather_tree
+
+    if mesh is None:
+        return comp
+    return comp._replace(
+        deltas=gather_tree(comp.deltas, delta_specs(
+            cfg, keys=comp.deltas.keys()), mesh),
+        extras=gather_tree(comp.extras, extras_specs(
+            fcfg, keys=comp.extras.keys()), mesh))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("bitdelta_torch.train")
     A.add_model_args(p)
     A.add_train_args(p)
     A.add_mesh_args(p)
     args = p.parse_args(argv)
-    A.refuse_mesh(args.mesh)
+    mesh = A.make_cli_mesh(args.mesh, args.device)
     device = resolve_device(args.device)
+    writer = mesh is None or dist.get_rank() == 0
     os.makedirs(args.save_dir, exist_ok=True)
+    # Over a mesh the weights load to the host and each rank copies its
+    # shards to the card.
+    load_on = torch.device("cpu") if mesh is not None else device
 
     dtype = torch_dtype(args.dtype)
     print(f"loading base {args.base_model} ...", flush=True)
-    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=device)
+    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=load_on)
     print(f"loading fine-tune {args.finetuned_model} ...", flush=True)
     fcfg, fine = load_hf_params(args.finetuned_model, dtype=dtype,
-                                device=device)
+                                device=load_on)
     if (fcfg.hidden_size, fcfg.num_layers) != (cfg.hidden_size, cfg.num_layers):
         raise ValueError("base and fine-tune architectures differ")
 
@@ -67,30 +103,48 @@ def main(argv=None):
               flush=True)
         base = roundtrip_base(base, args.quantize_base, dtype)
 
-    if args.debug:
+    if args.debug and writer:
         from ..utils.diagnostics import weight_corr_stddev
         stats = weight_corr_stddev(base, fine)
         with open(os.path.join(args.save_dir, "corr_stddev.csv"), "w") as f:
             f.write(f"corr,stddev\n{stats['corr']},{stats['stddev']}\n")
 
+    host_base = base if args.save_full_model else None
+    if mesh is not None:
+        from ..parallel.sharding import param_specs, shard_tree
+
+        print(f"sharding base and fine-tune over mesh {tuple(mesh.shape)} "
+              f"(data, model)", flush=True)
+        base = shard_tree(base, param_specs(cfg), mesh, device)
+        fine = shard_tree(fine, param_specs(fcfg), mesh, device)
+
     print("compressing diff...", flush=True)
     if is_mixtral:  # attn + experts + router (+ embed/head) deltas
         comp = model_mod.compress_mixtral(
             base, fine, compress_embeddings=args.compress_embeddings,
-            zero_sign=args.zero_sign)
+            zero_sign=args.zero_sign, mesh=mesh)
     else:
         comp = compress_model(base, fine,
                               compress_embeddings=args.compress_embeddings,
-                              zero_sign=args.zero_sign)
-    save_delta(os.path.join(args.save_dir, "diff_untrained.safetensors"),
-               comp, fcfg, base_quant=args.quantize_base)
+                              zero_sign=args.zero_sign, mesh=mesh)
+    whole = _whole(comp, cfg, fcfg, mesh)
+    if writer:
+        save_delta(os.path.join(args.save_dir, "diff_untrained.safetensors"),
+                   whole, fcfg, base_quant=args.quantize_base)
 
-    tokenizer = get_tokenizer(args.finetuned_model or args.base_model)
-    batches = get_calibration_batches(
-        tokenizer, num_steps=args.num_steps, batch_size=args.batch_size,
-        max_length=args.max_length, dataset_name=args.dataset_name,
-        subset=args.subset, split=args.split, text_file=args.text_file,
-        vocab_size=cfg.vocab_size)
+    batches = None
+    if writer:
+        tokenizer = get_tokenizer(args.finetuned_model or args.base_model)
+        batches = get_calibration_batches(
+            tokenizer, num_steps=args.num_steps, batch_size=args.batch_size,
+            max_length=args.max_length, dataset_name=args.dataset_name,
+            subset=args.subset, split=args.split, text_file=args.text_file,
+            vocab_size=cfg.vocab_size)
+    if mesh is not None:
+        # Rank 0's batches on every rank (a dataset read may fall back).
+        from ..parallel.collectives import broadcast_object
+
+        batches = broadcast_object(batches)
 
     # The fused route differs from "cuda" only at decode.
     kernel = A.resolve_kernel(args.kernel, device)
@@ -106,21 +160,26 @@ def main(argv=None):
             if args.checkpoint_every else None)
     with profile_ctx:
         comp, losses = distill_scales(cfg, base, fine, comp, batches, dcfg,
-                                      progress=True, model=model_mod,
-                                      checkpoint_path=ckpt,
+                                      mesh=mesh, progress=writer,
+                                      model=model_mod, checkpoint_path=ckpt,
                                       checkpoint_every=args.checkpoint_every)
+    whole = _whole(comp, cfg, fcfg, mesh)
+    if not writer:
+        return
     print(f"distill loss {losses[0]:.6f} -> {losses[-1]:.6f}")
     if args.debug:
         with open(os.path.join(args.save_dir, "train_loss.json"), "w") as f:
             json.dump(losses, f)
 
-    save_delta(os.path.join(args.save_dir, "diff.safetensors"), comp, fcfg,
+    save_delta(os.path.join(args.save_dir, "diff.safetensors"), whole, fcfg,
                base_quant=args.quantize_base)
     print(f"saved {os.path.join(args.save_dir, 'diff.safetensors')}")
 
     if args.save_full_model:
         from ..core.export import save_full_model
-        save_full_model(cfg, fuse_compressed(base, comp),
+        if mesh is not None:
+            whole = _to_host(whole)
+        save_full_model(cfg, fuse_compressed(host_base, whole),
                         os.path.join(args.save_dir, "calibrated_model"),
                         tokenizer_src=args.finetuned_model)
         print("exported calibrated model")

@@ -1,5 +1,4 @@
-"""Strided sliding-window perplexity (port of ``bitdelta_tpu/eval/ppl.py``,
-single device).
+"""Strided sliding-window perplexity (port of ``bitdelta_tpu/eval/ppl.py``).
 
 The reference evaluator's window protocol, unchanged:
 
@@ -14,6 +13,15 @@ The reference evaluator's window protocol, unchanged:
 
 Windows run through the model one batch of ``batch_windows`` at a time,
 on the device of the params.
+
+Over a ``(data, model)`` mesh (``eval_ppl(mesh=)``, JAX's ``P(None,
+"data")`` on each window) every rank takes a contiguous slice of each
+window's positions and the weights are this rank's tensor-parallel
+shards: the model gathers K/V over the data axis inside attention
+(``forward(seq_group=)``), the logits are gathered over the model axis
+before the softmax, each position's target comes from the whole window
+(every rank holds it), and the windows' nll sums are summed over the data
+axis.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ import torch
 from ..device import torch_dtype
 from ..models import llama
 from ..models.config import ModelConfig
+from ..parallel.collectives import all_gather, axis_index, axis_size, psum
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import local_config
 
 
 def window_starts(seq_len: int, context_size: int, window_size: int):
@@ -42,26 +53,35 @@ def window_starts(seq_len: int, context_size: int, window_size: int):
 
 def _window_nll(cfg: ModelConfig, model, params, deltas,
                 window: torch.Tensor, stride: int, compute_dtype,
-                kernel: str) -> torch.Tensor:
+                kernel: str, mesh=None) -> torch.Tensor:
     """Mean nll of the last ``stride`` targets of each row of a ``(B, T)``
-    window batch."""
-    logits = model.forward(cfg, params, window, deltas=deltas,
-                           compute_dtype=compute_dtype,
-                           kernel=kernel).to(torch.float32)
-    # Shifted cross-entropy: logits[t] predicts window[t + 1].
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    targets = window[:, 1:]
+    window batch. ``mesh``: this rank runs positions ``[t0, t0 + T/dp)``
+    on its shard (``cfg`` its local one)."""
+    t, dp = window.shape[1], axis_size(mesh, DATA_AXIS)
+    chunk = t // dp
+    t0 = axis_index(mesh, DATA_AXIS) * chunk
+    kw = {} if mesh is None else dict(tp_group=mesh,
+                                      seq_group=mesh if dp > 1 else None)
+    logits = model.forward(cfg, params, window[:, t0:t0 + chunk],
+                           deltas=deltas, compute_dtype=compute_dtype,
+                           kernel=kernel, **kw).to(torch.float32)
+    logits = all_gather(logits, mesh, MODEL_AXIS, dim=-1)
+    # Shifted cross-entropy: logits at position p predict window[p + 1];
+    # the window's last position predicts nothing.
+    n = min(chunk, t - 1 - t0)
+    logp = torch.log_softmax(logits[:, :n], dim=-1)
+    targets = window[:, t0 + 1:t0 + 1 + n]
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    t = targets.shape[1]
-    keep = (torch.arange(t, device=window.device) >= t - stride).to(
-        torch.float32)
-    return (nll * keep).sum(dim=-1) / keep.sum()
+    pos = t0 + torch.arange(n, device=window.device)
+    keep = (pos >= t - 1 - stride).to(torch.float32)
+    total = psum((nll * keep).sum(dim=-1), mesh, DATA_AXIS)
+    return total / stride
 
 
 def eval_ppl(cfg: ModelConfig, params, token_ids: np.ndarray, *,
              context_size: int = 1024, window_size: int = 512,
              deltas=None, compute_dtype=None, batch_windows: int = 1,
-             model=None, kernel: str = "torch") -> float:
+             model=None, kernel: str = "torch", mesh=None) -> float:
     """Perplexity of a 1-D token array under the model.
 
     ``deltas=None`` evaluates dense params (``core.compress.
@@ -70,9 +90,20 @@ def eval_ppl(cfg: ModelConfig, params, token_ids: np.ndarray, *,
     evaluates through the delta path instead. ``model``: the decoder
     module (default llama; ``models.mixtral`` for MoE). ``kernel``: the
     model's dispatch (``"torch"`` is JAX's default ``"xla"``). The windows
-    go to the device of ``params["embed"]``."""
+    go to the device of ``params["embed"]``. ``mesh``: split each window's
+    positions over the data axis, the params and deltas being this rank's
+    shards already (``parallel/sharding.py``) and ``cfg`` the whole
+    model's; the window length must divide by the data axis. With the
+    sequence split (more than one rank on it) attention takes the plain
+    path, as JAX's XLA attention."""
     model = model if model is not None else llama
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
+    if mesh is not None:
+        dp = axis_size(mesh, DATA_AXIS)
+        if (context_size + window_size) % dp:
+            raise ValueError(f"window length {context_size + window_size} "
+                             f"must be a multiple of the data axis ({dp})")
+        cfg = local_config(cfg, mesh)
     device = params["embed"].device
     token_ids = np.asarray(token_ids).reshape(-1)
     starts, max_length, stride = window_starts(len(token_ids), context_size,
@@ -95,7 +126,8 @@ def eval_ppl(cfg: ModelConfig, params, token_ids: np.ndarray, *,
             w = torch.as_tensor(windows[i:i + batch_windows].astype(np.int64),
                                 device=device)
             nlls.append(_window_nll(cfg, model, params, deltas, w, stride,
-                                    compute_dtype, kernel).cpu().numpy())
+                                    compute_dtype, kernel, mesh
+                                    ).cpu().numpy())
     nlls = np.concatenate(nlls)
     mean_nll = float((nlls * weights).sum() / weights.sum())
     return float(np.exp(mean_nll))

@@ -33,7 +33,16 @@ Under tensor parallelism (``tp_group``, a ``(data, model)`` mesh from
 with its LOCAL head counts, as JAX's ``shard_map`` bodies do with
 ``tp_axis``: the embedding sums its rank's vocab rows over the model
 axis, o_proj and down_proj sum their partial outputs, and the logits
-come back vocab-sharded.
+come back vocab-sharded. Under autograd (scale distillation) those sums
+are Megatron's ``reduce_from_model`` and the inputs of the
+column-parallel projections and of the vocab-sharded head pass through
+``copy_to_model`` (``parallel/collectives.py``), so the gradients are
+the single-process ones.
+
+``seq_group`` splits a full-sequence forward's positions over the data
+axis instead (the eval's long windows, JAX's ``P(None, "data")`` on
+``eval/ppl.py``'s windows): each rank holds a contiguous slice, and
+attention gathers every rank's K/V.
 
 bf16 rounding follows JAX: ``rms_norm`` casts to the input dtype before
 the weight multiply, RoPE and silu run in fp32 and cast once, and every
@@ -58,8 +67,9 @@ from ..ops.int4 import MAX_M as W4_MAX_M
 from ..ops.int4 import w4_matmul
 from ..ops.kv_quant import dequantize_kv, quantize_kv
 from ..ops.packing import unpair_packed
-from ..parallel.collectives import axis_index, psum
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel.collectives import (all_gather, axis_index, axis_size,
+                                    copy_to_model, reduce_from_model)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..research.quantized_base import (INT4_GROUP, Int4Weight, Int8Weight,
                                        int4_matmul)
 from .config import ModelConfig
@@ -377,8 +387,8 @@ def _embed_lookup(params: Params, tokens: torch.Tensor,
         base = e[lookup]
     if embed_delta is None:
         if tp_group is not None:
-            base = psum(torch.where(valid, base, torch.zeros_like(base)),
-                        tp_group)
+            base = reduce_from_model(
+                torch.where(valid, base, torch.zeros_like(base)), tp_group)
         return base
     packed, scale = embed_delta.packed, embed_delta.scale
     if packed.ndim == 3 and tenant_ids is not None:
@@ -393,7 +403,8 @@ def _embed_lookup(params: Params, tokens: torch.Tensor,
     pm1 = (2 * bits - 1).reshape(*tokens.shape, -1).to(torch.float32)
     out = base.to(torch.float32) + alpha.to(torch.float32) * pm1
     if tp_group is not None:
-        out = psum(torch.where(valid, out, torch.zeros_like(out)), tp_group)
+        out = reduce_from_model(torch.where(valid, out, torch.zeros_like(out)),
+                                tp_group)
     return out.to(e.dtype)
 
 
@@ -499,7 +510,8 @@ def write_cache(cache: torch.Tensor, write_pos: torch.Tensor,
 def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
                q_positions, kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, kernel: str = "torch", lengths=None,
-               cache_k_scale=None, cache_v_scale=None, tp_group=None):
+               cache_k_scale=None, cache_v_scale=None, tp_group=None,
+               seq_group=None):
     """One decoder block. ``p``/``d``: this layer's params / deltas. With
     ``cache_k``/``cache_v`` (``(B, S, KV, hd)`` views of the cache) the
     new K/V are written IN PLACE at ``write_pos`` per row — the JAX
@@ -518,7 +530,13 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
     inside ``shard_map``): cfg carries LOCAL head counts, column-parallel
     projections produce local N slices, and the row-parallel ones
     (o_proj, down_proj) sum their partial outputs over the mesh's model
-    axis, so the residual stream stays replicated."""
+    axis, so the residual stream stays replicated (under autograd through
+    Megatron's pair of collectives, ``parallel/collectives.py``).
+
+    ``seq_group``: this rank's queries are a contiguous slice of the
+    sequence (``q_positions`` global); the K/V of every rank of the data
+    axis are gathered, and attention is the plain path whatever
+    ``kernel`` says (JAX evaluates with XLA attention)."""
     d = d or {}
     b, sq, _ = x.shape
 
@@ -526,7 +544,7 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
         y = _proj(inp, p[name], d.get(name), tenant_ids, compute_dtype,
                   kernel)
         if name in ROW_PARALLEL_PROJS:
-            y = psum(y, tp_group)
+            y = reduce_from_model(y, tp_group)
         return y
 
     def norm_w(w):
@@ -543,7 +561,8 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
             bias = bias[:, None, :]
         return (y.to(torch.float32) + bias).to(y.dtype)
 
-    h = rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps)
+    h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps),
+                      tp_group)
     q = biased("q_proj", proj("q_proj", h)).reshape(
         b, sq, cfg.num_heads, cfg.head_dim)
     k = biased("k_proj", proj("k_proj", h)).reshape(
@@ -569,6 +588,9 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
         if quantized and not kernel_decode:
             k_all = dequantize_kv(cache_k, cache_k_scale, compute_dtype)
             v_all = dequantize_kv(cache_v, cache_v_scale, compute_dtype)
+    elif seq_group is not None:
+        k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
+        v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
     else:
         k_all, v_all = k, v
 
@@ -578,15 +600,16 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
             k_scale=cache_k_scale if quantized else None,
             v_scale=cache_v_scale if quantized else None,
             window=cfg.sliding_window).reshape(b, sq, -1)
-    elif (on_card(kernel) and lengths is not None and sq > 1
-          and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
+    elif (on_card(kernel) and lengths is not None and seq_group is None
+          and sq > 1 and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
         attn = flash_prefill_attention(q, k_all, v_all, lengths,
                                        window=cfg.sliding_window)
     else:
         attn = _attention(cfg, q, k_all, v_all, q_positions, kv_valid)
     x = x + proj("o_proj", attn)
 
-    h = rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps)
+    h = copy_to_model(rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps),
+                      tp_group)
     gate = proj("gate_proj", h)
     up = proj("up_proj", h)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(compute_dtype)
@@ -616,13 +639,27 @@ def _cache_views(cache: Optional[KVCache], layer: int):
     return cache.k[layer], cache.v[layer], None, None
 
 
+def sequence_slice(seq_group, s: int, lengths, return_cache: bool):
+    """``(start, keys)`` of a forward over ``s`` positions: with
+    ``seq_group`` this rank's first global position and the whole
+    sequence's length (the rank's slice of whole rows: no ``lengths`` and
+    no cache), else ``(0, s)``."""
+    if seq_group is None:
+        return 0, s
+    if lengths is not None or return_cache:
+        raise ValueError("a sequence split over the data axis takes whole "
+                         "rows: no lengths and no cache")
+    return (axis_index(seq_group, DATA_AXIS) * s,
+            s * axis_size(seq_group, DATA_AXIS))
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             lengths: Optional[torch.Tensor] = None,
             deltas: Optional[Deltas] = None,
             tenant_ids: Optional[torch.Tensor] = None,
             compute_dtype=None, return_cache: bool = False,
             cache_max_seq: Optional[int] = None, kernel: str = "torch",
-            kv_quant: bool = False, tp_group=None):
+            kv_quant: bool = False, tp_group=None, seq_group=None):
     """Full-sequence forward (prefill / eval). tokens ``(B, S)``
     right-padded; lengths ``(B,)`` (default S). Returns fp32 logits
     ``(B, S, V)`` and, with ``return_cache``, a KVCache holding this
@@ -633,16 +670,23 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``tp_group``: a ``(data, model)`` mesh whose model axis carries
     Megatron TP; this rank holds its shard (``parallel/sharding.py``), cfg
     its LOCAL head counts, and the logits come back vocab-sharded, ``(B,
-    S, V/tp)`` (the caller gathers them in rank order)."""
+    S, V/tp)`` (the caller gathers them in rank order).
+
+    ``seq_group``: a mesh whose data axis splits the sequence; tokens
+    ``(B, S/dp)`` are this rank's contiguous slice of whole ``(B, S)``
+    rows (RoPE offset by the slice's start, K/V gathered over the axis,
+    the plain attention), and the logits are the slice's. It takes no
+    ``lengths`` and no cache."""
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
     b, s = tokens.shape
     dev = tokens.device
-    if lengths is None:
+    start, kv_len = sequence_slice(seq_group, s, lengths, return_cache)
+    if lengths is None and seq_group is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     deltas, embed_delta, head_delta = _split_deltas(deltas)
     x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
                       tp_group).to(compute_dtype)
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    positions = (start + torch.arange(s, device=dev))[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
 
@@ -655,6 +699,8 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         kv_valid = (torch.arange(max_seq, device=dev)[None, :]
                     < lengths[:, None])
         write_pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+    elif seq_group is not None:
+        kv_valid = torch.ones((b, kv_len), dtype=torch.bool, device=dev)
     else:
         kv_valid = positions < lengths[:, None]
     for layer in range(cfg.num_layers):
@@ -665,11 +711,13 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                        cache_v=cv,
                        write_pos=write_pos if cache is not None else None,
                        kernel=kernel, lengths=lengths, cache_k_scale=cks,
-                       cache_v_scale=cvs, tp_group=tp_group)
+                       cache_v_scale=cvs, tp_group=tp_group,
+                       seq_group=seq_group)
 
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
-                             head_delta=head_delta, embed_delta=embed_delta)
+    logits = _lm_head_logits(params, copy_to_model(x, tp_group), tenant_ids,
+                             compute_dtype, kernel, head_delta=head_delta,
+                             embed_delta=embed_delta)
     if not return_cache:
         return logits
     return logits, cache

@@ -26,7 +26,13 @@ Under tensor parallelism (``tp_group``, as in llama) each rank holds its
 shard of every expert — w1/w3 column-parallel on the intermediate, w2
 row-parallel — and the router whole: the MoE block's combine is summed
 once over the model axis, and o_proj's output is summed in fp32, as in
-JAX.
+JAX. Under autograd those sums are Megatron's ``reduce_from_model`` and
+the inputs of the column-parallel projections and experts pass through
+``copy_to_model``; so do the routing weights, which the replicated
+router hands to each rank's partial expert outputs: their gradient is
+summed over the model axis there, and the router's (its delta scale's
+included) is then whole on every rank. ``seq_group`` splits the
+sequence as llama's does.
 """
 
 from __future__ import annotations
@@ -36,20 +42,22 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.delta import BinaryDelta, PairedBinaryDelta, quantize_delta
+from ..core.delta import BinaryDelta, PairedBinaryDelta
 from ..device import resolve_device, torch_dtype
 from ..ops import binary_gemm
 from ..ops.binary_matmul import (binary_matmul, matmul_f32,
                                  tenant_binary_matmul)
 from ..ops.flash_decode import flash_decode_attention
 from ..ops.packing import unpack_to_pm1, unpair_packed
-from ..parallel.collectives import psum
+from ..parallel.collectives import (all_gather, copy_to_model,
+                                    reduce_from_model)
+from ..parallel.mesh import DATA_AXIS
 from ..research.quantized_base import Int8Weight
 from .config import ModelConfig
 from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
                     _embed_lookup, _final_norm_w, _layer, _lm_head_logits,
                     _proj, _split_deltas, apply_rope, on_card, pair_colsum,
-                    rms_norm, rope_tables, write_cache)
+                    rms_norm, rope_tables, sequence_slice, write_cache)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +217,9 @@ def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
     """Top-k routed SwiGLU, dense over experts: x ``(B, S, D)``. With
     ``tenant_ids`` the deltas are tenant-stacked and routed per row.
     ``tp_group``: the experts hold this rank's intermediate columns; the
-    combine is summed over the model axis (one reduction a block)."""
+    combine is summed over the model axis (one reduction a block). The
+    router reads ``x`` itself; the experts read it through
+    ``copy_to_model``."""
     b, s, _ = x.shape
     e, topk = cfg.num_experts, cfg.experts_per_token
 
@@ -218,7 +228,8 @@ def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
     topv, topi = _route(router_logits.to(torch.float32), topk)
     gates = torch.softmax(topv, dim=-1)                        # (B,S,k)
     weight = torch.zeros((b, s, e), dtype=torch.float32, device=x.device)
-    weight.scatter_(-1, topi, gates)
+    weight = copy_to_model(weight.scatter(-1, topi, gates), tp_group)
+    x = copy_to_model(x, tp_group)
 
     if s == 1 and any(d.get(m) is not None for m in EXPERT_MATS):
         # Routed delta decode: the base experts run densely; each row's
@@ -263,25 +274,25 @@ def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
                                       dim=1).reshape(b * topk, -1)
             yd2 = routed(x2, "w2")                             # (B, k, D)
             y = y + torch.einsum("bkd,bk->bd", yd2, gates[:, 0])[:, None]
-        return psum(y, tp_group).to(compute_dtype)
+        return reduce_from_model(y, tp_group).to(compute_dtype)
 
     h1 = _expert_matmul(x, p["w1"], d.get("w1"), compute_dtype, tenant_ids)
     h3 = _expert_matmul(x, p["w3"], d.get("w3"), compute_dtype, tenant_ids)
     h = torch.nn.functional.silu(h1.to(torch.float32)).to(compute_dtype) * h3
     out = _expert_matmul(h, p["w2"], d.get("w2"), compute_dtype, tenant_ids)
     y = torch.einsum("bsed,bse->bsd", out.to(torch.float32), weight)
-    return psum(y, tp_group).to(compute_dtype)
+    return reduce_from_model(y, tp_group).to(compute_dtype)
 
 
 def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
                kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, tenant_ids=None, kernel: str = "torch",
-               tp_group=None):
+               tp_group=None, seq_group=None):
     """One Mixtral block. With ``cache_k``/``cache_v`` (``(B, S, KV,
     hd)`` views) the new K/V are written IN PLACE at ``write_pos`` per
     row and attention runs over the cache. Decode under ``kernel="cuda"``
     takes flash decode; every other attention, prefill included, is the
-    plain one, as in JAX."""
+    plain one, as in JAX. ``seq_group``: as llama's ``_layer_fwd``."""
     d = d or {}
     b, sq, _ = x.shape
 
@@ -295,10 +306,11 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
                   kernel)
         if name == "o_proj":
             # Row-parallel: heads are rank-local; the sum runs in fp32.
-            y = psum(y, tp_group, dtype=torch.float32)
+            y = reduce_from_model(y, tp_group, dtype=torch.float32)
         return y
 
-    h = rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps)
+    h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps),
+                      tp_group)
     q = attn_proj(h, "q_proj").reshape(b, sq, cfg.num_heads, cfg.head_dim)
     k = attn_proj(h, "k_proj").reshape(b, sq, cfg.num_kv_heads,
                                        cfg.head_dim)
@@ -311,6 +323,9 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
         write_cache(cache_k, write_pos, k)
         write_cache(cache_v, write_pos, v)
         k_all, v_all = cache_k, cache_v
+    elif seq_group is not None:
+        k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
+        v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
     else:
         k_all, v_all = k, v
 
@@ -332,25 +347,26 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
             tenant_ids: Optional[torch.Tensor] = None,
             compute_dtype=None, return_cache: bool = False,
             cache_max_seq: Optional[int] = None, kernel: str = "torch",
-            tp_group=None):
+            tp_group=None, seq_group=None):
     """Full-sequence Mixtral forward. tokens ``(B, S)`` right-padded;
     lengths ``(B,)`` (default S); deltas layer-stacked ``(L, ...)`` (a
     tenant axis after the layer axis with ``tenant_ids``). Returns fp32
     logits ``(B, S, V)`` and, with ``return_cache``, a bf16 KVCache of
     ``cache_max_seq`` slots holding this sequence's K/V. ``tp_group``:
     as llama's (this rank's shard, LOCAL head counts, vocab-sharded
-    logits)."""
+    logits); ``seq_group`` as llama's."""
     from .llama import init_cache
 
     compute_dtype = torch_dtype(compute_dtype or cfg.dtype)
     b, s = tokens.shape
     dev = tokens.device
-    if lengths is None:
+    start, kv_len = sequence_slice(seq_group, s, lengths, return_cache)
+    if lengths is None and seq_group is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
     deltas, embed_delta, head_delta = _split_deltas(deltas, MOE_PARTS)
     x = _embed_lookup(params, tokens, tenant_ids, embed_delta,
                       tp_group).to(compute_dtype)
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    positions = (start + torch.arange(s, device=dev))[None, :].expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                            cfg.rope_scaling)
     cache = None
@@ -361,6 +377,9 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
         kv_valid = (torch.arange(max_seq, device=dev)[None, :]
                     < lengths[:, None])
         write_pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+    elif seq_group is not None:
+        kv_valid = torch.ones((b, kv_len), dtype=torch.bool, device=dev)
+        write_pos = None
     else:
         kv_valid = positions < lengths[:, None]
         write_pos = None
@@ -370,10 +389,11 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, positions, kv_valid,
                        cos, sin, cache_k=ck, cache_v=cv, write_pos=write_pos,
                        tenant_ids=tenant_ids, kernel=kernel,
-                       tp_group=tp_group)
+                       tp_group=tp_group, seq_group=seq_group)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
-    logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
-                             head_delta=head_delta, embed_delta=embed_delta)
+    logits = _lm_head_logits(params, copy_to_model(x, tp_group), tenant_ids,
+                             compute_dtype, kernel, head_delta=head_delta,
+                             embed_delta=embed_delta)
     if not return_cache:
         return logits
     return logits, cache
@@ -465,15 +485,18 @@ def init_params(cfg: MixtralConfig,
 
 def compress_mixtral(base_params: Params, finetuned_params: Params, *,
                      compress_embeddings: bool = False,
-                     zero_sign: str = "positive"):
+                     zero_sign: str = "positive", mesh=None):
     """1-bit fine-tune delta of every attention projection, expert matrix
     and the router; extras are the fine-tuned norms and, unless
     ``compress_embeddings``, embed / head. One matrix at a time, so the
     fp32 diff never exceeds one ``(K, N)`` matrix (JAX quantizes each
     stack in one call; the values agree). ``compress_embeddings=True``:
     embed / lm_head become 1-bit deltas against the base (packed along
-    D), as llama's ``compress_model`` makes them."""
-    from ..core.compress import CompressedModel, embedding_deltas
+    D), as llama's ``compress_model`` makes them. ``mesh``: the params
+    are this rank's shards, as ``compress_model``'s; the router is whole
+    on every rank, so its scale is its own."""
+    from ..core.compress import (CompressedModel, embedding_deltas,
+                                 quantize_matrix)
 
     deltas = {}
     for name in MOE_PARTS:
@@ -488,7 +511,8 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
         base_m = base_w.reshape(-1, k, n)
         fine_m = fine_w.reshape(-1, k, n)
         for i in range(base_m.shape[0]):
-            dm = quantize_delta(base_m[i], fine_m[i], zero_sign=zero_sign)
+            dm = quantize_matrix(base_m[i], fine_m[i], zero_sign=zero_sign,
+                                 mesh=None if name == "router" else mesh)
             flat_p[i] = dm.packed
             flat_s[i] = dm.scale
         deltas[name] = BinaryDelta(packed=packed, scale=scale)
@@ -497,7 +521,7 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
               "mlp_norm": finetuned_params["layers"]["mlp_norm"]}
     if compress_embeddings:
         deltas.update(embedding_deltas(base_params, finetuned_params,
-                                       zero_sign))
+                                       zero_sign, mesh))
     else:
         extras["embed"] = finetuned_params["embed"]
         if "lm_head" in finetuned_params:

@@ -29,6 +29,7 @@ keeps its own contiguous slice (:func:`shard_tree`) and
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -50,6 +51,14 @@ EXPERT_COLUMN_PARALLEL = ("w1", "w3")
 EXPERT_ROW_PARALLEL = ("w2",)
 
 M = MODEL_AXIS
+
+
+def local_config(cfg: ModelConfig, mesh) -> ModelConfig:
+    """``cfg`` with this rank's head counts (JAX's ``cfg_local`` of a
+    ``shard_map`` body): the model functions run on a shard with them."""
+    tp = axis_size(mesh, M)
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp)
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:

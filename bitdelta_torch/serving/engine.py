@@ -56,7 +56,7 @@ from ..models.config import ModelConfig
 from ..parallel.collectives import (all_gather, axis_index, axis_size,
                                     broadcast_object)
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..parallel.sharding import ROW_PARALLEL, shard_stack
+from ..parallel.sharding import ROW_PARALLEL, local_config, shard_stack
 from ..research.quantized_base import INT4_GROUP, Int4Weight
 from ..utils.profiling import StepTimer
 from .sampling import sample_tokens
@@ -235,9 +235,7 @@ class Engine:
         if mesh is not None:
             self.stack = shard_stack(cfg, self.stack, mesh, self.device)
         # The per-rank model sees its LOCAL heads (JAX's cfg_local).
-        self._cfg_local = dataclasses.replace(
-            cfg, num_heads=cfg.num_heads // tp,
-            num_kv_heads=cfg.num_kv_heads // tp)
+        self._cfg_local = local_config(cfg, mesh)
         # This rank's slot rows of the batch.
         local = max_slots // dp
         self._r0 = axis_index(mesh, DATA_AXIS) * local

@@ -17,6 +17,20 @@ flash prefill with its blockwise backward), the counterpart of JAX's
 distills the attention, expert and router scales: its attention
 projections take the same kernel route, the experts and the router the
 plain path, as JAX leaves them to XLA).
+
+``mesh=`` runs the step over a ``(data, model)`` mesh, one process a rank
+(JAX's ``make_distill_step(mesh=)``, where GSPMD splits the batch rows
+over ``data`` and the weights over ``model``): each rank holds its
+shards of the base, the fine-tune and the compressed model
+(``parallel/sharding.py``) and takes its rows of every batch. The loss is
+each rank's sum of squared logit differences over its rows and its
+vocabulary slice, over the whole batch's ``B * S * V``, summed over the
+model axis (Megatron's ``reduce_from_model``) and then over the data
+axis. Before AdamW each scale's gradient is summed over the model axis
+when its delta is split there (a delta whole on every rank, Mixtral's
+router, already has its whole gradient on each) and over the data axis;
+every rank then takes the same step, so the scales stay equal on every
+rank. Rank 0 alone writes the checkpoint, which every rank reads.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.artifact import read_safetensors, write_safetensors
 from ..core.compress import (CompressedModel, get_scales, student_params,
@@ -35,6 +50,10 @@ from ..core.delta import BinaryDelta
 from ..device import torch_dtype
 from ..models import llama
 from ..models.config import ModelConfig
+from ..parallel.collectives import (axis_index, axis_size, psum,
+                                    reduce_from_model)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import delta_specs, local_config
 
 KERNELS = ("auto", "cuda", "torch")
 
@@ -76,15 +95,33 @@ def _adam_step(optimizer: torch.optim.Optimizer) -> int:
     return int(state["step"]) if state else 0
 
 
+def _sum_grads(scales: Dict[str, torch.Tensor], names, mesh,
+               axis: str) -> None:
+    """Sum the gradients of ``scales[names]`` over ``axis`` in place (one
+    all-reduce for them all)."""
+    names = [n for n in names if n in scales]
+    if axis_size(mesh, axis) == 1 or not names:
+        return
+    grads = [scales[n].grad if scales[n].grad is not None
+             else torch.zeros_like(scales[n]) for n in names]
+    flat = psum(torch.cat([g.reshape(-1) for g in grads]), mesh, axis)
+    for n, part in zip(names, flat.split([g.numel() for g in grads])):
+        scales[n].grad = part.reshape(scales[n].shape)
+
+
 def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
                       finetuned_params, compressed: CompressedModel,
                       scales: Dict[str, torch.Tensor],
-                      optimizer: torch.optim.Optimizer, model=None):
+                      optimizer: torch.optim.Optimizer, model=None,
+                      mesh=None):
     """The step ``batch (B, S) int64 -> loss`` (a detached 0-d fp32
     tensor). It updates ``scales`` in place through ``optimizer`` and
-    leaves this step's gradients in ``scales[name].grad``. ``model``: the
-    decoder module (default llama; ``models.mixtral`` for MoE, whose
-    student params come from ``mixtral_student_params``)."""
+    leaves this step's gradients in ``scales[name].grad`` (over a mesh,
+    summed as the step took them). ``model``: the decoder module (default
+    llama; ``models.mixtral`` for MoE, whose student params come from
+    ``mixtral_student_params``). ``mesh``: the params and ``compressed``
+    are this rank's shards, ``cfg`` the whole model's, and ``batch`` the
+    whole batch (``B`` a multiple of the data axis)."""
     model = model if model is not None else llama
     compute_dtype = torch_dtype(dcfg.compute_dtype)
     if model is llama:
@@ -93,23 +130,44 @@ def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
         s_params = model.mixtral_student_params(base_params, compressed)
     packed = {name: d.packed for name, d in compressed.deltas.items()}
     kernel = resolve_kernel(dcfg.kernel, base_params["embed"].device)
+    run_cfg, dp, sharded = cfg, 1, ()
+    if mesh is not None:
+        run_cfg = local_config(cfg, mesh)
+        dp = axis_size(mesh, DATA_AXIS)
+        specs = delta_specs(cfg, keys=packed.keys())
+        sharded = [n for n in packed if MODEL_AXIS in specs[n].packed]
 
     def step(batch: torch.Tensor) -> torch.Tensor:
         lr = cosine_lr(dcfg.lr, dcfg.num_steps, _adam_step(optimizer))
         for group in optimizer.param_groups:
             group["lr"] = lr
+        b, s = batch.shape
+        if b % dp:
+            raise ValueError(f"batch {b} must be a multiple of the data "
+                             f"axis ({dp})")
+        rows = b // dp
+        batch = batch[axis_index(mesh, DATA_AXIS) * rows:][:rows]
         with torch.no_grad():
-            teacher = model.forward(cfg, finetuned_params, batch,
+            teacher = model.forward(run_cfg, finetuned_params, batch,
                                     compute_dtype=compute_dtype,
-                                    kernel="torch")
+                                    kernel="torch", tp_group=mesh)
         deltas = {name: BinaryDelta(packed=packed[name], scale=scales[name])
                   for name in packed}
-        student = model.forward(cfg, s_params, batch, deltas=deltas,
-                                compute_dtype=compute_dtype, kernel=kernel)
+        student = model.forward(run_cfg, s_params, batch, deltas=deltas,
+                                compute_dtype=compute_dtype, kernel=kernel,
+                                tp_group=mesh)
         diff = (teacher - student).to(torch.float32)
-        loss = torch.mean(diff * diff)
+        if mesh is None:
+            loss = torch.mean(diff * diff)
+        else:
+            whole = b * s * diff.shape[-1] * axis_size(mesh, MODEL_AXIS)
+            loss = reduce_from_model((diff * diff).sum() / whole, mesh)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            _sum_grads(scales, sharded, mesh, MODEL_AXIS)
+            _sum_grads(scales, list(scales), mesh, DATA_AXIS)
+            loss = psum(loss.detach(), mesh, DATA_AXIS)
         optimizer.step()
         return loss.detach()
 
@@ -155,7 +213,7 @@ def load_distill_checkpoint(path: str, scales: Dict[str, torch.Tensor],
 def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
                    compressed: CompressedModel, batches,
                    dcfg: DistillConfig = DistillConfig(), *,
-                   progress: bool = False, model=None,
+                   mesh=None, progress: bool = False, model=None,
                    checkpoint_path: Optional[str] = None,
                    checkpoint_every: int = 0
                    ) -> Tuple[CompressedModel, List[float]]:
@@ -168,7 +226,9 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
     state is saved every ``checkpoint_every`` steps; when the file
     exists, the run resumes from it and, given the same batches, lands
     on the trajectory of a run without a break. ``model``: the decoder
-    module, as :func:`make_distill_step` takes it.
+    module and ``mesh`` the mesh, as :func:`make_distill_step` takes them
+    (over a mesh the calibrated model returned is this rank's shard, and
+    rank 0 alone writes the checkpoint).
     """
     device = base_params["embed"].device
     scales = {name: s.detach().to(torch.float32).clone().requires_grad_()
@@ -181,7 +241,9 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
             print(f"[distill] resuming from {checkpoint_path} at step "
                   f"{start}", flush=True)
     step = make_distill_step(cfg, dcfg, base_params, finetuned_params,
-                             compressed, scales, optimizer, model=model)
+                             compressed, scales, optimizer, model=model,
+                             mesh=mesh)
+    writer = mesh is None or dist.get_rank() == 0
     losses: List[float] = []
     for i, batch in enumerate(batches):
         if i < start:
@@ -190,7 +252,7 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
         losses.append(float(step(tokens)))
         if progress and i % 10 == 0:
             print(f"[distill] step {i}: loss {losses[-1]:.6f}", flush=True)
-        if (checkpoint_path and checkpoint_every
+        if (checkpoint_path and checkpoint_every and writer
                 and (i + 1) % checkpoint_every == 0):
             save_distill_checkpoint(checkpoint_path, i + 1, scales,
                                     optimizer)

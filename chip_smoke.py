@@ -153,7 +153,29 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    torch.distributed.run --nproc-per-node 2 -m bitdelta_torch.cli.serve
    --mesh 1,2`` over a tiny fp32 checkpoint written by the phase: one
    broadcast ``/generate`` over HTTP equal to ``--mesh 1,1``'s tokens,
-   then both ranks stop cleanly on SIGTERM.
+   then both ranks stop cleanly on SIGTERM;
+13. tp_train: data and tensor parallelism for distillation and the eval,
+   two spawned ranks sharing the card over gloo, every earlier world
+   freed: (a) fp32 tiny worlds on ``kernel="cuda"``, each meshed run
+   against the same run in one process: tests/test_sharding.py's distill
+   world on ``(1, 2)`` and ``(2, 1)`` (losses within rtol 1e-4, scales
+   1e-5, every rank's scales equal), a Mixtral at ``(1, 2)`` (its router
+   scale included), and ``eval_ppl(mesh=)`` on ``(2, 1)`` (the sequence
+   split) and ``(1, 2)`` (rtol 1e-5); (b) Llama-2-70B at full width cut
+   to 2 layers, bf16: compressed on each rank's shards (words equal to
+   the whole compression's shard), ``distill_scales`` for 3 steps at
+   batch 4, length 128 at tp=2 against one process at tp=1 (each step's
+   loss within 2%, every scale moved, each matrix's update against
+   tp=1's printed), each rank's shard and peak bytes, a step's wall and
+   device ms with its top kernels, and its collectives counted and timed
+   alone; (c) ``eval_ppl`` on the same world, 2 windows of 1024 + 512
+   tokens, on ``(2, 1)`` and ``(1, 2)``, each within 0.5% of one
+   process's; rows 4, 5 and 6 launch on each rank in the meshed runs of
+   (a) and of (b, c) alone; (d) ``python -m torch.distributed.run
+   --nproc-per-node 2 -m bitdelta_torch.cli.train --mesh 1,2`` over a
+   tiny fp32 HF pair written by the phase: ``diff_untrained`` and
+   ``diff`` equal to ``--mesh 1,1``'s (words bit-exact, scales within
+   1e-5), written by rank 0 alone, both ranks exiting 0.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -4226,11 +4248,9 @@ def tp_tiny(dev, meshes, launches):
     engine's ``generate`` held call by call to the single-process
     engine's (:func:`held_generate_logits`). The meshed runs' launches,
     and only theirs, are added to ``launches``."""
-    import dataclasses
-
     from bitdelta_torch.models import llama, mixtral
     from bitdelta_torch.parallel.collectives import all_gather
-    from bitdelta_torch.parallel.sharding import (gather_tree,
+    from bitdelta_torch.parallel.sharding import (gather_tree, local_config,
                                                   serving_delta_specs,
                                                   serving_param_specs,
                                                   shard_stack)
@@ -4255,8 +4275,7 @@ def tp_tiny(dev, meshes, launches):
     mesh = meshes[(1, 2)]
     reqs = [dict(prompt_ids=[5, 11, 3, 7], tenant_id=t, max_new_tokens=5)
             for t in range(2)]
-    local_cfg = dataclasses.replace(mcfg, num_heads=mcfg.num_heads // 2,
-                                    num_kv_heads=mcfg.num_kv_heads // 2)
+    local_cfg = local_config(mcfg, mesh)
     g = torch.Generator().manual_seed(17)
     tokens = torch.randint(1, mcfg.vocab_size, (4, 8), generator=g).to(dev)
     nxt = torch.randint(1, mcfg.vocab_size, (4, 1), generator=g).to(dev)
@@ -4363,6 +4382,7 @@ def tp_70b(dev, mesh, rank, smi):
     from bitdelta_torch.models.config import llama2_70b
     from bitdelta_torch.parallel import collectives
     from bitdelta_torch.parallel.mesh import MODEL_AXIS
+    from bitdelta_torch.parallel.sharding import local_config
     from bitdelta_torch.serving.engine import Engine, Request
     from bitdelta_torch.serving.stacking import (stack_nbytes,
                                                  stack_tenants,
@@ -4370,9 +4390,7 @@ def tp_70b(dev, mesh, rank, smi):
 
     cfg = dataclasses.replace(llama2_70b(), num_layers=TP_LAYERS)
     # Each rank's model sees its own heads.
-    cfg_local = dataclasses.replace(
-        cfg, num_heads=cfg.num_heads // TP_RANKS,
-        num_kv_heads=cfg.num_kv_heads // TP_RANKS)
+    cfg_local = local_config(cfg, mesh)
     report = {"rank": rank, "card": smi, "model": "llama2_70b",
               "layers": TP_LAYERS, "tp": TP_RANKS}
     t0 = time.perf_counter()
@@ -4589,15 +4607,16 @@ def _tp_rank(rank, store, out_dir):
     sys.exit(0 if out["ok"] else 1)
 
 
-def tp_ranks(smi):
-    """12a and 12b: two spawned ranks on the card (gloo). Both must finish
-    within TP_PHASE_TIMEOUT_S; a rank still running then is killed and the
-    phase fails. Returns ``(launches summed over ranks, reports)``."""
+def _spawn_ranks(target, phase):
+    """Run ``target(rank, store, out_dir)`` in TP_RANKS spawned processes
+    on the card (gloo). Each must finish within TP_PHASE_TIMEOUT_S; a rank
+    still running then is killed and the phase fails, as does one that
+    reports a failure. Returns each rank's report."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_tp_rank,
+        procs = [ctx.Process(target=target,
                              args=(r, str(Path(tmp) / "store"), tmp))
                  for r in range(TP_RANKS)]
         for p in procs:
@@ -4616,15 +4635,22 @@ def tp_ranks(smi):
             reports.append(json.loads(path.read_text()) if path.exists()
                            else {"rank": r, "ok": False})
     for r, rep in enumerate(reports):
-        print(json.dumps({"phase": "tp_rank", "rank": r,
+        print(json.dumps({"phase": f"rank of phase {phase}", "rank": r,
                           "ok": rep.get("ok"), "error": rep.get("error")}),
               flush=True)
-    require(not hung, f"phase 12 ranks {hung} still ran after "
+    require(not hung, f"phase {phase} ranks {hung} still ran after "
                       f"{TP_PHASE_TIMEOUT_S} s")
     require(all(rep.get("ok") for rep in reports)
             and all(p.exitcode == 0 for p in procs),
-            f"phase 12 ranks failed: exit codes "
+            f"phase {phase} ranks failed: exit codes "
             f"{[p.exitcode for p in procs]}")
+    return reports
+
+
+def tp_ranks(smi):
+    """12a and 12b: two spawned ranks on the card. Returns ``(launches
+    summed over ranks, reports)``."""
+    reports = _spawn_ranks(_tp_rank, "12")
     for rep in reports:
         # The meshed runs' launches alone (no single-process reference).
         for kname in TP_TINY_KERNELS:
@@ -4771,6 +4797,511 @@ def tp(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# 13. Data and tensor parallelism for distillation and the eval
+# ---------------------------------------------------------------------------
+
+TT_STEPS, TT_BATCH, TT_LEN = 3, 4, 128   # 13b's distillation, as phase 6
+TT_LOSS_RTOL = 2e-2            # 13b: each step's loss against tp=1's
+TT_PPL_RTOL = 5e-3             # 13c: each meshed PPL against one process's
+TT_PPL_TOKENS = 2048           # 13c: two windows of 1024 + 512 tokens
+TINY_LOSS_RTOL, TINY_SCALE_RTOL, TINY_PPL_RTOL = 1e-4, 1e-5, 1e-5   # 13a
+TT_COUNTERS = ("psum", "reduce_from_model", "copy_to_model")
+
+
+def _collective_calls():
+    from bitdelta_torch.parallel import collectives
+
+    return {n: getattr(collectives, n).calls for n in TT_COUNTERS}
+
+
+def _tiny_distill_world(dev):
+    """tests/test_sharding.py's world (vocab 256, hidden 128, 2 layers, 8
+    heads, 4 KV heads, fp32), drawn on the card: a fine-tune of every
+    projection by 0.02 noise."""
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                      num_layers=2, num_heads=8, num_kv_heads=4,
+                      max_seq_len=256, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(101)
+    base = llama.init_params(cfg, gen, device=dev)
+    fine = dict(base)
+    fine["layers"] = dict(base["layers"])
+    for name in llama.PROJ_NAMES:
+        w = base["layers"][name]
+        fine["layers"][name] = w + 0.02 * torch.randn(
+            w.shape, generator=gen, device=dev)
+    return cfg, base, fine
+
+
+def _tiny_mixtral_world(dev):
+    """tests/test_mixtral.py's tensor-parallel Mixtral (vocab 96, hidden
+    64, 4 experts, top 2, fp32), drawn on the card: a fine-tune of every
+    layer tensor (the router's too), the embed and the head."""
+    from bitdelta_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig(vocab_size=96, hidden_size=64,
+                                intermediate_size=128, num_layers=2,
+                                num_heads=4, num_kv_heads=2, max_seq_len=64,
+                                num_experts=4, experts_per_token=2,
+                                dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(103)
+    base = mixtral.init_params(cfg, gen, scale=0.25, device=dev)
+
+    def moved(w):
+        return w + 0.01 * torch.randn(w.shape, generator=gen, device=dev)
+
+    fine = {k: moved(v) for k, v in base.items() if k != "layers"}
+    fine["layers"] = {k: moved(v) for k, v in base["layers"].items()}
+    return cfg, base, fine
+
+
+def _shard_world(cfg, base, fine, comp, mesh):
+    """This rank's shards of a base, its fine-tune and their compressed
+    model, as the JAX tests shard them."""
+    from bitdelta_torch.parallel import sharding as psh
+
+    specs = psh.param_specs(cfg)
+    return (psh.shard_tree(base, specs, mesh),
+            psh.shard_tree(fine, specs, mesh),
+            comp._replace(
+                deltas=psh.shard_deltas(cfg, comp.deltas, mesh),
+                extras=psh.shard_tree(comp.extras, psh.extras_specs(
+                    cfg, keys=comp.extras.keys()), mesh)))
+
+
+def _held_distill(label, got, want, loss_rtol, scale_rtol=None):
+    """Losses (and, with ``scale_rtol``, scales) of a meshed distillation
+    against one process's; every rank's scales equal rank 0's, bit for
+    bit. Returns the readings."""
+    from bitdelta_torch.parallel.collectives import broadcast_object
+
+    (losses, scales), (want_losses, want_scales) = got, want
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    require(len(losses) == len(want_losses) and loss_err <= loss_rtol,
+            f"{label}: losses {losses} against one process's "
+            f"{want_losses}")
+    scale_err = max(((scales[n] - s).abs() / s.abs()).max().item()
+                    for n, s in want_scales.items())
+    require(scale_rtol is None or scale_err <= scale_rtol,
+            f"{label}: scales {scale_err} off one process's")
+    flat = torch.cat([scales[n].reshape(-1) for n in sorted(scales)]).cpu()
+    require(torch.equal(broadcast_object(flat), flat),
+            f"{label}: the ranks' scales differ")
+    return {"losses": losses, "single_process": list(want_losses),
+            "loss_rel_err": loss_err, "scale_rel_err": scale_err}
+
+
+def train_tiny(dev, meshes, launches):
+    """13a on one rank: fp32 tiny worlds, every meshed run against the
+    same run in one process (each rank takes its own reference): the
+    distill world on (1, 2) and (2, 1), the Mixtral at (1, 2), and the
+    sequence-sharded eval on (2, 1) and (1, 2), all on ``kernel="cuda"``.
+    The meshed runs' launches, and only theirs, go to ``launches``."""
+    from bitdelta_torch.core.compress import compress_model, student_params
+    from bitdelta_torch.eval.ppl import eval_ppl
+    from bitdelta_torch.models import mixtral
+    from bitdelta_torch.parallel import sharding as psh
+    from bitdelta_torch.train.data import synthetic_batches
+    from bitdelta_torch.train.distill import DistillConfig, distill_scales
+
+    def scales_of(comp):
+        return {n: d.scale for n, d in comp.deltas.items()}
+
+    out = {}
+    cfg, base, fine = _tiny_distill_world(dev)
+    comp = compress_model(base, fine)
+    batches = synthetic_batches(cfg.vocab_size, 3, 4, 16, seed=1)
+    dcfg = DistillConfig(lr=1e-3, num_steps=3, compute_dtype="float32",
+                         kernel="cuda")
+    ref, ref_losses = distill_scales(cfg, base, fine, comp, batches, dcfg)
+    for shape, mesh in meshes.items():
+        b, f, c = _shard_world(cfg, base, fine, comp, mesh)
+        with counted(launches):
+            got, losses = distill_scales(cfg, b, f, c, batches, dcfg,
+                                         mesh=mesh)
+        out[f"distill_{shape[0]}x{shape[1]}"] = _held_distill(
+            f"13a distill at {shape}", (losses, scales_of(got)),
+            (ref_losses, scales_of(ref)), TINY_LOSS_RTOL, TINY_SCALE_RTOL)
+
+    mcfg, mbase, mfine = _tiny_mixtral_world(dev)
+    mcomp = mixtral.compress_mixtral(mbase, mfine)
+    mbatches = synthetic_batches(mcfg.vocab_size, 2, 2, 16, seed=3)
+    mdcfg = dcfg._replace(num_steps=2)
+    ref, ref_losses = distill_scales(mcfg, mbase, mfine, mcomp, mbatches,
+                                     mdcfg, model=mixtral)
+    mesh = meshes[(1, 2)]
+    b, f, c = _shard_world(mcfg, mbase, mfine, mcomp, mesh)
+    with counted(launches):
+        got, losses = distill_scales(mcfg, b, f, c, mbatches, mdcfg,
+                                     mesh=mesh, model=mixtral)
+    out["mixtral_1x2"] = _held_distill(
+        "13a Mixtral at (1, 2)", (losses, scales_of(got)),
+        (ref_losses, scales_of(ref)), TINY_LOSS_RTOL, TINY_SCALE_RTOL)
+    out["mixtral_1x2"]["router_scales"] = got.deltas["router"].scale.tolist()
+
+    tokens = torch.randint(0, cfg.vocab_size, (512,),
+                           generator=torch.Generator().manual_seed(7))
+    sp = student_params(base, comp)
+    kw = dict(context_size=96, window_size=32, compute_dtype=torch.float32,
+              kernel="cuda")
+    want = eval_ppl(cfg, sp, tokens.numpy(), deltas=comp.deltas, **kw)
+    for shape, mesh in meshes.items():
+        with counted(launches):
+            got = eval_ppl(cfg, psh.shard_model(cfg, sp, mesh),
+                           tokens.numpy(), deltas=psh.shard_deltas(
+                               cfg, comp.deltas, mesh), mesh=mesh, **kw)
+        err = abs(got - want) / want
+        require(err <= TINY_PPL_RTOL,
+                f"13a eval_ppl at {shape}: {got} against one process's "
+                f"{want}")
+        out[f"ppl_{shape[0]}x{shape[1]}"] = {"ppl": got,
+                                             "single_process": want,
+                                             "rel_err": err}
+    return out
+
+
+def _update_err(got, want, before):
+    """Each matrix's scale update (final - initial) at tp=2 against tp=1's:
+    the largest difference over the largest tp=1 update."""
+    return {n: ((got[n] - w).abs().max()
+                / (w - before[n]).abs().max()).item()
+            for n, w in want.items()}
+
+
+def train_70b(dev, meshes, rank, smi):
+    """13b and 13c on one rank: Llama-2-70B at full width cut to 2 layers,
+    bf16, one seeded fine-tune, built on the card from one seed on each
+    rank. Rank 0 distills it alone (tp=1) and evaluates it alone; then
+    both ranks evaluate it with the sequence split, (2, 1); then each
+    keeps its shards alone, compresses on them (held against the shards
+    of the whole compression), distills at tp=2 and evaluates at (1, 2).
+    Returns ``(report, the meshed runs' launches)``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from bitdelta_torch.core.compress import compress_model, student_params
+    from bitdelta_torch.eval.ppl import eval_ppl
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import llama2_70b
+    from bitdelta_torch.parallel import collectives
+    from bitdelta_torch.train.data import synthetic_batches
+    from bitdelta_torch.train.distill import (DistillConfig, distill_scales,
+                                              make_distill_step,
+                                              make_optimizer)
+
+    cfg = dataclasses.replace(llama2_70b(), num_layers=TP_LAYERS)
+    report = {"rank": rank, "card": smi, "model": "llama2_70b",
+              "layers": TP_LAYERS, "batch": TT_BATCH, "length": TT_LEN,
+              "steps": TT_STEPS}
+    launches = {k: 0 for k in KERNELS}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(91)
+    base = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    fine = synthetic_finetune(cfg, base, gen)
+    comp = compress_model(base, fine)
+    torch.cuda.synchronize()
+    report["build_s"] = time.perf_counter() - t0
+    batches = synthetic_batches(cfg.vocab_size, TT_STEPS, TT_BATCH, TT_LEN,
+                                seed=0)
+    dcfg = DistillConfig(lr=TRAIN_LR, num_steps=TT_STEPS,
+                         compute_dtype="bfloat16", kernel="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TT_PPL_TOKENS,),
+                           generator=torch.Generator().manual_seed(17))
+    ppl_kw = dict(context_size=1024, window_size=512, kernel="cuda")
+    initial = {n: d.scale.clone() for n, d in comp.deltas.items()}
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        out, losses = distill_scales(cfg, base, fine, comp, batches, dcfg)
+        ref = {"losses": losses,
+               "scales": {n: d.scale.cpu() for n, d in out.deltas.items()},
+               "distill_s": time.perf_counter() - t0,
+               "ppl": eval_ppl(cfg, student_params(base, comp),
+                               tokens.numpy(), deltas=comp.deltas, **ppl_kw)}
+        del out
+    ref = collectives.broadcast_object(ref)
+    report["single_process"] = {k: ref[k] for k in ("losses", "distill_s",
+                                                    "ppl")}
+
+    # 13c, sequence split: at (2, 1) a rank's shard is the whole model.
+    mesh = meshes[(2, 1)]
+    t0 = time.perf_counter()
+    with counted(launches):
+        ppl = eval_ppl(cfg, student_params(base, comp), tokens.numpy(),
+                       deltas=comp.deltas, mesh=mesh, **ppl_kw)
+    report["ppl_2x1"] = {"ppl": ppl, "rel_err": abs(ppl - ref["ppl"])
+                         / ref["ppl"], "s": time.perf_counter() - t0}
+    require(report["ppl_2x1"]["rel_err"] <= TT_PPL_RTOL,
+            f"13c eval_ppl at (2, 1): {report['ppl_2x1']} against one "
+            f"process's {ref['ppl']}")
+
+    # 13b: each rank keeps its shards alone; the deltas are compressed on
+    # them, as the train CLI compresses.
+    mesh = meshes[(1, 2)]
+    b, f, c = _shard_world(cfg, base, fine, comp, mesh)
+    on_shards = compress_model(b, f, mesh=mesh)
+    for name, d in c.deltas.items():
+        mine = on_shards.deltas[name]
+        require(torch.equal(mine.packed, d.packed),
+                f"13b {name}: the words packed on a shard differ from the "
+                f"whole compression's shard")
+        require(((mine.scale - d.scale).abs() <= 1e-5 * d.scale.abs())
+                .all().item(), f"13b {name}: the scale over the shards "
+                               f"differs from the whole matrix's")
+    c = c._replace(deltas=on_shards.deltas)
+    del base, fine, comp, on_shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    report["shard_bytes"] = sum(t.numel() * t.element_size()
+                                for t in _tree_leaves((b, f, c)))
+    report["resident_bytes"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with counted(launches):
+        got, losses = distill_scales(cfg, b, f, c, batches, dcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    report["distill_s"] = time.perf_counter() - t0
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    scales = {n: d.scale for n, d in got.deltas.items()}
+    report["distill"] = _held_distill(
+        "13b Llama-2-70B at tp=2", (losses, scales),
+        (ref["losses"], {n: s.to(dev) for n, s in ref["scales"].items()}),
+        TT_LOSS_RTOL)
+    for name, s in scales.items():
+        require(bool((s != initial[name]).all()),
+                f"13b {name}: some layer's scale did not move")
+    report["update_rel_err"] = _update_err(
+        scales, {n: s.to(dev) for n, s in ref["scales"].items()}, initial)
+
+    # One more step on a fresh optimizer: wall, device time and top
+    # kernels (both ranks trace their own process; they share the card),
+    # and the collectives it calls, each timed alone at its shape.
+    fresh = {n: s.clone().requires_grad_() for n, s in scales.items()}
+    step = make_distill_step(cfg, dcfg, b, f, c, fresh,
+                             make_optimizer(fresh, dcfg), mesh=mesh)
+    batch = torch.from_numpy(batches[0]).long().to(dev)
+    step(batch)
+    torch.cuda.synchronize()
+    calls0 = _collective_calls()
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    report["step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    report["collectives_per_step"] = {
+        n: v - calls0[n] for n, v in _collective_calls().items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        step(batch)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    rows = sorted(((getattr(e, "device_time_total", 0.0), e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    rows = [r for r in rows if r[0] > 0]
+    report["step_device_ms"] = sum(r[0] for r in rows) / 1e3
+    report["step_top"] = [{"kernel": k[:80], "ms": us / 1e3, "count": n}
+                          for us, n, k in rows[:8]]
+    # Every model-axis sum of the step moves one (rows, S, hidden) bf16
+    # activation: the residual after o_proj / down_proj and the embedding
+    # forward, the norms' inputs to the column-parallel layers backward.
+    x = torch.ones((TT_BATCH, TT_LEN, cfg.hidden_size), dtype=torch.bfloat16,
+                   device=dev)
+    times = []
+    for _ in range(10):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collectives.psum(x, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    report["allreduce_ms"] = statistics.median(times[2:])
+    # The step's other two sums (the loss over the model axis, the scale
+    # gradients over it) move a few bytes each.
+    per_step = report["collectives_per_step"]
+    report["activation_collectives_per_step"] = (
+        per_step["reduce_from_model"] + per_step["copy_to_model"]
+        + per_step["psum"] - 2)
+    report["collective_ms_per_step"] = (
+        report["allreduce_ms"] * report["activation_collectives_per_step"])
+    del step, fresh
+
+    # 13c, tensor-parallel: the same world's shards at (1, 2).
+    sp = student_params(b, c)
+    t0 = time.perf_counter()
+    with counted(launches):
+        ppl = eval_ppl(cfg, sp, tokens.numpy(), deltas=c.deltas, mesh=mesh,
+                       **ppl_kw)
+    report["ppl_1x2"] = {"ppl": ppl, "rel_err": abs(ppl - ref["ppl"])
+                         / ref["ppl"], "s": time.perf_counter() - t0}
+    require(report["ppl_1x2"]["rel_err"] <= TT_PPL_RTOL,
+            f"13c eval_ppl at (1, 2): {report['ppl_1x2']} against one "
+            f"process's {ref['ppl']}")
+    del b, f, c, sp, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def _train_rank(rank, store, out_dir):
+    """One rank of phase 13 (a spawned process): 13a, then 13b and 13c.
+    Writes its report, launches and any error to
+    ``out_dir/rank{rank}.json``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from bitdelta_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank}
+    try:
+        pmesh.initialize_multihost(
+            f"file://{store}", TP_RANKS, rank, device="cuda",
+            timeout=datetime.timedelta(seconds=TP_COLLECTIVE_TIMEOUT_S))
+        out["backend"] = dist.get_backend()
+        dev = torch.device("cuda")
+        meshes = {s: pmesh.make_mesh(s) for s in ((1, 2), (2, 1))}
+        smi = smi_line()
+        t0 = time.perf_counter()
+        out["tiny_launches"] = {k: 0 for k in KERNELS}
+        out["tiny"] = train_tiny(dev, meshes, out["tiny_launches"])
+        out["tiny_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["70b"], out["70b_launches"] = train_70b(dev, meshes, rank, smi)
+        out["70b_s"] = time.perf_counter() - t0
+        out["ok"] = True
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:                  # reported to the parent, which fails
+        out["ok"] = False
+        out["error"] = traceback.format_exc()[-4000:]
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    sys.stdout.flush()
+    sys.exit(0 if out["ok"] else 1)
+
+
+def train_cli_mesh(dev):
+    """13d: ``cli.train --mesh 1,2`` under ``torch.distributed.run`` on a
+    tiny fp32 HF pair written here, against ``--mesh 1,1``: the artifacts'
+    words bit-exact and scales within 1e-5, written by rank 0 alone, both
+    ranks exiting 0."""
+    import dataclasses
+    import os
+
+    from bitdelta_torch.core.artifact import read_safetensors
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.utils import compiled_check as cc
+
+    cfg = dataclasses.replace(cc.tp_check_config(), max_seq_len=256)
+    gen = torch.Generator(device=dev).manual_seed(83)
+    base = llama.init_params(cfg, gen, scale=0.25, device=dev)
+    fine = synthetic_finetune(cfg, base, gen, scale=0.05)
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo), HF_HUB_OFFLINE="1")
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_hf_checkpoint(cfg, base, Path(tmp) / "base", shards=1)
+        write_hf_checkpoint(cfg, fine, Path(tmp) / "fine", shards=1)
+        common = ["-m", "bitdelta_torch.cli.train", "--base_model",
+                  str(Path(tmp) / "base"), "--finetuned_model",
+                  str(Path(tmp) / "fine"), "--num_steps", "3",
+                  "--batch_size", "2", "--max_length", "16",
+                  "--dataset_name", "synthetic", "--dtype", "float32",
+                  "--kernel", "cuda", "--device", dev.type]
+        runs = {"1x1": [sys.executable, *common, "--mesh", "1,1"],
+                "1x2": [sys.executable, "-m", "torch.distributed.run",
+                        "--nproc-per-node", "2", "--master-addr",
+                        "127.0.0.1", "--master-port", str(free_port()),
+                        *common, "--mesh", "1,2"]}
+        # Both runs at once (three processes on the card): most of each
+        # run is its processes starting.
+        t0 = time.perf_counter()
+        procs = {label: subprocess.Popen(
+            cmd + ["--save_dir", str(Path(tmp) / label)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for label, cmd in runs.items()}
+        outs = {}
+        try:
+            for label, proc in procs.items():
+                outs[label] = proc.communicate(timeout=600)
+                report[f"mesh_{label}_s"] = time.perf_counter() - t0
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        saved = {}
+        for label, proc in procs.items():
+            out, err = outs[label]
+            out_dir = Path(tmp) / label
+            require(proc.returncode == 0,
+                    f"train --mesh {label} exited {proc.returncode}: "
+                    + out[-2000:] + err[-2000:])
+            report[f"mesh_{label}_saved_lines"] = out.count("saved ")
+            require(report[f"mesh_{label}_saved_lines"] == 1,
+                    f"train --mesh {label}: not one rank wrote")
+            require(sorted(os.listdir(out_dir)) == [
+                "diff.safetensors", "diff_untrained.safetensors"],
+                f"train --mesh {label} wrote {os.listdir(out_dir)}")
+            saved[label] = {name: read_safetensors(str(out_dir / name))[0]
+                            for name in os.listdir(out_dir)}
+    worst = 0.0
+    for name, want in saved["1x1"].items():
+        got = saved["1x2"][name]
+        require(set(got) == set(want), f"13d {name}: other tensors")
+        for key, w in want.items():
+            if key.endswith(".scale"):
+                err = float(abs(got[key] - w).max() / abs(w).max())
+                worst = max(worst, err)
+                require(err <= 1e-5, f"13d {name} {key}: {err}")
+            else:
+                require((got[key] == w).all(), f"13d {name} {key} differs")
+    report["scale_rel_err"] = worst
+    return report
+
+
+def tp_train(dev, smi):
+    """Phase 13: 13a-c on two spawned ranks, then 13d."""
+    t_phase = time.perf_counter()
+    reports = _spawn_ranks(_train_rank, "13")
+    for rep in reports:
+        for part, kernels in (("tiny_launches", PATHS["train"]),
+                              ("70b_launches", PATHS["train"])):
+            for kname in kernels:
+                require(rep[part].get(kname, 0) > 0,
+                        f"13 rank {rep['rank']} {part}: {kname} never "
+                        f"launched")
+    launches = {k: sum(rep["tiny_launches"][k] + rep["70b_launches"][k]
+                       for rep in reports) for k in KERNELS}
+    for rep in reports:
+        emit({"phase": "tp_train_tiny", "rank": rep["rank"],
+              "backend": rep["backend"], "seconds": rep["tiny_s"],
+              **rep["tiny"], "launches": rep["tiny_launches"]})
+        emit({"phase": "tp_train_70b", "seconds": rep["70b_s"],
+              **rep["70b"], "launches": rep["70b_launches"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_report = train_cli_mesh(dev)
+    emit({"phase": "tp_train_cli", "card": smi,
+          "seconds": time.perf_counter() - t0, **cli_report})
+    emit({"phase": "tp_train", "card": smi,
+          "seconds": time.perf_counter() - t_phase,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def _timing_keys(res):
     return {key: res[key] for key in ("max_abs_err", "ms", "kernel_ms",
@@ -4847,6 +5378,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     tp_counts = tp(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_train_counts = tp_train(dev, smi)
     kernels = []
     for kname, (_, source, replaces) in KERNELS.items():
         res = checks[kname]
@@ -4859,7 +5393,8 @@ def main(argv=None):
                    "fused_canonical": fused_canon_counts[kname],
                    "cli": cli_counts[kname],
                    "rest": rest_counts[kname],
-                   "tp": tp_counts[kname]}
+                   "tp": tp_counts[kname],
+                   "tp_train": tp_train_counts[kname]}
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -329,19 +329,67 @@ def test_cli_runs_without_safetensors_or_transformers(hf_pair, trained,
 @pytest.mark.parametrize("cli", ("train", "serve", "eval_ppl"))
 def test_cli_mesh_other_than_one_card_exits_naming_a6(hf_pair, tmp_path,
                                                       cli):
+    """``--mesh 2,1`` in one process: train and serve take a mesh, but one
+    process is a world of one rank, so they exit naming the launcher that
+    starts one process a rank; eval_ppl takes the flag and runs on one
+    device, as JAX's CLI does."""
     import importlib
 
     main = importlib.import_module(f"bitdelta_torch.cli.{cli}").main
-    base, fine, _ = hf_pair
+    base, fine, root = hf_pair
     argv = {"train": ["--base_model", base, "--finetuned_model", fine,
                       "--save_dir", str(tmp_path)],
             "serve": ["--base_model", base, "--delta", "a=b"],
-            "eval_ppl": ["--base_model", base]}[cli]
-    # Distillation and the eval stay on one device (ROADMAP A7); serve
-    # takes a mesh, but one process is a world of one rank.
-    want = "torch.distributed.run" if cli == "serve" else "A7"
-    with pytest.raises(SystemExit, match=want):
-        main(argv + ["--mesh", "2,1", "--device", "cpu"])
+            "eval_ppl": ["--base_model", base, "--text_file",
+                         os.path.join(root, "corpus.txt"), "--save_dir",
+                         str(tmp_path), "--context_size", "64",
+                         "--window_size", "32", "--dtype", "float32"]}[cli]
+    argv += ["--mesh", "2,1", "--device", "cpu"]
+    if cli == "eval_ppl":
+        ppl = main(argv)
+        assert np.isfinite(ppl)
+        assert float(open(tmp_path / "ppl.txt").read()) == ppl
+        return
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
+        main(argv)
+
+
+def test_train_cli_mesh_under_torch_distributed_run(hf_pair, trained,
+                                                    tmp_path):
+    """``train --mesh 1,2`` as two processes under ``python -m
+    torch.distributed.run`` on the CPU: both ranks exit 0, rank 0 alone
+    writes, and its artifacts are the single-process run's (words and
+    extras bit-exact, scales within 1e-5, losses within DISTILL_RTOL)."""
+    import subprocess
+
+    from tests.torch_mesh_worker import free_port
+
+    base, fine, _ = hf_pair
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1",
+               HF_HUB_OFFLINE="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "127.0.0.1", "--master-port",
+         str(free_port()), "-m", "bitdelta_torch.cli.train", "--base_model",
+         base, "--finetuned_model", fine, *TRAIN_ARGS, *PORT, "--mesh",
+         "1,2", "--save_dir", str(tmp_path), "--debug"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.count("saved ") == 1
+    assert sorted(os.listdir(tmp_path)) == [
+        "corr_stddev.csv", "diff.safetensors", "diff_untrained.safetensors",
+        "train_loss.json"]
+    pdir = trained[0]
+    _assert_artifacts(os.path.join(tmp_path, "diff_untrained.safetensors"),
+                      os.path.join(pdir, "diff_untrained.safetensors"),
+                      SCALE_RTOL)
+    _assert_artifacts(os.path.join(tmp_path, "diff.safetensors"),
+                      os.path.join(pdir, "diff.safetensors"), 1e-5)
+    np.testing.assert_allclose(
+        json.load(open(tmp_path / "train_loss.json")),
+        json.load(open(os.path.join(pdir, "train_loss.json"))),
+        rtol=DISTILL_RTOL)
 
 
 def test_cli_device_cuda_without_a_card_raises(hf_pair, tmp_path):

@@ -1,16 +1,18 @@
 """One rank of a CPU mesh for the port's tensor/data-parallel tests.
 
-Run by ``tests/test_torch_parallel.py`` and
-``tests/test_torch_serving_mesh.py`` (never collected by pytest)::
+Run by ``tests/test_torch_parallel.py``,
+``tests/test_torch_serving_mesh.py`` and ``tests/test_torch_train_mesh.py``
+(never collected by pytest)::
 
-    python tests/torch_mesh_worker.py RANK WORLD STORE JOB OUT
+    python tests/torch_mesh_worker.py RANK WORLD INIT JOB OUT
 
 It imports ``bitdelta_torch`` and torch only. ``JOB`` is a ``torch.save``
 file the test wrote: ``{"worlds": {name: {...}}, "cases": [...]}``.
-The rank joins a gloo world through the file store ``STORE``, runs every
-case in order on a ``(dp, tp)`` mesh of the whole world, and writes
-``{case id: result}`` to ``OUT`` (rank 0's engine tokens; every rank's
-host state for a replay). Cases:
+The rank joins a gloo world through ``INIT`` (a ``file://`` store or a
+``tcp://`` coordinator address), runs every case in order on a ``(dp,
+tp)`` mesh of the first ``dp * tp`` ranks, and writes ``{case id:
+result}`` to ``OUT`` (rank 0's engine tokens; every rank's host state for
+a replay; None on a rank outside the case's mesh). Cases:
 
 * ``engine``: greedy tokens of ``Engine(mesh=)`` on a stack (rank 0
   generates, the other ranks follow);
@@ -22,12 +24,21 @@ host state for a replay). Cases:
   reports its host state;
 * ``roundtrip``: a serving stack in the pair layout sharded
   (``shard_stack``) and gathered back (``gather_tree``): True when every
-  leaf comes back equal.
+  leaf comes back equal;
+* ``distill``: ``distill_scales(mesh=)`` on the world's shards: the
+  losses and the scales, and with ``"grads"`` the first step's summed
+  scale gradients (``make_distill_step(mesh=)``);
+* ``compress``: ``compress_model`` / ``compress_mixtral`` on the shards,
+  gathered whole;
+* ``ppl``: ``eval_ppl(mesh=)``; ``seqfwd``: one forward with the
+  sequence split over the data axis, the logits gathered whole;
+* ``collectives``: a column-parallel and a row-parallel matmul through
+  ``copy_to_model`` / ``reduce_from_model``, its output, the gradients
+  of its input and weights gathered whole, and the calls counted.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import os
 import subprocess
@@ -39,10 +50,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+from bitdelta_torch.core.compress import get_scales  # noqa: E402
+from bitdelta_torch.eval.ppl import eval_ppl  # noqa: E402
 from bitdelta_torch.models import llama, mixtral  # noqa: E402
+from bitdelta_torch.parallel import collectives as coll  # noqa: E402
 from bitdelta_torch.parallel import mesh as pmesh  # noqa: E402
 from bitdelta_torch.parallel import sharding as psh  # noqa: E402
 from bitdelta_torch.parallel.collectives import all_gather  # noqa: E402
+from bitdelta_torch.train import distill  # noqa: E402
 from bitdelta_torch.serving.engine import Engine, Request  # noqa: E402
 from bitdelta_torch.serving.stacking import to_pair_layout  # noqa: E402
 
@@ -84,9 +99,7 @@ def run_logits(world, case, mesh):
     """Model-level forward (prefill with a cache) and decode step."""
     cfg = world["cfg"]
     model = MODELS[world.get("model", "llama")]
-    dp, tp = case["mesh"]
-    local = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                                num_kv_heads=cfg.num_kv_heads // tp)
+    local = psh.local_config(cfg, mesh)
     params = psh.shard_model(cfg, world["params"], mesh)
     deltas = psh.shard_deltas(cfg, world["deltas"], mesh)
     tokens = psh.shard_tensor(case["tokens"], psh.batch_spec(), mesh)
@@ -172,22 +185,145 @@ def run_roundtrip(world, case, mesh):
     return len(pairs) > 0 and all(torch.equal(a, b) for a, b in pairs)
 
 
+def _sharded_compressed(cfg, comp, mesh):
+    return comp._replace(
+        deltas=psh.shard_deltas(cfg, comp.deltas, mesh),
+        extras=psh.shard_tree(comp.extras, psh.extras_specs(
+            cfg, keys=comp.extras.keys()), mesh))
+
+
+def run_distill(world, case, mesh):
+    """Distillation over the mesh from the world's whole base, fine-tune
+    and compressed model, each sharded here as JAX's tests shard them."""
+    cfg = world["cfg"]
+    model = MODELS[world.get("model", "llama")]
+    base = psh.shard_model(cfg, world["base"], mesh)
+    fine = psh.shard_model(cfg, world["fine"], mesh)
+    comp = _sharded_compressed(cfg, world["comp"], mesh)
+    dcfg = distill.DistillConfig(lr=1e-3, num_steps=len(world["batches"]),
+                                 compute_dtype="float32",
+                                 kernel=case["kernel"])
+    if not case.get("grads"):
+        out, losses = distill.distill_scales(cfg, base, fine, comp,
+                                             world["batches"], dcfg,
+                                             mesh=mesh, model=model)
+        return {"losses": losses, "scales": get_scales(out)}
+    scales = {n: s.detach().clone().requires_grad_()
+              for n, s in get_scales(comp).items()}
+    opt = distill.make_optimizer(scales, dcfg)
+    step = distill.make_distill_step(cfg, dcfg, base, fine, comp, scales,
+                                     opt, model=model, mesh=mesh)
+    losses, grads = [], None
+    for batch in world["batches"]:
+        losses.append(float(step(torch.as_tensor(batch).long())))
+        if grads is None:
+            grads = {n: s.grad.clone() for n, s in scales.items()}
+    return {"losses": losses, "grads": grads,
+            "scales": {n: s.detach() for n, s in scales.items()}}
+
+
+def run_compress(world, case, mesh):
+    cfg = world["cfg"]
+    base = psh.shard_model(cfg, world["base"], mesh)
+    fine = psh.shard_model(cfg, world["fine"], mesh)
+    kw = dict(compress_embeddings=case.get("compress_embeddings", False),
+              mesh=mesh)
+    if world.get("model") == "mixtral":
+        comp = mixtral.compress_mixtral(base, fine, **kw)
+    else:
+        from bitdelta_torch.core.compress import compress_model
+
+        comp = compress_model(base, fine, **kw)
+    return comp._replace(
+        deltas=psh.gather_tree(comp.deltas, psh.delta_specs(
+            cfg, keys=comp.deltas.keys()), mesh),
+        extras=psh.gather_tree(comp.extras, psh.extras_specs(
+            cfg, keys=comp.extras.keys()), mesh))
+
+
+def run_ppl(world, case, mesh):
+    cfg = world["cfg"]
+    deltas = world.get("deltas")
+    if deltas is not None:
+        deltas = psh.shard_deltas(cfg, deltas, mesh)
+    return eval_ppl(cfg, psh.shard_model(cfg, world["params"], mesh),
+                    case["tokens"], context_size=case["context_size"],
+                    window_size=case["window_size"], deltas=deltas,
+                    compute_dtype=torch.float32, kernel=case["kernel"],
+                    model=MODELS[world.get("model", "llama")], mesh=mesh)
+
+
+def run_seqfwd(world, case, mesh):
+    cfg = world["cfg"]
+    tokens = case["tokens"]
+    chunk = tokens.shape[1] // coll.axis_size(mesh, pmesh.DATA_AXIS)
+    t0 = coll.axis_index(mesh, pmesh.DATA_AXIS) * chunk
+    with torch.no_grad():
+        logits = llama.forward(
+            psh.local_config(cfg, mesh),
+            psh.shard_model(cfg, world["params"], mesh),
+            tokens[:, t0:t0 + chunk],
+            deltas=psh.shard_deltas(cfg, world["deltas"], mesh),
+            compute_dtype=torch.float32, kernel=case["kernel"],
+            tp_group=mesh, seq_group=mesh)
+    logits = all_gather(logits, mesh, pmesh.MODEL_AXIS, dim=-1)
+    return all_gather(logits, mesh, pmesh.DATA_AXIS, dim=1)
+
+
+def run_collectives(world, case, mesh):
+    """``y = reduce(tanh(copy(x) @ a_local) @ b_local)``, the loss
+    ``sum(y^2)`` replicated on the model axis."""
+    tp = coll.axis_size(mesh, pmesh.MODEL_AXIS)
+    m = coll.axis_index(mesh, pmesh.MODEL_AXIS)
+    x = world["x"].clone().requires_grad_()
+    n = world["a"].shape[1] // tp
+    a = world["a"][:, m * n:(m + 1) * n].clone().requires_grad_()
+    b = world["b"][m * n:(m + 1) * n].clone().requires_grad_()
+    calls = (coll.copy_to_model.calls, coll.reduce_from_model.calls,
+             coll.psum.calls)
+    y = coll.reduce_from_model(
+        torch.tanh(coll.copy_to_model(x, mesh) @ a) @ b, mesh)
+    (y * y).sum().backward()
+    with torch.no_grad():
+        y_nograd = coll.reduce_from_model(
+            torch.tanh(coll.copy_to_model(x, mesh) @ a) @ b, mesh)
+    return {"y": y.detach(), "y_nograd": y_nograd, "dx": x.grad,
+            "da": all_gather(a.grad, mesh, pmesh.MODEL_AXIS, 1),
+            "db": all_gather(b.grad, mesh, pmesh.MODEL_AXIS, 0),
+            "calls": [after - before for after, before in zip(
+                (coll.copy_to_model.calls, coll.reduce_from_model.calls,
+                 coll.psum.calls), calls)]}
+
+
 RUN = {"engine": run_engine, "refuse": run_refuse, "logits": run_logits,
-       "replay": run_replay, "roundtrip": run_roundtrip}
+       "replay": run_replay, "roundtrip": run_roundtrip,
+       "distill": run_distill, "compress": run_compress, "ppl": run_ppl,
+       "seqfwd": run_seqfwd, "collectives": run_collectives}
 
 
-def spawn_world(job, world_size, tmp_path, timeout=240):
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(job, world_size, tmp_path, timeout=240, init=None):
     """Run ``job`` on ``world_size`` ranks (this file, one process each,
-    joined through a file store under ``tmp_path``). Returns each rank's
-    results; raises with the ranks' output if one fails or any is still
-    running after ``timeout`` seconds (all are killed then)."""
+    joined through a file store under ``tmp_path``, or through ``init``, a
+    ``tcp://`` coordinator address). Returns each rank's results; raises
+    with the ranks' output if one fails or any is still running after
+    ``timeout`` seconds (all are killed then)."""
     tmp_path = Path(tmp_path)
     job_path = tmp_path / "job.pt"
     torch.save(job, job_path)
+    init = init or f"file://{tmp_path / 'store'}"
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(world_size),
-         str(tmp_path / "store"), str(job_path), str(tmp_path / f"out{r}.pt")],
+        [sys.executable, __file__, str(r), str(world_size), init,
+         str(job_path), str(tmp_path / f"out{r}.pt")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world_size)]
     logs = []
@@ -207,10 +343,9 @@ def spawn_world(job, world_size, tmp_path, timeout=240):
             for r in range(world_size)]
 
 
-def main(rank, world_size, store, job_path, out_path):
+def main(rank, world_size, init, job_path, out_path):
     torch.set_num_threads(1)
-    pmesh.initialize_multihost(f"file://{store}", world_size, rank,
-                               device="cpu",
+    pmesh.initialize_multihost(init, world_size, rank, device="cpu",
                                timeout=datetime.timedelta(seconds=60))
     job = torch.load(job_path, weights_only=False)
     meshes = {}
@@ -219,6 +354,9 @@ def main(rank, world_size, store, job_path, out_path):
         shape = tuple(case["mesh"])
         if shape not in meshes:
             meshes[shape] = pmesh.make_mesh(shape, device="cpu")
+        if meshes[shape].get_coordinate() is None:
+            results[case["id"]] = None     # this rank is outside the mesh
+            continue
         results[case["id"]] = RUN[case["kind"]](
             job["worlds"][case["world"]], case, meshes[shape])
     dist.barrier()
