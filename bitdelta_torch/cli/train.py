@@ -42,25 +42,18 @@ from ..train.distill import DistillConfig, distill_scales
 from ..utils.tokenizer import get_tokenizer
 
 
-def _to_host(tree):
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_to_host(v) for v in tree))
-    return tree.cpu()
-
-
 def _whole(comp, cfg, fcfg, mesh):
-    """A compressed model's shards gathered whole on every rank."""
+    """A compressed model's shards gathered whole to every rank's host,
+    where the base of ``--save_full_model`` is."""
     from ..parallel.sharding import delta_specs, extras_specs, gather_tree
 
     if mesh is None:
         return comp
     return comp._replace(
         deltas=gather_tree(comp.deltas, delta_specs(
-            cfg, keys=comp.deltas.keys()), mesh),
+            cfg, keys=comp.deltas.keys()), mesh, "cpu"),
         extras=gather_tree(comp.extras, extras_specs(
-            fcfg, keys=comp.extras.keys()), mesh))
+            fcfg, keys=comp.extras.keys()), mesh, "cpu"))
 
 
 def main(argv=None):
@@ -177,8 +170,6 @@ def main(argv=None):
 
     if args.save_full_model:
         from ..core.export import save_full_model
-        if mesh is not None:
-            whole = _to_host(whole)
         save_full_model(cfg, fuse_compressed(host_base, whole),
                         os.path.join(args.save_dir, "calibrated_model"),
                         tokenizer_src=args.finetuned_model)

@@ -21,11 +21,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from .delta import BinaryDelta, apply_delta, delta_signs, quantize_delta
+from .delta import BinaryDelta, apply_delta, quantize_delta
 from ..models.llama import PROJ_NAMES, Params
-from ..ops.packing import pack_signs
-from ..parallel.collectives import axis_size, psum
-from ..parallel.mesh import MODEL_AXIS
 
 # Small per-layer tensors carried uncompressed with fine-tuned values
 # (whichever exist): norms always; q/k/v biases for Qwen2-style models.
@@ -43,32 +40,13 @@ class CompressedModel(NamedTuple):
     extras: Dict[str, Any]
 
 
-def quantize_matrix(base: torch.Tensor, finetune: torch.Tensor, *,
-                    zero_sign: str = "positive", mesh=None) -> BinaryDelta:
-    """:func:`quantize_delta` of one ``(K, N)`` matrix, or, over a mesh
-    whose model axis splits it, of this rank's shard: the shard's packed
-    signs and the whole matrix's scale."""
-    tp = axis_size(mesh, MODEL_AXIS)
-    if tp == 1:
-        return quantize_delta(base, finetune, zero_sign=zero_sign)
-    diff = finetune.to(torch.float32) - base.to(torch.float32)
-    k, n = diff.shape[-2:]
-    if zero_sign == "balance" and (k % 2 or n % 2):
-        # The checkerboard's parity follows the shard's own indices.
-        raise ValueError(f"zero_sign='balance' needs even shards, got "
-                         f"{tuple(diff.shape)}")
-    total = psum(diff.abs().sum(dim=(-2, -1)), mesh)
-    return BinaryDelta(packed=pack_signs(delta_signs(diff, zero_sign)),
-                       scale=total / (k * n * tp))
-
-
 def embedding_deltas(base_params: Params, finetuned_params: Params,
                      zero_sign: str = "positive", mesh=None
                      ) -> Dict[str, BinaryDelta]:
     """The 1-bit ``"embed"`` delta (quantized transposed, ``(V, D) ->
     (D, V)``, so it is packed along D, the unpack axis of both its uses)
     and, for an untied model, the ``"lm_head"`` delta. ``mesh``: both are
-    vocab shards (:func:`quantize_matrix`)."""
+    vocab shards (``quantize_delta(mesh=)``)."""
     if finetuned_params["embed"].shape != base_params["embed"].shape:
         raise ValueError(
             "compress_embeddings requires the fine-tune to share the base "
@@ -76,14 +54,14 @@ def embedding_deltas(base_params: Params, finetuned_params: Params,
             f"{tuple(base_params['embed'].shape)}")
     if ("lm_head" in finetuned_params) != ("lm_head" in base_params):
         raise ValueError("base and fine-tune disagree on tied lm_head")
-    deltas = {"embed": quantize_matrix(
+    deltas = {"embed": quantize_delta(
         base_params["embed"].transpose(-1, -2),
         finetuned_params["embed"].transpose(-1, -2), zero_sign=zero_sign,
         mesh=mesh)}
     if "lm_head" in finetuned_params:
-        deltas["lm_head"] = quantize_matrix(base_params["lm_head"],
-                                            finetuned_params["lm_head"],
-                                            zero_sign=zero_sign, mesh=mesh)
+        deltas["lm_head"] = quantize_delta(base_params["lm_head"],
+                                           finetuned_params["lm_head"],
+                                           zero_sign=zero_sign, mesh=mesh)
     return deltas
 
 
@@ -103,7 +81,7 @@ def compress_model(base_params: Params, finetuned_params: Params, *,
 
     ``mesh``: the params are this rank's shards; so are the deltas and
     extras returned (every projection, the embed and the head are split
-    over the model axis; :func:`quantize_matrix`).
+    over the model axis; ``quantize_delta(mesh=)``).
     """
     deltas = {}
     for name in PROJ_NAMES:
@@ -115,8 +93,8 @@ def compress_model(base_params: Params, finetuned_params: Params, *,
         scale = torch.empty((n_layers,), dtype=torch.float32,
                             device=base_w.device)
         for layer in range(n_layers):
-            d = quantize_matrix(base_w[layer], fine_w[layer],
-                                zero_sign=zero_sign, mesh=mesh)
+            d = quantize_delta(base_w[layer], fine_w[layer],
+                               zero_sign=zero_sign, mesh=mesh)
             packed[layer] = d.packed
             scale[layer] = d.scale
         deltas[name] = BinaryDelta(packed=packed, scale=scale)

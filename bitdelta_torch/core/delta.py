@@ -13,6 +13,8 @@ import torch
 
 from ..ops.packing import (column_popcount, pack_signs, repack_pairs,
                            unpack_to_pm1)
+from ..parallel.collectives import axis_size, psum
+from ..parallel.mesh import MODEL_AXIS
 
 
 class BinaryDelta(NamedTuple):
@@ -69,11 +71,21 @@ def delta_signs(diff: torch.Tensor, zero_sign: str = "positive"
 
 
 def quantize_delta(base: torch.Tensor, finetune: torch.Tensor, *,
-                   zero_sign: str = "positive") -> BinaryDelta:
+                   zero_sign: str = "positive", mesh=None) -> BinaryDelta:
     """Quantize ``finetune - base`` (``(K, N)`` or stacked ``(L, K, N)``)
-    to packed signs + an fp32 ``mean(|diff|)`` scale per matrix."""
+    to packed signs + an fp32 ``mean(|diff|)`` scale per matrix.
+
+    ``mesh``: the matrices are this rank's equal shards of matrices split
+    over the model axis; the signs packed are the shard's own and the
+    scale the whole matrix's (the shards' means summed over the axis)."""
     diff = finetune.to(torch.float32) - base.to(torch.float32)
-    scale = diff.abs().mean(dim=(-2, -1))
+    tp = axis_size(mesh, MODEL_AXIS)
+    if tp > 1 and zero_sign == "balance" and (diff.shape[-2] % 2
+                                              or diff.shape[-1] % 2):
+        # The checkerboard's parity follows the shard's own indices.
+        raise ValueError(f"zero_sign='balance' needs even shards, got "
+                         f"{tuple(diff.shape)}")
+    scale = psum(diff.abs().mean(dim=(-2, -1)), mesh) / tp
     return BinaryDelta(packed=pack_signs(delta_signs(diff, zero_sign)),
                        scale=scale)
 

@@ -495,8 +495,8 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
     D), as llama's ``compress_model`` makes them. ``mesh``: the params
     are this rank's shards, as ``compress_model``'s; the router is whole
     on every rank, so its scale is its own."""
-    from ..core.compress import (CompressedModel, embedding_deltas,
-                                 quantize_matrix)
+    from ..core.compress import CompressedModel, embedding_deltas
+    from ..core.delta import quantize_delta
 
     deltas = {}
     for name in MOE_PARTS:
@@ -511,8 +511,8 @@ def compress_mixtral(base_params: Params, finetuned_params: Params, *,
         base_m = base_w.reshape(-1, k, n)
         fine_m = fine_w.reshape(-1, k, n)
         for i in range(base_m.shape[0]):
-            dm = quantize_matrix(base_m[i], fine_m[i], zero_sign=zero_sign,
-                                 mesh=None if name == "router" else mesh)
+            dm = quantize_delta(base_m[i], fine_m[i], zero_sign=zero_sign,
+                                mesh=None if name == "router" else mesh)
             flat_p[i] = dm.packed
             flat_s[i] = dm.scale
         deltas[name] = BinaryDelta(packed=packed, scale=scale)

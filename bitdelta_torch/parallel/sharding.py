@@ -295,12 +295,13 @@ def shard_tensor(x: torch.Tensor, spec, mesh, device=None) -> torch.Tensor:
     return x.contiguous()
 
 
-def gather_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """The whole tensor from every rank's block under ``spec``."""
+def gather_tensor(x: torch.Tensor, spec, mesh, device=None) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec``, on
+    ``device`` (default: ``x``'s)."""
     for dim, axis in reversed(list(enumerate(spec))):
         if axis is not None:
             x = all_gather(x, mesh, axis, dim)
-    return x
+    return x if device is None else x.to(device)
 
 
 def shard_tree(tree, specs, mesh, device=None):
@@ -310,9 +311,10 @@ def shard_tree(tree, specs, mesh, device=None):
     return _map(lambda x, s: shard_tensor(x, s, mesh, device), tree, specs)
 
 
-def gather_tree(tree, specs, mesh):
-    """Inverse of :func:`shard_tree` (every rank gets the whole tree)."""
-    return _map(lambda x, s: gather_tensor(x, s, mesh), tree, specs)
+def gather_tree(tree, specs, mesh, device=None):
+    """Inverse of :func:`shard_tree` (every rank gets the whole tree, on
+    ``device`` if given)."""
+    return _map(lambda x, s: gather_tensor(x, s, mesh, device), tree, specs)
 
 
 def shard_model(cfg: ModelConfig, params, mesh):

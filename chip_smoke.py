@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    card at the Mistral-7B (Mixtral-8x7B for the canonical tenant delta)
    shapes of the path that runs it (the two fused base + delta kernels
    with bf16 and fp32 x and W, the binary matmul and its transpose with
-   bf16 and fp32 input, flash decode also on a full cache, lengths
-   S + 1, and timed at uniform lengths of 128, 512 and 2048 keys; flash
+   bf16 and fp32 input, also at a Llama-2-70B tp = 2 rank's seven
+   projections (M = 512, untimed), flash decode also on a full cache,
+   lengths S + 1, and timed at uniform lengths of 128, 512 and 2048
+   keys; flash
    prefill's bf16 tensor-core kernel and its fp32 CUDA-core kernel each
    timed; flash decode and flash prefill also at Llama-2-7B's one query
    head a KV head (B = 8, H = KV = 32) and at a Llama-2-70B tp = 2
@@ -165,8 +167,9 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    to 2 layers, bf16: compressed on each rank's shards (words equal to
    the whole compression's shard), ``distill_scales`` for 3 steps at
    batch 4, length 128 at tp=2 against one process at tp=1 (each step's
-   loss within 2%, every scale moved, each matrix's update against
-   tp=1's printed), each rank's shard and peak bytes, a step's wall and
+   loss within 5e-3, every scale moved, each matrix's update and its
+   gradient of one step from the initial scales within 10% of tp=1's),
+   each rank's shard and peak bytes, a step's wall and
    device ms with its top kernels, and its collectives counted and timed
    alone; (c) ``eval_ppl`` on the same world, 2 windows of 1024 + 512
    tokens, on ``(2, 1)`` and ``(1, 2)``, each within 0.5% of one
@@ -291,6 +294,12 @@ PROJ_SHAPES = (("q_proj", 4096, 4096), ("k_proj", 4096, 1024),
                ("v_proj", 4096, 1024), ("o_proj", 4096, 4096),
                ("gate_proj", 4096, 14336), ("up_proj", 4096, 14336),
                ("down_proj", 14336, 4096))
+# A Llama-2-70B rank's local projections at tp=2 (phases 12b and 13b):
+# their K and N take other split counts in rows 5 and 6 than Mistral's.
+TP70_PROJ_SHAPES = (("q_proj", 8192, 4096), ("k_proj", 8192, 512),
+                    ("v_proj", 8192, 512), ("o_proj", 4096, 8192),
+                    ("gate_proj", 8192, 14336), ("up_proj", 8192, 14336),
+                    ("down_proj", 14336, 8192))
 
 
 class SmokeError(RuntimeError):
@@ -1728,6 +1737,41 @@ def check_prefill_group(dev, gen, window, kvh):
     return res
 
 
+def _hold_binary_at_tp70(dev, gen, label, wrapper, plain, transposed):
+    """Row 5 (``transposed`` False) or row 6 at the 70B tp=2 local shapes
+    and M=512: bf16 and fp32 input, each within 1e-4 of max|ref| of its
+    plain version. Returns one detail entry a projection, with the
+    reduction splits each input dtype took."""
+    from bitdelta_torch.ops import binary_gemm as bg
+
+    m = 512
+    rows = []
+    for name, k, n in TP70_PROJ_SHAPES:
+        a = torch.randn((m, n if transposed else k), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        packed = torch.randint(-2**31, 2**31 - 1, (k // 32, n),
+                               generator=gen, device=dev, dtype=torch.int32)
+        scale = torch.tensor(0.003, device=dev)
+        n_out, red = (k, n) if transposed else (n, k)
+        row = {"proj": name, "k": k, "n": n, "m": m}
+        for dtype, key, per_sm in ((torch.bfloat16, "", 2),
+                                   (torch.float32, "fp32_", 1)):
+            ad = a.to(dtype)
+            got = wrapper(ad, packed, scale, out_dtype=torch.float32)
+            want = plain(ad, packed, scale)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            tol = 1e-4 * want.abs().max().item()
+            require(e <= tol, f"{label} {name} at the 70B tp=2 shape "
+                              f"{dtype}: max|err| {e} > {tol}")
+            row[key + "max_abs_err"] = e
+            row[key + "splits"] = bg._gemm_splits(m, n_out, red, per_sm,
+                                                  dev)[0]
+            del got, want, ad
+        rows.append(row)
+    return rows
+
+
 def check_binary(dev, gen, results):
     from bitdelta_torch.ops import binary_gemm as bg
     from bitdelta_torch.ops.packing import unpack_to_pm1
@@ -1780,7 +1824,10 @@ def check_binary(dev, gen, results):
         shape="M=512, per prefill layer: 7 projections", timing=TIMING,
         bound_basis="ops: 2*M*K*N at the bf16 rate (±1 is exact in bf16); "
                     "bytes: x bf16 + K/32*N words + fp32 out",
-        library="torch.matmul(x, unpacked ±1 bf16 matrix)", detail=shapes)
+        library="torch.matmul(x, unpacked ±1 bf16 matrix)", detail=shapes,
+        tp70=_hold_binary_at_tp70(dev, gen, "binary matmul",
+                                  bg.binary_matmul, bg.binary_matmul_plain,
+                                  False))
 
 
 def check_binary_t(dev, gen, results):
@@ -1839,7 +1886,10 @@ def check_binary_t(dev, gen, results):
         bound_basis="ops: 2*M*K*N at the bf16 rate (±1 is exact in bf16); "
                     "bytes: g bf16 + K/32*N words + bf16 out",
         library="torch.matmul(g, unpacked ±1 bf16 matrix .T)",
-        detail=shapes)
+        detail=shapes,
+        tp70=_hold_binary_at_tp70(dev, gen, "binary matmul t",
+                                  bg.binary_matmul_t,
+                                  bg.binary_matmul_t_plain, True))
 
 
 def grad_error(got, want, row):
@@ -4801,7 +4851,12 @@ def tp(dev, smi):
 # ---------------------------------------------------------------------------
 
 TT_STEPS, TT_BATCH, TT_LEN = 3, 4, 128   # 13b's distillation, as phase 6
-TT_LOSS_RTOL = 2e-2            # 13b: each step's loss against tp=1's
+# 13b against tp=1, set from its first readings on the H100 (4.5e-4,
+# 3.3%): each step's loss; each matrix's scale update (AdamW's step hardly
+# moves when a gradient is scaled by a constant); and each matrix's
+# gradient of one step from the initial scales, which a gradient summed
+# once too often or not at all over the model axis puts 50-100% off.
+TT_LOSS_RTOL, TT_UPDATE_RTOL, TT_GRAD_RTOL = 5e-3, 0.1, 0.1
 TT_PPL_RTOL = 5e-3             # 13c: each meshed PPL against one process's
 TT_PPL_TOKENS = 2048           # 13c: two windows of 1024 + 512 tokens
 TINY_LOSS_RTOL, TINY_SCALE_RTOL, TINY_PPL_RTOL = 1e-4, 1e-5, 1e-5   # 13a
@@ -4970,6 +5025,13 @@ def _update_err(got, want, before):
             for n, w in want.items()}
 
 
+def _first_grads(step, initial, batch):
+    """Run ``step`` once and return the gradients it left on the scales
+    ``initial`` it was made with (summed as the step sums them)."""
+    step(batch)
+    return {n: s.grad for n, s in initial.items()}
+
+
 def train_70b(dev, meshes, rank, smi):
     """13b and 13c on one rank: Llama-2-70B at full width cut to 2 layers,
     bf16, one seeded fine-tune, built on the card from one seed on each
@@ -5012,6 +5074,7 @@ def train_70b(dev, meshes, rank, smi):
                            generator=torch.Generator().manual_seed(17))
     ppl_kw = dict(context_size=1024, window_size=512, kernel="cuda")
     initial = {n: d.scale.clone() for n, d in comp.deltas.items()}
+    batch = torch.from_numpy(batches[0]).long().to(dev)
     ref = None
     if rank == 0:
         t0 = time.perf_counter()
@@ -5021,10 +5084,18 @@ def train_70b(dev, meshes, rank, smi):
                "distill_s": time.perf_counter() - t0,
                "ppl": eval_ppl(cfg, student_params(base, comp),
                                tokens.numpy(), deltas=comp.deltas, **ppl_kw)}
-        del out
+        fresh = {n: s.clone().requires_grad_() for n, s in initial.items()}
+        ref["grads"] = {n: g.cpu() for n, g in _first_grads(
+            make_distill_step(cfg, dcfg, base, fine, comp, fresh,
+                              make_optimizer(fresh, dcfg)),
+            fresh, batch).items()}
+        del out, fresh
     ref = collectives.broadcast_object(ref)
     report["single_process"] = {k: ref[k] for k in ("losses", "distill_s",
                                                     "ppl")}
+    report["limits"] = {"loss_rtol": TT_LOSS_RTOL,
+                        "update_rtol": TT_UPDATE_RTOL,
+                        "grad_rtol": TT_GRAD_RTOL}
 
     # 13c, sequence split: at (2, 1) a rank's shard is the whole model.
     mesh = meshes[(2, 1)]
@@ -5077,15 +5148,25 @@ def train_70b(dev, meshes, rank, smi):
                 f"13b {name}: some layer's scale did not move")
     report["update_rel_err"] = _update_err(
         scales, {n: s.to(dev) for n, s in ref["scales"].items()}, initial)
+    require(max(report["update_rel_err"].values()) <= TT_UPDATE_RTOL,
+            f"13b: the scale updates are off tp=1's by "
+            f"{report['update_rel_err']}")
 
-    # One more step on a fresh optimizer: wall, device time and top
-    # kernels (both ranks trace their own process; they share the card),
-    # and the collectives it calls, each timed alone at its shape.
-    fresh = {n: s.clone().requires_grad_() for n, s in scales.items()}
+    # One step from the initial scales on a fresh optimizer: its gradients
+    # against tp=1's; then its wall, device time and top kernels (both
+    # ranks trace their own process; they share the card), and the
+    # collectives it calls, each timed alone at its shape.
+    fresh = {n: s.clone().requires_grad_() for n, s in initial.items()}
     step = make_distill_step(cfg, dcfg, b, f, c, fresh,
                              make_optimizer(fresh, dcfg), mesh=mesh)
-    batch = torch.from_numpy(batches[0]).long().to(dev)
-    step(batch)
+    grads = _first_grads(step, fresh, batch)
+    report["grad_rel_err"] = {
+        n: ((grads[n] - g.to(dev)).abs().max() / g.abs().max()).item()
+        for n, g in ref["grads"].items()}
+    require(max(report["grad_rel_err"].values()) <= TT_GRAD_RTOL,
+            f"13b: the first step's gradients are off tp=1's by "
+            f"{report['grad_rel_err']}")
+    del grads
     torch.cuda.synchronize()
     calls0 = _collective_calls()
     dist.barrier()
@@ -5458,6 +5539,9 @@ def main(argv=None):
             entry["kernel"] = W4_TC_KERNEL
             entry["fp32"] = dict(_timing_keys(checks["w4_matmul_fp32"]),
                                  kernel=W4_FP32_KERNEL)
+        if kname in ("binary_matmul", "binary_matmul_t"):
+            # Rows 5 and 6 held at a 70B tp=2 rank's shapes (untimed).
+            entry["tp70"] = res["tp70"]
         if kname == "flash_prefill_attention":
             # Row 4: bf16 on the tensor cores; the fp32 branch on its own.
             entry["kernel"] = PREFILL_TC_KERNEL

@@ -26,8 +26,8 @@ a replay; None on a rank outside the case's mesh). Cases:
   (``shard_stack``) and gathered back (``gather_tree``): True when every
   leaf comes back equal;
 * ``distill``: ``distill_scales(mesh=)`` on the world's shards: the
-  losses and the scales, and with ``"grads"`` the first step's summed
-  scale gradients (``make_distill_step(mesh=)``);
+  losses and the scales, and with ``"grads"`` the summed scale gradients
+  of one step from the initial scales (``make_distill_step(mesh=)``);
 * ``compress``: ``compress_model`` / ``compress_mixtral`` on the shards,
   gathered whole;
 * ``ppl``: ``eval_ppl(mesh=)``; ``seqfwd``: one forward with the
@@ -203,23 +203,19 @@ def run_distill(world, case, mesh):
     dcfg = distill.DistillConfig(lr=1e-3, num_steps=len(world["batches"]),
                                  compute_dtype="float32",
                                  kernel=case["kernel"])
-    if not case.get("grads"):
-        out, losses = distill.distill_scales(cfg, base, fine, comp,
-                                             world["batches"], dcfg,
-                                             mesh=mesh, model=model)
-        return {"losses": losses, "scales": get_scales(out)}
-    scales = {n: s.detach().clone().requires_grad_()
-              for n, s in get_scales(comp).items()}
-    opt = distill.make_optimizer(scales, dcfg)
-    step = distill.make_distill_step(cfg, dcfg, base, fine, comp, scales,
-                                     opt, model=model, mesh=mesh)
-    losses, grads = [], None
-    for batch in world["batches"]:
-        losses.append(float(step(torch.as_tensor(batch).long())))
-        if grads is None:
-            grads = {n: s.grad.clone() for n, s in scales.items()}
-    return {"losses": losses, "grads": grads,
-            "scales": {n: s.detach() for n, s in scales.items()}}
+    out, losses = distill.distill_scales(cfg, base, fine, comp,
+                                         world["batches"], dcfg, mesh=mesh,
+                                         model=model)
+    result = {"losses": losses, "scales": get_scales(out)}
+    if case.get("grads"):
+        scales = {n: s.detach().clone().requires_grad_()
+                  for n, s in get_scales(comp).items()}
+        distill.make_distill_step(
+            cfg, dcfg, base, fine, comp, scales,
+            distill.make_optimizer(scales, dcfg), model=model,
+            mesh=mesh)(torch.as_tensor(world["batches"][0]).long())
+        result["grads"] = {n: s.grad.clone() for n, s in scales.items()}
+    return result
 
 
 def run_compress(world, case, mesh):
