@@ -14,9 +14,11 @@ Runs on the card; ``--device cpu`` runs on the CPU.
 
 Tensor and data parallelism: ``--mesh dp,tp`` with one process a rank,
 started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
-bitdelta_torch.cli.serve --mesh dp,tp ...``. Every rank loads the base
-and the tenants on the host and copies its shard alone to its card, one
-leaf at a time; rank 0 serves HTTP and the other
+bitdelta_torch.cli.serve --mesh dp,tp ...``. Every rank reads its own
+blocks of the base checkpoint and of the tenants' artifacts straight from
+the files to its card (``serving/stacking.py::load_stack_shard``): no
+rank holds the whole stack, and its host holds one checkpoint block at a
+time. Rank 0 serves HTTP and the other
 ranks replay its engine calls until it stops (on SIGTERM or SIGINT, which
 the other ranks leave to it).
 """
@@ -27,16 +29,14 @@ import argparse
 import json
 import signal
 
-import torch
-
 from . import args as A
-from ..core.artifact import load_delta
+from ..core.artifact import load_delta, read_header
 from ..device import resolve_device, torch_dtype
 from ..models import llama, resolve_model_module
-from ..models.hf_import import load_hf_params
+from ..models.hf_import import load_hf_config, load_hf_params
 from ..serving.engine import Engine
 from ..serving.server import ServingApp, TenantInfo, make_http_server
-from ..serving.stacking import stack_nbytes, stack_tenants
+from ..serving.stacking import load_stack_shard, stack_nbytes, stack_tenants
 from ..utils.tokenizer import get_tokenizer
 
 
@@ -70,9 +70,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     mesh = A.make_cli_mesh(args.mesh, args.device)
     device = resolve_device(args.device)
-    # Over a mesh the stack is built on the host and the engine copies
-    # this rank's shard of each leaf to the card: no card holds it whole.
-    build_on = torch.device("cpu") if mesh is not None else device
 
     tenant_specs = []
     for spec in args.delta:
@@ -87,36 +84,34 @@ def main(argv=None):
         raise SystemExit("no tenants: pass --delta or --registry")
 
     dtype = torch_dtype(args.dtype)
-    print(f"loading base {args.base_model} ...", flush=True)
-    cfg, base = load_hf_params(args.base_model, dtype=dtype,
-                               device=build_on)
-
-    compressed = []
-    base_quants = set()
-    for spec in tenant_specs:
-        print(f"loading tenant {spec['name']} ...", flush=True)
-        comp, _, meta = load_delta(spec["diff_path"], device=build_on,
-                                   return_meta=True)
-        base_quants.add(meta.get("base_quant"))
-        compressed.append(comp)
+    # W{8,4}+W1 artifacts: serve the quantized base (the deltas were
+    # taken against its dequantized values, so this is exact).
+    base_quants = {read_header(spec["diff_path"])[1].get("base_quant")
+                   for spec in tenant_specs}
     if len(base_quants) > 1:
         raise SystemExit(f"tenants disagree on base_quant: {base_quants}")
     base_quant = base_quants.pop()
+    if base_quant not in (None, "int8", "int4"):
+        raise SystemExit(f"unsupported artifact base_quant {base_quant!r}")
     if base_quant is not None:
-        # W{8,4}+W1 artifacts: serve the quantized base (the deltas were
-        # taken against its dequantized values, so this is exact).
-        from ..research.quantized_base import quantize_base
-
-        if base_quant not in ("int8", "int4"):
-            raise SystemExit(
-                f"unsupported artifact base_quant {base_quant!r}")
         print(f"artifacts were built against an {base_quant} base — "
               f"serving the quantized base", flush=True)
-        base = quantize_base(base, base_quant)
-    stack = stack_tenants(cfg, base, compressed, device=build_on)
-    del base, compressed
-    mem = stack_nbytes(stack)
-    print(f"base {mem['base_bytes']/1e9:.2f} GB + "
+    if mesh is not None:
+        print(f"sharding stack over mesh {tuple(mesh.shape)} (data, model):"
+              f" each rank reads its blocks of {args.base_model} and of "
+              f"{len(tenant_specs)} tenants", flush=True)
+        cfg = load_hf_config(args.base_model)
+        stack = load_stack_shard(
+            cfg, args.base_model, [s["diff_path"] for s in tenant_specs],
+            mesh, dtype=dtype, device=device, base_quant=base_quant)
+        mem = stack_nbytes(stack.local)
+        scope = "this rank's shard: "
+    else:
+        stack, cfg = _load_whole(args, tenant_specs, dtype, device,
+                                 base_quant)
+        mem = stack_nbytes(stack)
+        scope = ""
+    print(f"{scope}base {mem['base_bytes']/1e9:.2f} GB + "
           f"{mem['per_tenant_bytes']/1e9:.3f} GB/tenant "
           f"x {len(tenant_specs)} tenants", flush=True)
 
@@ -125,9 +120,6 @@ def main(argv=None):
                           system_prompt=spec.get("system_prompt", ""))
                for spec in tenant_specs]
 
-    if mesh is not None:
-        print(f"sharding stack over mesh {tuple(mesh.shape)} (data, model)",
-              flush=True)
     model_mod = resolve_model_module(cfg)
     if model_mod is not llama:
         print("mixtral checkpoint: serving the MoE decoder", flush=True)
@@ -149,6 +141,21 @@ def main(argv=None):
             import torch.distributed as dist
 
             dist.destroy_process_group()
+
+
+def _load_whole(args, tenant_specs, dtype, device, base_quant):
+    """The whole stack on ``device`` (one process, no mesh)."""
+    print(f"loading base {args.base_model} ...", flush=True)
+    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=device)
+    compressed = []
+    for spec in tenant_specs:
+        print(f"loading tenant {spec['name']} ...", flush=True)
+        compressed.append(load_delta(spec["diff_path"], device=device)[0])
+    if base_quant is not None:
+        from ..research.quantized_base import quantize_base
+
+        base = quantize_base(base, base_quant)
+    return stack_tenants(cfg, base, compressed, device=device), cfg
 
 
 def _follow(engine: Engine) -> None:

@@ -14,11 +14,15 @@ Runs on the card; ``--device cpu`` runs on the CPU. The
 
 Data and tensor parallelism: ``--mesh dp,tp`` with one process a rank,
 started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
-bitdelta_torch.cli.train --mesh dp,tp ...``. Every rank loads the base
-and the fine-tune on the host and copies its shards to its card; the
-deltas are compressed on the shards and distilled over the mesh
-(``train/distill.py``), each rank taking its rows of every batch. Rank 0
-alone writes the files, the artifacts from the gathered shards.
+bitdelta_torch.cli.train --mesh dp,tp ...``. Every rank reads its own
+blocks of the base and the fine-tune straight from the checkpoints to its
+card (``load_hf_params(mesh=)``; with ``--quantize_base`` the round trip
+runs on the shards); the deltas are compressed on the shards and
+distilled over the mesh (``train/distill.py``), each rank taking its rows
+of every batch. Rank 0 alone writes the files: the artifacts from the
+shards gathered leaf by leaf (the other ranks drop each leaf at once);
+``--debug``'s statistics and ``--save_full_model``'s export read the
+checkpoints one matrix at a time, so no rank holds either model whole.
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ import contextlib
 import json
 import os
 
-import torch
 import torch.distributed as dist
 
 from . import args as A
@@ -42,18 +45,37 @@ from ..train.distill import DistillConfig, distill_scales
 from ..utils.tokenizer import get_tokenizer
 
 
-def _whole(comp, cfg, fcfg, mesh):
-    """A compressed model's shards gathered whole to every rank's host,
-    where the base of ``--save_full_model`` is."""
+def _whole(comp, cfg, fcfg, mesh, writer):
+    """A compressed model's shards gathered whole to the writer's host,
+    one leaf at a time; every other rank takes part and drops each leaf
+    at once (its leaves come back None)."""
     from ..parallel.sharding import delta_specs, extras_specs, gather_tree
 
     if mesh is None:
         return comp
     return comp._replace(
         deltas=gather_tree(comp.deltas, delta_specs(
-            cfg, keys=comp.deltas.keys()), mesh, "cpu"),
+            cfg, keys=comp.deltas.keys()), mesh, "cpu", keep=writer),
         extras=gather_tree(comp.extras, extras_specs(
-            fcfg, keys=comp.extras.keys()), mesh, "cpu"))
+            fcfg, keys=comp.extras.keys()), mesh, "cpu", keep=writer))
+
+
+def _streamed_layers(ckpt_dir, cfg, dtype, quantize=None):
+    """``{"layers": {name: each layer's matrix, read whole in turn}}`` of a
+    checkpoint's projections (``weight_corr_stddev`` takes one layer pair
+    at a time), the base's round trip applied where ``quantize`` says."""
+    from ..models.hf_import import checkpoint_index, read_layer
+    from ..research.quantized_base import roundtrip_matrix
+    from ..utils.diagnostics import stat_names
+
+    index = checkpoint_index(ckpt_dir)
+
+    def layers(name):
+        for layer in range(cfg.num_layers):
+            w = read_layer(index, cfg, name, layer, dtype, "cpu")
+            yield w if quantize is None else roundtrip_matrix(w, quantize,
+                                                              dtype)
+    return {"layers": {name: layers(name) for name in stat_names(cfg)}}
 
 
 def main(argv=None):
@@ -66,16 +88,16 @@ def main(argv=None):
     device = resolve_device(args.device)
     writer = mesh is None or dist.get_rank() == 0
     os.makedirs(args.save_dir, exist_ok=True)
-    # Over a mesh the weights load to the host and each rank copies its
-    # shards to the card.
-    load_on = torch.device("cpu") if mesh is not None else device
-
     dtype = torch_dtype(args.dtype)
+    if mesh is not None:
+        print(f"each rank reads its shards over mesh {tuple(mesh.shape)} "
+              f"(data, model)", flush=True)
     print(f"loading base {args.base_model} ...", flush=True)
-    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=load_on)
+    cfg, base = load_hf_params(args.base_model, dtype=dtype, device=device,
+                               mesh=mesh)
     print(f"loading fine-tune {args.finetuned_model} ...", flush=True)
     fcfg, fine = load_hf_params(args.finetuned_model, dtype=dtype,
-                                device=load_on)
+                                device=device, mesh=mesh)
     if (fcfg.hidden_size, fcfg.num_layers) != (cfg.hidden_size, cfg.num_layers):
         raise ValueError("base and fine-tune architectures differ")
 
@@ -94,22 +116,19 @@ def main(argv=None):
 
         print(f"quantizing base projections ({args.quantize_base}) ...",
               flush=True)
-        base = roundtrip_base(base, args.quantize_base, dtype)
+        base = roundtrip_base(base, args.quantize_base, dtype, mesh)
 
     if args.debug and writer:
         from ..utils.diagnostics import weight_corr_stddev
-        stats = weight_corr_stddev(base, fine)
+        if mesh is None:
+            stats = weight_corr_stddev(base, fine)
+        else:
+            stats = weight_corr_stddev(
+                _streamed_layers(args.base_model, cfg, dtype,
+                                 args.quantize_base),
+                _streamed_layers(args.finetuned_model, fcfg, dtype))
         with open(os.path.join(args.save_dir, "corr_stddev.csv"), "w") as f:
             f.write(f"corr,stddev\n{stats['corr']},{stats['stddev']}\n")
-
-    host_base = base if args.save_full_model else None
-    if mesh is not None:
-        from ..parallel.sharding import param_specs, shard_tree
-
-        print(f"sharding base and fine-tune over mesh {tuple(mesh.shape)} "
-              f"(data, model)", flush=True)
-        base = shard_tree(base, param_specs(cfg), mesh, device)
-        fine = shard_tree(fine, param_specs(fcfg), mesh, device)
 
     print("compressing diff...", flush=True)
     if is_mixtral:  # attn + experts + router (+ embed/head) deltas
@@ -120,10 +139,11 @@ def main(argv=None):
         comp = compress_model(base, fine,
                               compress_embeddings=args.compress_embeddings,
                               zero_sign=args.zero_sign, mesh=mesh)
-    whole = _whole(comp, cfg, fcfg, mesh)
+    whole = _whole(comp, cfg, fcfg, mesh, writer)
     if writer:
         save_delta(os.path.join(args.save_dir, "diff_untrained.safetensors"),
                    whole, fcfg, base_quant=args.quantize_base)
+    del whole
 
     batches = None
     if writer:
@@ -156,7 +176,7 @@ def main(argv=None):
                                       mesh=mesh, progress=writer,
                                       model=model_mod, checkpoint_path=ckpt,
                                       checkpoint_every=args.checkpoint_every)
-    whole = _whole(comp, cfg, fcfg, mesh)
+    whole = _whole(comp, cfg, fcfg, mesh, writer)
     if not writer:
         return
     print(f"distill loss {losses[0]:.6f} -> {losses[-1]:.6f}")
@@ -169,10 +189,17 @@ def main(argv=None):
     print(f"saved {os.path.join(args.save_dir, 'diff.safetensors')}")
 
     if args.save_full_model:
-        from ..core.export import save_full_model
-        save_full_model(cfg, fuse_compressed(host_base, whole),
-                        os.path.join(args.save_dir, "calibrated_model"),
-                        tokenizer_src=args.finetuned_model)
+        from ..core.export import save_full_model, save_full_model_streamed
+        out_dir = os.path.join(args.save_dir, "calibrated_model")
+        if mesh is None:
+            save_full_model(cfg, fuse_compressed(base, whole), out_dir,
+                            tokenizer_src=args.finetuned_model)
+        else:
+            save_full_model_streamed(cfg, args.base_model, whole, out_dir,
+                                     dtype=dtype,
+                                     base_quant=args.quantize_base,
+                                     tokenizer_src=args.finetuned_model,
+                                     device=device)
         print("exported calibrated model")
 
 

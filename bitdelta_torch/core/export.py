@@ -11,6 +11,7 @@ is needed.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Dict, Optional
@@ -97,11 +98,94 @@ def hf_config_dict(cfg: ModelConfig, model_type: str = "llama",
 
 def save_full_model(cfg: ModelConfig, params, out_dir: str,
                     tokenizer_src: Optional[str] = None) -> None:
+    _write_model(cfg, hf_state_dict(cfg, params), out_dir, tokenizer_src)
+
+
+def save_full_model_streamed(cfg: ModelConfig, ckpt_dir: str, compressed,
+                             out_dir: str, dtype=torch.bfloat16,
+                             base_quant: Optional[str] = None,
+                             tokenizer_src: Optional[str] = None,
+                             device="cpu") -> None:
+    """:func:`save_full_model` of ``fuse_compressed(base, compressed)``,
+    where ``base`` is ``load_hf_params(ckpt_dir, dtype=dtype)`` (round-
+    tripped through ``base_quant`` where given), written byte for byte as
+    that call writes it, with the base never whole: each of its tensors
+    is read from the checkpoint on ``device``, fused and written in turn.
+    Llama-family models (the train CLI exports no Mixtral)."""
+    from ..models.hf_import import checkpoint_index, read_layer
+    from ..research.quantized_base import roundtrip_matrix
+    from .artifact import Deferred
+    from .compress import LAYER_EXTRA_NAMES
+    from .delta import BinaryDelta, apply_delta
+
+    index = checkpoint_index(ckpt_dir)
+    deltas, extras = compressed.deltas, compressed.extras
+
+    def on(d):
+        return BinaryDelta(*(f.to(device) for f in d))
+
+    def top(key):
+        return index[key].read().to(device).to(dtype)
+
+    def embed():
+        if "embed" in extras:
+            return _host(extras["embed"], torch.float32)
+        w = top("model.embed_tokens.weight")
+        if "embed" in deltas:
+            w = apply_delta(w.t(), on(deltas["embed"])).t()
+        return _host(w, torch.float32)
+
+    def lm_head():
+        if "lm_head" in extras:
+            return _host(extras["lm_head"], torch.float32, True)
+        w = top("lm_head.weight").t()
+        if "lm_head" in deltas:
+            w = apply_delta(w, on(deltas["lm_head"]))
+        return _host(w, torch.float32, True)
+
+    def layer(name, l):
+        if name in extras:
+            return _host(extras[name][l], torch.float32)
+        w = read_layer(index, cfg, name, l, dtype, device)
+        if base_quant is not None and name not in LAYER_EXTRA_NAMES:
+            w = roundtrip_matrix(w, base_quant, dtype)
+        if name in deltas:
+            d = deltas[name]
+            w = apply_delta(w, on(BinaryDelta(d.packed[l], d.scale[l])))
+        return _host(w, torch.float32, HF_NAMES[name][1])
+
+    def shape(name, key):
+        """A tensor's HF shape: the fine-tune's extra's where it has one
+        (its vocabulary may differ), else the base checkpoint's."""
+        if name in extras:
+            s = tuple(extras[name].shape)
+            return s[::-1] if name == "lm_head" else s
+        return tuple(index[key].shape)
+    f32 = torch.float32
+    sd = {"model.embed_tokens.weight": Deferred(
+              f32, shape("embed", "model.embed_tokens.weight"), embed),
+          "model.norm.weight": Deferred(
+              f32, shape("final_norm", None),
+              lambda: _host(extras["final_norm"], f32))}
+    if "lm_head" in extras or ("embed" not in extras
+                               and "lm_head.weight" in index):
+        sd["lm_head.weight"] = Deferred(
+            f32, shape("lm_head", "lm_head.weight"), lm_head)
+    for l in range(cfg.num_layers):
+        for name, (hf, _) in HF_NAMES.items():
+            key = f"model.layers.{l}.{hf}.weight"
+            if key in index and name not in _EXPERT_NAMES:
+                sd[key] = Deferred(f32, tuple(index[key].shape),
+                                   functools.partial(layer, name, l))
+    _write_model(cfg, sd, out_dir, tokenizer_src)
+
+
+def _write_model(cfg, sd, out_dir, tokenizer_src) -> None:
     from .artifact import write_safetensors
 
     os.makedirs(out_dir, exist_ok=True)
-    write_safetensors(os.path.join(out_dir, "model.safetensors"),
-                      hf_state_dict(cfg, params), {"format": "pt"})
+    write_safetensors(os.path.join(out_dir, "model.safetensors"), sd,
+                      {"format": "pt"})
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_config_dict(cfg), f, indent=2)
     if tokenizer_src is not None:

@@ -16,7 +16,8 @@ Entry points:
   * :func:`load_hf_params` from a local checkpoint directory (every
     ``*.safetensors`` shard in sorted order, read through memory maps by
     ``core/artifact.py::iter_safetensors``; no ``safetensors`` or
-    ``transformers`` package needed);
+    ``transformers`` package needed); with ``mesh=`` a rank's blocks
+    alone, each read from its file (``core/artifact.py::StoredTensor``);
   * :func:`params_from_torch_model` from a live transformers model.
 
 Every entry point puts the params on the card unless the caller passes
@@ -82,21 +83,43 @@ class _Stacker:
     """Stacked params filled one tensor at a time. A stacked leaf is
     allocated on the device at its first slot's arrival (its shape the
     slot's, behind ``lead`` stack dims); every slot is then copied in,
-    transposed on the device where asked."""
+    transposed on the device where asked.
 
-    def __init__(self, device: torch.device, dtype: torch.dtype):
+    With ``specs`` (``parallel/sharding.py::param_specs``) the values are
+    ``StoredTensor``s and each is read as this rank's block of ``mesh``
+    alone: its leaf's spec without the stack dims, reversed where HF
+    stores the matrix transposed."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype,
+                 specs=None, mesh=None):
         self.device, self.dtype = device, dtype
+        self.specs, self.mesh = specs, mesh
         self.stacks: Dict[str, torch.Tensor] = {}
         self.filled: Dict[str, np.ndarray] = {}
         self.top: Dict[str, torch.Tensor] = {}
 
-    def _dev(self, val, transpose: bool) -> torch.Tensor:
+    def _dev(self, val, transpose: bool, spec=()) -> torch.Tensor:
+        if self.specs is not None:
+            from ..parallel.sharding import block_of
+
+            spec = tuple(spec) + (None,) * (len(val.shape) - len(spec))
+            val = val.read(block_of(val.shape,
+                                    spec[::-1] if transpose else spec,
+                                    self.mesh),
+                           meta=self.device.type == "meta")
         t = _as_tensor(val).to(self.device)
         return t.t() if transpose else t
 
+    def _spec(self, name: str, n_lead: int):
+        if self.specs is None:
+            return ()
+        if n_lead == 0:
+            return self.specs.get(name, ())
+        return self.specs["layers"].get(name, ())[n_lead:]
+
     def put(self, name: str, lead: Tuple[int, ...], index: Tuple[int, ...],
             val, transpose: bool) -> None:
-        src = self._dev(val, transpose)
+        src = self._dev(val, transpose, self._spec(name, len(lead)))
         if name not in self.stacks:
             self.stacks[name] = torch.empty(lead + tuple(src.shape),
                                             dtype=self.dtype,
@@ -106,7 +129,8 @@ class _Stacker:
         self.filled[name][index] = True
 
     def put_top(self, name: str, val, transpose: bool = False) -> None:
-        self.top[name] = self._dev(val, transpose).to(self.dtype).contiguous()
+        self.top[name] = self._dev(val, transpose, self._spec(name, 0)).to(
+            self.dtype).contiguous()
 
     def layers(self, names: Iterable[str]) -> Dict[str, torch.Tensor]:
         out = {}
@@ -155,9 +179,12 @@ def params_from_state_dict(cfg: ModelConfig,
     on ``device`` in ``dtype``. Unknown layer tensors and missing ones
     raise ``ValueError``; keys outside the layers that are not embed /
     norm / head (rotary buffers) are skipped."""
-    device, dtype = resolve_device(device), torch_dtype(dtype)
+    return _llama_params(cfg, tensors, _Stacker(resolve_device(device),
+                                                torch_dtype(dtype)))
+
+
+def _llama_params(cfg: ModelConfig, tensors, st: _Stacker) -> dict:
     L = cfg.num_layers
-    st = _Stacker(device, dtype)
     items = tensors.items() if isinstance(tensors, Mapping) else tensors
     for key, val in items:
         if _top_level(st, key, val):
@@ -188,9 +215,12 @@ def mixtral_params_from_state_dict(cfg, tensors, dtype=torch.bfloat16,
                                    device="cuda") -> dict:
     """A Mixtral state dict as the port's params: experts stacked ``(L, E,
     K, N)``, the router ``(L, D, E)``."""
-    device, dtype = resolve_device(device), torch_dtype(dtype)
+    return _mixtral_params(cfg, tensors, _Stacker(resolve_device(device),
+                                                  torch_dtype(dtype)))
+
+
+def _mixtral_params(cfg, tensors, st: _Stacker) -> dict:
     L, E = cfg.num_layers, cfg.num_experts
-    st = _Stacker(device, dtype)
     items = tensors.items() if isinstance(tensors, Mapping) else tensors
     for key, val in items:
         if _top_level(st, key, val):
@@ -217,17 +247,32 @@ def mixtral_params_from_state_dict(cfg, tensors, dtype=torch.bfloat16,
                    list(_MIXTRAL_LAYER_MAP.values()) + ["w1", "w2", "w3"])
 
 
+def _shard_files(ckpt_dir: str):
+    files = sorted(f for f in os.listdir(ckpt_dir)
+                   if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files in {ckpt_dir}")
+    return [os.path.join(ckpt_dir, f) for f in files]
+
+
 def _iter_safetensors(ckpt_dir: str):
     """``(name, CPU tensor)`` of every ``*.safetensors`` shard of a
     directory, the shards in sorted order."""
     from ..core.artifact import iter_safetensors
 
-    files = sorted(f for f in os.listdir(ckpt_dir)
-                   if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no .safetensors files in {ckpt_dir}")
-    for fname in files:
-        yield from iter_safetensors(os.path.join(ckpt_dir, fname))
+    for path in _shard_files(ckpt_dir):
+        yield from iter_safetensors(path)
+
+
+def checkpoint_index(ckpt_dir: str):
+    """``{name: StoredTensor}`` of every tensor of every ``*.safetensors``
+    shard of a directory, from the headers alone
+    (``core/artifact.py::stored_tensors``): any tensor can then be read
+    whole, or a block of it, on its own."""
+    from ..core.artifact import stored_tensors
+
+    return {name: t for path in _shard_files(ckpt_dir)
+            for name, t in stored_tensors(path)}
 
 
 class _Obj:
@@ -248,18 +293,58 @@ def load_hf_config(ckpt_dir: str) -> ModelConfig:
 
 
 def load_hf_params(ckpt_dir: str, cfg: Optional[ModelConfig] = None,
-                   dtype=torch.bfloat16, device="cuda"):
+                   dtype=torch.bfloat16, device="cuda", mesh=None):
     """Load a local HF checkpoint directory into ``(config, params)`` on
     ``device``. Routes by ``model_type``: Llama/Mistral/Qwen2 share the
-    llama layout; Mixtral gets expert-stacked MoE params."""
+    llama layout; Mixtral gets expert-stacked MoE params.
+
+    ``mesh``: this rank's shards alone, ``shard_tree(params,
+    param_specs(cfg), mesh)`` of the whole, bit for bit: each tensor's
+    block is read straight from its file (``StoredTensor.read``; a
+    column-parallel projection's block is a run of HF's rows, a
+    row-parallel one's a column block of every row, the vocab-sharded
+    embed and head runs of rows), cast to ``dtype`` and transposed on
+    ``device`` as the whole path does; the host holds one block at a
+    time. ``device="meta"``: the whole params' shapes and dtypes from the
+    headers, nothing read."""
+    from ..parallel.sharding import param_specs
     from .mixtral import MixtralConfig
 
     cfg = cfg or load_hf_config(ckpt_dir)
-    tensors = _iter_safetensors(ckpt_dir)
+    device, dtype = resolve_device(device), torch_dtype(dtype)
+    if mesh is None and device.type != "meta":
+        tensors = _iter_safetensors(ckpt_dir)
+        st = _Stacker(device, dtype)
+    else:
+        tensors = checkpoint_index(ckpt_dir).items()
+        st = _Stacker(device, dtype, param_specs(cfg), mesh)
     if isinstance(cfg, MixtralConfig):
-        return cfg, mixtral_params_from_state_dict(cfg, tensors, dtype,
-                                                   device)
-    return cfg, params_from_state_dict(cfg, tensors, dtype, device)
+        return cfg, _mixtral_params(cfg, tensors, st)
+    return cfg, _llama_params(cfg, tensors, st)
+
+
+def read_layer(index, cfg: ModelConfig, name: str, layer: int,
+               dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    """One layer's slot of the port's leaf ``name`` (``(K, N)``; a
+    Mixtral expert stack ``(E, K, N)``) read whole from a checkpoint's
+    ``index`` (:func:`checkpoint_index`), as :func:`load_hf_params` fills
+    it: the HF tensor on ``device``, transposed there, cast to
+    ``dtype``."""
+    device, dtype = resolve_device(device), torch_dtype(dtype)
+
+    def read(key, transpose):
+        t = index[key].read().to(device)
+        return (t.t() if transpose else t).to(dtype)
+    pre = f"model.layers.{layer}"
+    if name in ("w1", "w2", "w3"):
+        return torch.stack([read(f"{pre}.{_EXPERTS}.{e}.{name}.weight", True)
+                            for e in range(cfg.num_experts)])
+    hf = {ours: (sub, transpose) for sub, (ours, transpose)
+          in _LAYER_MAP.items()}
+    hf.update({ours: (sub, ours not in _NORMS)
+               for sub, ours in _MIXTRAL_LAYER_MAP.items()})
+    sub, transpose = hf[name]
+    return read(f"{pre}.{sub}.weight", transpose)
 
 
 def params_from_torch_model(cfg: ModelConfig, torch_model,

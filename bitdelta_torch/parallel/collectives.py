@@ -65,10 +65,19 @@ def psum(x: torch.Tensor, mesh, axis: str = MODEL_AXIS, *,
     return _all_reduce(x, mesh, axis, dtype)
 
 
-def _all_reduce(x: torch.Tensor, mesh, axis: str, dtype=None) -> torch.Tensor:
+def pmax(x: torch.Tensor, mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``axis`` on every rank of it (a
+    new tensor; exact, as a max rounds nothing)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _all_reduce(x, mesh, axis, op=dist.ReduceOp.MAX)
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, dtype=None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.to(dtype or x.dtype, memory_format=torch.contiguous_format,
                copy=True)
-    dist.all_reduce(out, group=mesh.get_group(axis))
+    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
     return out.to(x.dtype)
 
 

@@ -36,7 +36,7 @@ import torch
 
 from ..core.delta import BinaryDelta, PairedBinaryDelta
 from ..models.config import ModelConfig
-from ..research.quantized_base import Int4Weight, Int8Weight
+from ..research.quantized_base import INT4_GROUP, Int4Weight, Int8Weight
 from .collectives import all_gather, axis_index, axis_size
 from .mesh import DATA_AXIS, MODEL_AXIS
 
@@ -277,19 +277,34 @@ def _map(fn, tree, specs):
     return fn(tree, specs)
 
 
+def block_of(shape, spec, mesh):
+    """This rank's block of a tensor of ``shape`` under ``spec``: one
+    ``(start, size)`` a dim. A checkpoint tensor's block comes from its
+    leaf's spec without the stack dims (``models/hf_import.py``,
+    ``core/artifact.py::load_delta``), read by
+    ``core/artifact.py::StoredTensor.read``."""
+    block = []
+    for dim, n_dim in enumerate(shape):
+        axis = spec[dim] if dim < len(spec) else None
+        if axis is None:
+            block.append((0, n_dim))
+            continue
+        n = axis_size(mesh, axis)
+        if n_dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over the {axis} axis ({n})")
+        size = n_dim // n
+        block.append((axis_index(mesh, axis) * size, size))
+    return block
+
+
 def shard_tensor(x: torch.Tensor, spec, mesh, device=None) -> torch.Tensor:
     """This rank's contiguous block of ``x`` under ``spec``, on ``device``
     (default: ``x``'s): from a host tensor only the block is copied to
     the card."""
-    for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        n = axis_size(mesh, axis)
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                             f"over the {axis} axis ({n})")
-        size = x.shape[dim] // n
-        x = x.narrow(dim, axis_index(mesh, axis) * size, size)
+    for dim, (start, size) in enumerate(block_of(x.shape, spec, mesh)):
+        if size != x.shape[dim]:
+            x = x.narrow(dim, start, size)
     if device is not None:
         x = x.to(device)
     return x.contiguous()
@@ -311,10 +326,15 @@ def shard_tree(tree, specs, mesh, device=None):
     return _map(lambda x, s: shard_tensor(x, s, mesh, device), tree, specs)
 
 
-def gather_tree(tree, specs, mesh, device=None):
+def gather_tree(tree, specs, mesh, device=None, keep: bool = True):
     """Inverse of :func:`shard_tree` (every rank gets the whole tree, on
-    ``device`` if given)."""
-    return _map(lambda x, s: gather_tensor(x, s, mesh, device), tree, specs)
+    ``device`` if given). ``keep=False``: the rank takes part in every
+    leaf's gather and drops the leaf at once (None in its place), so it
+    never holds more than one whole leaf (on the leaf's own device)."""
+    def gather(x, spec):
+        whole = gather_tensor(x, spec, mesh, device if keep else None)
+        return whole if keep else None
+    return _map(gather, tree, specs)
 
 
 def shard_model(cfg: ModelConfig, params, mesh):
@@ -341,6 +361,73 @@ def shard_stack(cfg: ModelConfig, stack, mesh, device=None):
     vocab = (stack.vocab_sizes if device is None
              else stack.vocab_sizes.to(device))
     return stack._replace(params=params, deltas=deltas, vocab_sizes=vocab)
+
+
+def check_stack_tp(cfg: ModelConfig, stack, tp: int) -> None:
+    """Raise ``ValueError`` unless a serving stack (whole; its leaves may
+    be meta tensors) splits over a model axis of ``tp``: the KV heads,
+    query heads and padded vocabulary, and each W4 row-parallel K into
+    whole 128-row groups a rank (JAX's mesh checks,
+    ``engine.py:216-257``)."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"num_kv_heads {cfg.num_kv_heads} must "
+                         f"be a multiple of the model axis ({tp})")
+    if tp == 1:
+        return
+    if cfg.num_heads % tp:
+        raise ValueError(
+            f"num_heads {cfg.num_heads} must be a multiple of the "
+            f"model axis ({tp}) for the per-rank decode path")
+    vmax = int(stack.params["embed"].shape[-2])
+    if vmax % tp:
+        raise ValueError(
+            f"padded vocab {vmax} must be a multiple of the model "
+            f"axis ({tp}); re-pad the tenant stack")
+    for name, w in stack.params["layers"].items():
+        # Each rank's row-parallel int4 slice must hold whole groups
+        # with their own scale rows.
+        if (isinstance(w, Int4Weight) and name in ROW_PARALLEL
+                and w.scale.shape[-2] % tp):
+            raise ValueError(
+                f"W4 + tp={tp}: {name}'s K="
+                f"{w.scale.shape[-2] * INT4_GROUP} doesn't split into "
+                f"whole {INT4_GROUP}-row groups per model shard; align "
+                f"K to INT4_GROUP*tp")
+
+
+def _pairs(a, b, path=()):
+    """``(path, leaf of a, leaf of b)`` of two trees of one structure."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise ValueError(f"{'/'.join(path) or 'tree'}: keys "
+                             f"{sorted(a)} != {sorted(b)}")
+        for k in sorted(a):
+            yield from _pairs(a[k], b[k], path + (k,))
+    elif isinstance(a, tuple):
+        if type(a) is not type(b):
+            raise ValueError(f"{'/'.join(path)}: {type(a).__name__} != "
+                             f"{type(b).__name__}")
+        names = getattr(a, "_fields", None) or map(str, range(len(a)))
+        for f, x, y in zip(names, a, b):
+            yield from _pairs(x, y, path + (f,))
+    else:
+        yield "/".join(path), a, b
+
+
+def check_stack_shard(cfg: ModelConfig, local, whole, mesh) -> None:
+    """Raise ``ValueError`` unless ``local`` (a rank's stack, loaded as a
+    shard) has, leaf for leaf, the shapes and dtypes :func:`shard_stack`
+    gives this rank of ``whole`` (the whole stack, e.g. as meta
+    tensors)."""
+    want = shard_stack(cfg, whole, mesh)
+    for path, got, exp in _pairs((local.params, local.deltas,
+                                  local.vocab_sizes),
+                                 (want.params, want.deltas,
+                                  want.vocab_sizes)):
+        if got.shape != exp.shape or got.dtype != exp.dtype:
+            raise ValueError(
+                f"loaded shard {path}: {tuple(got.shape)} {got.dtype}, the "
+                f"whole stack's shard is {tuple(exp.shape)} {exp.dtype}")
 
 
 def shard_cache(cache, mesh):

@@ -21,12 +21,14 @@ the same, element by element).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ..ops.binary_matmul import matmul_f32
 from ..ops.packing import _to_i32
+from ..parallel.collectives import pmax
 
 
 class Int8Weight(NamedTuple):
@@ -38,9 +40,13 @@ class Int8Weight(NamedTuple):
     scale: torch.Tensor
 
 
-def quantize_int8(w: torch.Tensor) -> Int8Weight:
+def quantize_int8(w: torch.Tensor, mesh=None) -> Int8Weight:
+    """``mesh``: ``w`` is a row-parallel rank's K rows; each column's
+    absmax is then taken over the model axis too (a max all-reduce, which
+    rounds nothing), so the result is this rank's block of the whole
+    matrix's, bit for bit."""
     w32 = w.to(torch.float32)
-    absmax = w32.abs().amax(dim=-2)                      # per output column
+    absmax = pmax(w32.abs().amax(dim=-2), mesh)          # per output column
     scale = torch.clamp(absmax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(w32 / scale[..., None, :]), -127, 127)
     return Int8Weight(q=q.to(torch.int8), scale=scale)
@@ -151,10 +157,33 @@ def int4_matmul(x: torch.Tensor, w: Int4Weight, compute_dtype=torch.bfloat16,
 # Whole-model conversion
 # ---------------------------------------------------------------------------
 
+def _quantized_meta(quantize, w: torch.Tensor):
+    """The leaves ``quantize`` (:func:`quantize_int8` or
+    :func:`quantize_int4`) gives a meta tensor, their shapes and dtypes
+    alone: a whole stack described from checkpoint headers
+    (``stacking.load_stack_shard``) without running PyTorch's Python meta
+    kernels."""
+    *lead, k, n = w.shape
+
+    def meta(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if quantize is quantize_int8:
+        return Int8Weight(q=meta(*w.shape, dtype=torch.int8),
+                          scale=meta(*lead, n, dtype=torch.float32))
+    if k % INT4_GROUP:
+        raise ValueError(f"K={k} must divide into {INT4_GROUP}-row groups "
+                         f"of whole words")
+    return Int4Weight(packed=meta(*lead, k // 8, n, dtype=torch.int32),
+                      scale=meta(*lead, k // INT4_GROUP, n,
+                                 dtype=torch.float32))
+
+
 def _layerwise(quantize, w: torch.Tensor):
     """``quantize`` over the leading layer axis of an ``(L, K, N)`` stack,
     one layer at a time into preallocated outputs (a 2-D matrix is
     quantized directly)."""
+    if w.is_meta:
+        return _quantized_meta(quantize, w)
     if w.ndim == 2:
         return quantize(w)
     first = quantize(w[0])
@@ -180,23 +209,32 @@ def _dequantize_layerwise(dequantize, w, dtype) -> torch.Tensor:
     return out
 
 
-def _quantize_projections(params, quantize, names=None):
+def _quantize_projections(params, quantize, names=None, mesh=None):
+    """``mesh``: the params are a rank's shards (``parallel/sharding.py::
+    param_specs``); W8's row-parallel matrices take their absmax over the
+    model axis. W4's 128-row groups stay within a rank's K rows, or
+    :func:`quantize_int4` raises."""
     from ..models.llama import PROJ_NAMES
+    from ..parallel.sharding import ROW_PARALLEL
 
     out = dict(params)
     out["layers"] = dict(params["layers"])
     for name in names or PROJ_NAMES:
-        out["layers"][name] = _layerwise(quantize, params["layers"][name])
+        q = quantize
+        if (mesh is not None and quantize is quantize_int8
+                and name in ROW_PARALLEL):
+            q = functools.partial(quantize_int8, mesh=mesh)
+        out["layers"][name] = _layerwise(q, params["layers"][name])
     return out
 
 
-def quantize_base_projections(params):
+def quantize_base_projections(params, mesh=None):
     """W8 serving mode: every compressed projection of a params dict
     becomes an :class:`Int8Weight` (per-output-column RTN on the
     layer-stacked ``(L, K, N)`` matrices). Embeddings, lm_head and norms
     keep their dtype; the model's ``_base_matmul`` dispatches on the leaf
-    type."""
-    return _quantize_projections(params, quantize_int8)
+    type. ``mesh``: on a rank's shards (:func:`_quantize_projections`)."""
+    return _quantize_projections(params, quantize_int8, mesh=mesh)
 
 
 def quantize_mixtral_base_projections(params, include_router=False):
@@ -213,7 +251,8 @@ def quantize_mixtral_base_projections(params, include_router=False):
 
 def quantize_base_projections_int4(params):
     """W4 serving mode: every compressed projection becomes an
-    :class:`Int4Weight` (about a quarter of the bf16 base's bytes)."""
+    :class:`Int4Weight` (about a quarter of the bf16 base's bytes). On a
+    rank's shards it is the same call: its groups never cross a rank."""
     return _quantize_projections(params, quantize_int4)
 
 
@@ -256,20 +295,34 @@ def quantize_base_with_delta(base: torch.Tensor, finetune: torch.Tensor):
 BASE_QUANT_MODES = ("int8", "int4")
 
 
-def quantize_base(params, mode: str):
-    """Quantize every compressed projection per ``mode`` (serving form)."""
+def quantize_base(params, mode: str, mesh=None):
+    """Quantize every compressed projection per ``mode`` (serving form).
+    ``mesh``: the params are a rank's shards, and so is the result (the
+    shard of the whole base's, bit for bit)."""
     if mode == "int8":
-        return quantize_base_projections(params)
+        return quantize_base_projections(params, mesh)
     if mode == "int4":
         return quantize_base_projections_int4(params)
     raise ValueError(f"unknown base_quant mode {mode!r}; "
                      f"expected one of {BASE_QUANT_MODES}")
 
 
-def roundtrip_base(params, mode: str, dtype=None):
+def roundtrip_base(params, mode: str, dtype=None, mesh=None):
     """``deq(q(params))`` — the dense base the deltas must be taken
-    against so that W8/W4 + W1 serving is exact."""
-    return dequantize_base_projections(quantize_base(params, mode), dtype)
+    against so that W8/W4 + W1 serving is exact. ``mesh``: on a rank's
+    shards, as :func:`quantize_base`."""
+    return dequantize_base_projections(quantize_base(params, mode, mesh),
+                                       dtype)
+
+
+def roundtrip_matrix(w: torch.Tensor, mode: str, dtype=None) -> torch.Tensor:
+    """:func:`roundtrip_base` of one whole ``(K, N)`` projection."""
+    if mode == "int8":
+        return dequantize_int8(quantize_int8(w), dtype or torch.bfloat16)
+    if mode == "int4":
+        return dequantize_int4(quantize_int4(w), dtype or torch.bfloat16)
+    raise ValueError(f"unknown base_quant mode {mode!r}; "
+                     f"expected one of {BASE_QUANT_MODES}")
 
 
 def int8_delta_linear(x: torch.Tensor, qbase: Int8Weight, delta,

@@ -56,11 +56,11 @@ from ..models.config import ModelConfig
 from ..parallel.collectives import (all_gather, axis_index, axis_size,
                                     broadcast_object)
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..parallel.sharding import ROW_PARALLEL, local_config, shard_stack
-from ..research.quantized_base import INT4_GROUP, Int4Weight
+from ..parallel.sharding import (check_stack_shard, check_stack_tp,
+                                 local_config, shard_stack)
 from ..utils.profiling import StepTimer
 from .sampling import sample_tokens
-from .stacking import TenantStack, to_pair_layout
+from .stacking import StackShard, TenantStack, stack_to, to_pair_layout
 
 NEG_INF = float("-inf")
 
@@ -187,7 +187,12 @@ class Engine:
         after ``to_pair_layout(tp=)`` on a kernel route) and drops its
         reference to the rest. Over a mesh the stack may stay on the
         host: each leaf's shard alone is then copied to ``device``, so no
-        rank's card ever holds the whole stack. ``max_slots`` must split over the data
+        rank's card ever holds the whole stack. A ``StackShard``
+        (``stacking.load_stack_shard``) is this rank's shard already,
+        marked as such by its type: the engine checks its shapes against
+        the whole stack's it carries, pairs it with
+        ``to_pair_layout(local=True)`` and moves it to ``device``, and the
+        checks below run on the whole stack's sizes. ``max_slots`` must split over the data
         axis and the KV heads, query heads and padded vocabulary over the
         model axis (every route runs the same per-rank code here; JAX
         needs the last two on its Pallas route only), and a W4
@@ -198,6 +203,14 @@ class Engine:
             kernel = "cuda" if self.device.type == "cuda" else "torch"
         if kernel not in llama.CARD_KERNELS + ("torch",):
             raise ValueError(f"unknown kernel {kernel!r}")
+        shard = isinstance(stack, StackShard)
+        if shard:
+            if mesh is None:
+                raise ValueError("a StackShard is served over its mesh")
+            check_stack_shard(cfg, stack.local, stack.whole, mesh)
+            stack, whole = stack.local, stack.whole
+        else:
+            whole = stack
         if (stack.vocab_sizes.device.type != self.device.type
                 and (mesh is None or stack.vocab_sizes.device.type != "cpu")):
             raise ValueError(f"stack lives on {stack.vocab_sizes.device}, "
@@ -223,16 +236,19 @@ class Engine:
         self.mesh = mesh
         dp, tp = axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS)
         # Padded vocabulary (the sampler's mask width), before sharding.
-        self._vocab = int(stack.params["embed"].shape[-2])
+        self._vocab = int(whole.params["embed"].shape[-2])
         if mesh is not None:
-            self._check_mesh(cfg, stack, max_slots, dp, tp)
+            self._check_mesh(cfg, whole, max_slots, dp, tp)
+        del whole
         # Decode hot path: pair-packed delta layout (prefill un-pairs on
         # the fly); same bytes as the canonical layout. Under TP the
         # row-parallel colsums are per K shard.
-        self.stack = (to_pair_layout(stack, tp=tp) if llama.on_card(kernel)
-                      else stack)
+        self.stack = (to_pair_layout(stack, tp=tp, local=shard)
+                      if llama.on_card(kernel) else stack)
         del stack
-        if mesh is not None:
+        if shard:
+            self.stack = stack_to(self.stack, self.device)
+        elif mesh is not None:
             self.stack = shard_stack(cfg, self.stack, mesh, self.device)
         # The per-rank model sees its LOCAL heads (JAX's cfg_local).
         self._cfg_local = local_config(cfg, mesh)
@@ -291,34 +307,12 @@ class Engine:
 
     @staticmethod
     def _check_mesh(cfg, stack, max_slots, dp, tp):
-        """JAX's mesh checks (``engine.py:216-257``)."""
+        """JAX's mesh checks (``engine.py:216-257``) on the whole stack's
+        sizes."""
         if max_slots % dp:
             raise ValueError(f"max_slots {max_slots} must be a "
                              f"multiple of the data axis ({dp})")
-        if cfg.num_kv_heads % tp:
-            raise ValueError(f"num_kv_heads {cfg.num_kv_heads} must "
-                             f"be a multiple of the model axis ({tp})")
-        if tp == 1:
-            return
-        if cfg.num_heads % tp:
-            raise ValueError(
-                f"num_heads {cfg.num_heads} must be a multiple of the "
-                f"model axis ({tp}) for the per-rank decode path")
-        vmax = int(stack.params["embed"].shape[-2])
-        if vmax % tp:
-            raise ValueError(
-                f"padded vocab {vmax} must be a multiple of the model "
-                f"axis ({tp}); re-pad the tenant stack")
-        for name, w in stack.params["layers"].items():
-            # Each rank's row-parallel int4 slice must hold whole groups
-            # with their own scale rows.
-            if (isinstance(w, Int4Weight) and name in ROW_PARALLEL
-                    and w.scale.shape[-2] % tp):
-                raise ValueError(
-                    f"W4 + tp={tp}: {name}'s K="
-                    f"{w.scale.shape[-2] * INT4_GROUP} doesn't split into "
-                    f"whole {INT4_GROUP}-row groups per model shard; align "
-                    f"K to INT4_GROUP*tp")
+        check_stack_tp(cfg, stack, tp)
 
     # ------------------------------------------------------------------
     # Device functions

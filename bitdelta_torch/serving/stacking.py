@@ -9,11 +9,16 @@ largest (logits are masked per tenant at sampling). With compressed
 embeddings the embed / lm_head deltas stack tenant-first, ``(T, D//32,
 V)``, over the base's shared embed / head, and every tenant has the
 base's vocabulary.
+
+Over a mesh, :func:`load_stack_shard` builds a rank's shard of the stack
+straight from the checkpoint and the artifacts on disk (a
+:class:`StackShard`), so no rank ever holds the whole stack.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -39,13 +44,45 @@ class TenantStack(NamedTuple):
     num_tenants: int
 
 
+class StackShard(NamedTuple):
+    """One rank's shard of a serving stack, loaded as a shard
+    (:func:`load_stack_shard`) rather than cut from a whole one. ``local``
+    holds this rank's blocks, canonical layout; ``whole`` is the whole
+    stack as meta tensors (shapes and dtypes, no data), from which
+    ``Engine(mesh=)`` runs its mesh checks and the shapes ``local`` must
+    have (``parallel/sharding.py::check_stack_shard``)."""
+
+    local: TenantStack
+    whole: TenantStack
+
+
 def _pad_vocab(arr: torch.Tensor, target: int, axis: int) -> torch.Tensor:
-    pad = target - arr.shape[axis]
-    if pad == 0:
+    if arr.shape[axis] == target:
         return arr
     shape = list(arr.shape)
-    shape[axis] = pad
-    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+    shape[axis] = target
+    out = arr.new_zeros(shape)
+    out.narrow(axis, 0, arr.shape[axis]).copy_(arr)
+    return out
+
+
+def _stack(tensors, dim: int, device, dtype=None) -> torch.Tensor:
+    """``torch.stack(tensors, dim)`` on ``device`` (cast to ``dtype``),
+    each tensor copied into its slot of one allocation: one crosses to
+    ``device`` at a time, and on meta tensors (:func:`load_stack_shard`'s
+    whole stack) none of PyTorch's Python meta kernels runs."""
+    first = tensors[0]
+    if any(t.shape != first.shape for t in tensors):
+        raise ValueError(f"stacking tensors of shapes "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if dtype is None:
+        dtype = functools.reduce(torch.promote_types,
+                                 (t.dtype for t in tensors))
+    out = torch.empty((*first.shape[:dim], len(tensors),
+                       *first.shape[dim:]), dtype=dtype, device=device)
+    for i, t in enumerate(tensors):
+        out.select(dim, i).copy_(t)
+    return out
 
 
 def _to_device(w, device):
@@ -58,9 +95,14 @@ def _to_device(w, device):
 
 def stack_tenants(cfg: ModelConfig, base_params: Params,
                   tenants: Sequence[CompressedModel],
-                  device="cuda") -> TenantStack:
+                  device="cuda", vocab_sizes=None) -> TenantStack:
     """Build the serving stack on ``device`` from a base model and N
-    compressed tenants (tensors are moved there as they are stacked)."""
+    compressed tenants (tensors are moved there as they are stacked).
+
+    ``vocab_sizes``: each tenant's whole vocabulary, where the base and
+    tenants are a rank's shards (:func:`load_stack_shard`: their embeds
+    and heads already hold the rank's block of the padded vocabulary, so
+    their shapes do not tell the sizes)."""
     device = resolve_device(device)
     if not tenants:
         raise ValueError("need at least one tenant")
@@ -85,26 +127,26 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
         # Layer stacks take the tenant axis second, (L, T, ...); the
         # embed / lm_head deltas have no layer axis: (T, D//32, V).
         axis = 0 if name in EMBED_DELTAS else 1
-        packed = torch.stack([c.deltas[name].packed.to(device)
-                              for c in tenants], dim=axis)
-        scale = torch.stack([c.deltas[name].scale.to(device, torch.float32)
-                             for c in tenants], dim=axis)
+        packed = _stack([c.deltas[name].packed for c in tenants], axis,
+                        device)
+        scale = _stack([c.deltas[name].scale for c in tenants], axis,
+                       device, torch.float32)
         deltas[name] = BinaryDelta(packed=packed, scale=scale)
 
     compressed_embeds = "embed" in deltas
     if compressed_embeds:
         # compress_model made every tenant's deltas against the base's
         # vocabulary.
-        vocab_sizes = [int(base_params["embed"].shape[0])] * t
+        rows = [int(base_params["embed"].shape[0])] * t
     else:
-        vocab_sizes = [int(c.extras["embed"].shape[0]) for c in tenants]
-    vmax = max(vocab_sizes)
+        rows = [int(c.extras["embed"].shape[0]) for c in tenants]
+    vocab_sizes = rows if vocab_sizes is None else list(vocab_sizes)
+    vmax = max(rows)
     params: Params = {
-        "final_norm": torch.stack([c.extras["final_norm"].to(device)
-                                   for c in tenants]),
+        "final_norm": _stack([c.extras["final_norm"] for c in tenants], 0,
+                             device),
         "layers": {
-            name: torch.stack([c.extras[name].to(device) for c in tenants],
-                              dim=1)
+            name: _stack([c.extras[name] for c in tenants], 1, device)
             for name in LAYER_EXTRA_NAMES if name in tenants[0].extras
         },
     }
@@ -118,13 +160,13 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
         if "lm_head" in deltas:
             params["lm_head"] = base_params["lm_head"].to(device)
     else:
-        params["embed"] = torch.stack(
-            [_pad_vocab(c.extras["embed"].to(device), vmax, 0)
-             for c in tenants])
+        params["embed"] = _stack(
+            [_pad_vocab(c.extras["embed"], vmax, 0) for c in tenants], 0,
+            device)
         if all("lm_head" in c.extras for c in tenants):
-            params["lm_head"] = torch.stack(
-                [_pad_vocab(c.extras["lm_head"].to(device), vmax, 1)
-                 for c in tenants])
+            params["lm_head"] = _stack(
+                [_pad_vocab(c.extras["lm_head"], vmax, 1) for c in tenants],
+                0, device)
         elif any("lm_head" in c.extras for c in tenants):
             raise ValueError("mixing tied and untied lm_head tenants")
     return TenantStack(params=params, deltas=deltas,
@@ -134,39 +176,42 @@ def stack_tenants(cfg: ModelConfig, base_params: Params,
                        num_tenants=t)
 
 
-def _pair(d: BinaryDelta, tp: int) -> PairedBinaryDelta:
-    """:func:`pair_delta`; with ``tp > 1`` the colsum is per K shard,
-    ``(*, tp, N)`` = ``2*popcount(shard) - K/tp`` (a row-parallel
-    projection's model-axis shard holds K/tp rows)."""
-    if tp == 1:
+def _pair(d: BinaryDelta, shards: Optional[int]) -> PairedBinaryDelta:
+    """:func:`pair_delta`; with ``shards`` the colsum is per K shard,
+    ``(*, shards, N)`` = ``2*popcount(shard) - K/shards`` (a row-parallel
+    projection's model-axis shard holds K/tp rows; a rank's own shard is
+    one)."""
+    if shards is None:
         return pair_delta(d)
     *lead, k32, n = d.packed.shape
-    per_shard = d.packed.reshape(*lead, tp, k32 // tp, n)
+    per_shard = d.packed.reshape(*lead, shards, k32 // shards, n)
     colsum = (2.0 * column_popcount(per_shard)
-              - (k32 // tp) * 32).to(torch.float32)
+              - (k32 // shards) * 32).to(torch.float32)
     return PairedBinaryDelta(packed_pairs=repack_pairs(d.packed),
                              colsum=colsum,
                              scale=d.scale.to(torch.float32))
 
 
-def _pair_by_layer(d: BinaryDelta, tp: int = 1) -> PairedBinaryDelta:
+def _pair_by_layer(d: BinaryDelta,
+                   shards: Optional[int] = None) -> PairedBinaryDelta:
     """:func:`_pair` of a stacked delta one slice of its leading axis (a
     layer; the tenant of an lm_head delta) at a time into preallocated
     outputs, so the conversion's int64 transients stay one slice's size."""
-    first = _pair(BinaryDelta(d.packed[0], d.scale[0]), tp)
+    first = _pair(BinaryDelta(d.packed[0], d.scale[0]), shards)
     out = PairedBinaryDelta(*(torch.empty((d.packed.shape[0], *f.shape),
                                           dtype=f.dtype, device=f.device)
                               for f in first))
     for layer in range(d.packed.shape[0]):
         part = first if layer == 0 else _pair(
-            BinaryDelta(d.packed[layer], d.scale[layer]), tp)
+            BinaryDelta(d.packed[layer], d.scale[layer]), shards)
         for dst, src in zip(out, part):
             dst[layer] = src
     return out
 
 
 def to_pair_layout(stack: TenantStack, *, tp: int = 1,
-                   in_place: bool = False) -> TenantStack:
+                   in_place: bool = False,
+                   local: bool = False) -> TenantStack:
     """Convert delta stacks to the pair-packed serving layout of the pair
     decode kernel. ``embed`` (read by a gather, not a matmul) and the
     Mixtral ``router`` stay canonical by name, as in JAX; so does a
@@ -184,6 +229,11 @@ def to_pair_layout(stack: TenantStack, *, tp: int = 1,
     sizes: a column-parallel projection whose N/tp is not a multiple of
     256 stays canonical, and so does a row-parallel one whose K words do
     not split over ``tp``. At ``tp=1`` nothing changes.
+
+    ``local=True``: the stack is already one rank's shard
+    (:func:`load_stack_shard`). Its sizes are the local ones, and a
+    row-parallel colsum takes a shard axis of one, ``(L, T, 1, N)``:
+    the result is this rank's shard of the whole stack's pair layout.
 
     ``in_place=True`` replaces the entries of ``stack.deltas`` itself,
     one projection at a time, so each canonical stack is freed as soon as
@@ -206,12 +256,14 @@ def to_pair_layout(stack: TenantStack, *, tp: int = 1,
             d = BinaryDelta(packed=unpair_packed(d.packed_pairs),
                             scale=d.scale)
         k32, n = d.packed.shape[-2], d.packed.shape[-1]
+        shards = None
         if name in row_par and tp > 1:
-            eligible = n % PAIR_BLOCK == 0 and k32 % tp == 0
+            shards = 1 if local else tp
+            eligible = n % PAIR_BLOCK == 0 and k32 % shards == 0
         else:
-            eligible = (n // tp if name in col_par else n) % PAIR_BLOCK == 0
-        deltas[name] = (_pair_by_layer(d, tp if name in row_par else 1)
-                        if eligible else d)
+            eligible = (n // tp if name in col_par and not local
+                        else n) % PAIR_BLOCK == 0
+        deltas[name] = _pair_by_layer(d, shards) if eligible else d
         del d
     return stack._replace(deltas=deltas)
 
@@ -252,3 +304,64 @@ def stack_nbytes(stack: TenantStack) -> Dict[str, float]:
     return {"base_bytes": float(base), "deltas_bytes": float(packed),
             "tenant_extras_bytes": float(extras),
             "per_tenant_bytes": float((packed + extras) / stack.num_tenants)}
+
+
+def stack_to(stack: TenantStack, device) -> TenantStack:
+    """Every tensor of a stack on ``device``, one leaf at a time."""
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(move(v) for v in tree))
+        return tree.to(device)
+    return stack._replace(params=move(stack.params),
+                          deltas=move(stack.deltas),
+                          vocab_sizes=stack.vocab_sizes.to(device))
+
+
+def load_stack_shard(cfg: ModelConfig, base_dir: str,
+                     delta_paths: Sequence[str], mesh, *, dtype,
+                     device="cuda", base_quant: Optional[str] = None
+                     ) -> StackShard:
+    """This rank's shard of ``stack_tenants`` over the HF checkpoint
+    ``base_dir`` and the delta artifacts ``delta_paths``, read straight
+    from the files: no rank builds the whole stack.
+
+    The whole stack is first built from the headers alone, as meta
+    tensors: the padded vocabulary and every tenant's size come from it,
+    and a world the engine would refuse (``sharding.check_stack_tp``) is
+    refused before any block is read. Then each rank reads its blocks
+    (``load_hf_params(mesh=)``, ``load_delta(mesh=, vocab=)``: a tenant's
+    embed and head rows past its own vocabulary are zeros, as
+    :func:`stack_tenants` pads them), quantizes the base on its shards
+    where ``base_quant`` says (``quantize_base(mesh=)``) and stacks them
+    on ``device``. The host holds one checkpoint block at a time. The
+    result, paired by ``to_pair_layout(local=True)``, equals
+    ``shard_stack(to_pair_layout(whole, tp=tp))`` bit for bit."""
+    from ..core.artifact import load_delta
+    from ..models.hf_import import load_hf_params
+    from ..parallel.collectives import axis_size
+    from ..parallel.mesh import MODEL_AXIS
+    from ..parallel.sharding import check_stack_tp
+    from ..research.quantized_base import quantize_base
+
+    _, mbase = load_hf_params(base_dir, cfg, dtype, device="meta")
+    mtenants = [load_delta(p, device="meta", cfg=cfg)[0]
+                for p in delta_paths]
+    if base_quant is not None:
+        mbase = quantize_base(mbase, base_quant)
+    whole = stack_tenants(cfg, mbase, mtenants, device="meta")
+    check_stack_tp(cfg, whole, axis_size(mesh, MODEL_AXIS))
+    if "embed" in whole.deltas:
+        vocab_sizes = [int(mbase["embed"].shape[0])] * len(mtenants)
+    else:
+        vocab_sizes = [int(c.extras["embed"].shape[0]) for c in mtenants]
+    vmax = int(whole.params["embed"].shape[-2])
+    del mbase, mtenants
+    _, base = load_hf_params(base_dir, cfg, dtype, device, mesh=mesh)
+    if base_quant is not None:
+        base = quantize_base(base, base_quant, mesh)
+    tenants = [load_delta(p, device, cfg=cfg, mesh=mesh, vocab=vmax)[0]
+               for p in delta_paths]
+    local = stack_tenants(cfg, base, tenants, device, vocab_sizes)
+    return StackShard(local=local, whole=whole)

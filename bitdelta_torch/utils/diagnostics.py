@@ -17,11 +17,22 @@ from ..models.llama import PROJ_NAMES
 _MOE_NAMES = ("w1", "w3", "w2", "router")
 
 
+def stat_names(cfg):
+    """The matrices :func:`weight_corr_stddev` takes of ``cfg``'s params."""
+    if getattr(cfg, "num_experts", 0):
+        from ..models.mixtral import ATTN_PROJS
+
+        return list(ATTN_PROJS) + list(_MOE_NAMES)
+    return list(PROJ_NAMES)
+
+
 def weight_corr_stddev(base, fine) -> Dict[str, float]:
     """``{"corr": mean Pearson correlation, "stddev": mean population
     stddev of fine - base}`` over (projection, layer), in fp32 one layer
     at a time. Llama-family params take JAX's projections; Mixtral params
-    (which JAX's function cannot take) add the experts and the router."""
+    (which JAX's function cannot take) add the experts and the router.
+    A leaf may be any iterable of its layers (``cli/train.py`` reads them
+    from the checkpoints one at a time)."""
     corrs, stds = [], []
     names = [n for n in PROJ_NAMES + _MOE_NAMES if n in base["layers"]]
     for name in names:

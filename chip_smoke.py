@@ -43,16 +43,17 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    gradients of the two autograd Functions of the training path (the
    trainable binary matmul, flash prefill) against autograd of their
    plain versions;
-4. serving: a Mistral-7B base at its full width and 32 layers (random
-   bf16 weights from a seeded generator) with three synthetic fine-tunes
+4. serving: a Mistral-7B base at its full width cut to 16 of its 32
+   layers (``SERVE_LAYERS``; random bf16 weights from a seeded
+   generator) with three synthetic fine-tunes
    compressed by the port, one written and read back through the
    artifact I/O, stacked, and served by ``Engine`` behind the HTTP
    server; every serving kernel's launch counter must be > 0 afterwards;
 4b. density: the same base quantized to W4 (``quantize_base(base,
    "int4")``), three fine-tunes compressed against the dequantized base
    (one written with ``base_quant="int4"`` and read back), served by
-   ``Engine(kv_dtype="int8")`` over HTTP; the W4 kernel must launch 224
-   times (7 projections x 32 layers) per decode step, the int8 cache
+   ``Engine(kv_dtype="int8")`` over HTTP; the W4 kernel must launch 112
+   times (7 projections x 16 layers) per decode step, the int8 cache
    must reach flash decode, and every other serving kernel must launch;
 5. parity: a 2-layer full-width model's prefill and decode logits with
    the kernels on the card against the same model on the CPU with the
@@ -70,12 +71,13 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    every training kernel's launch counter must be > 0 afterwards;
 7. train parity: one distillation step of a 2-layer full-width fp32
    model through the kernels against the same step on the plain path;
-8. mixtral: every earlier world freed, a full-width 32-layer
-   Mixtral-8x7B over a W8 base with two synthetic fine-tunes, built one
-   layer at a time on the card (no dense bf16 base), one tenant written
-   and read back through the artifact I/O; a B=8 prefill and three
-   canonical-layout decode steps (the canonical tenant delta kernel must
-   launch 224 times a step); the stack converted to the pair layout in
+8. mixtral: every earlier world freed, a full-width Mixtral-8x7B cut to
+   16 of its 32 layers (``MIX_LAYERS``; depth only) over a W8 base with
+   two synthetic fine-tunes, built one layer at a time on the card (no
+   dense bf16 base), one tenant written and read back through the
+   artifact I/O; a B=8 prefill and three canonical-layout decode steps
+   (the canonical tenant delta kernel must launch 112 times, 7 a layer,
+   a step); the stack converted to the pair layout in
    place and the same step taken again (logits within 2% of the
    canonical step's); then ``Engine(model=mixtral)`` over HTTP with both
    tenants, as phase 4;
@@ -141,17 +143,26 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    by call, a token differing only at a near tie), and every row but 6
    launches on each rank in the meshed runs alone, their single-process
    references counted apart (the ``(1, 1)`` mesh is phase 11a's check);
-   (b) Llama-2-70B at full width cut to 2 layers (depth only), two
-   tenants, built from one seed on each rank: a B=8 prefill and one
-   decode step at tp=2 on ``"cuda"`` and ``"cuda_fused"`` within 2% of
-   the logit scale of the same world served by one process at tp=1 (the
-   launches counted from the meshed engines alone), the share of
-   agreeing greedy ``generate`` tokens printed, each meshed engine built
-   from the stack on the host (its rank's block of each leaf copied to
-   the card, which holds no more than the shard and one leaf while the
-   engine is built), and each rank's shard and peak bytes, a decode
-   step's wall and device ms with its top kernels, and its psums timed
-   alone; (c) ``python -m
+   (b, run first on each rank) Llama-2-70B at full width cut to 2
+   layers (depth only), two tenants, written to disk by the parent (an
+   HF checkpoint in bf16 by the port's exporter and two artifacts), each
+   rank reading its own blocks of them to the card
+   (``load_stack_shard``): its host's resident set (``VmRSS`` sampled
+   every 2 ms while it loads and builds its first engine) may grow by no
+   more than its shard and the
+   largest checkpoint tensor, and its stack, paired, must equal the
+   shard of the whole stack built from the same files, bit for bit; a
+   B=8 prefill and one decode step at tp=2 on ``"cuda"`` and
+   ``"cuda_fused"`` within 2% of the logit scale of the same world
+   served by one process at tp=1 (the launches counted from the meshed
+   engines alone), the share of agreeing greedy ``generate`` tokens
+   printed, each meshed engine built on the loaded shard (the card
+   holding no more than it, its paired copy and one leaf), and each
+   rank's shard and peak bytes, a decode step's wall and device ms with
+   its top kernels, and its psums timed alone; (a) ends with W8 and W4
+   bases on disk quantized on each rank's shards, bit-equal to the
+   shard of the whole quantized stack, their meshed engines' tokens the
+   single-process engine's; (c) ``python -m
    torch.distributed.run --nproc-per-node 2 -m bitdelta_torch.cli.serve
    --mesh 1,2`` over a tiny fp32 checkpoint written by the phase: one
    broadcast ``/generate`` over HTTP equal to ``--mesh 1,1``'s tokens,
@@ -176,9 +187,12 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    process's; rows 4, 5 and 6 launch on each rank in the meshed runs of
    (a) and of (b, c) alone; (d) ``python -m torch.distributed.run
    --nproc-per-node 2 -m bitdelta_torch.cli.train --mesh 1,2`` over a
-   tiny fp32 HF pair written by the phase: ``diff_untrained`` and
-   ``diff`` equal to ``--mesh 1,1``'s (words bit-exact, scales within
-   1e-5), written by rank 0 alone, both ranks exiting 0.
+   tiny fp32 HF pair written by the phase, each rank reading its own
+   blocks: ``diff_untrained`` and ``diff`` equal to ``--mesh 1,1``'s
+   (words bit-exact, scales within 1e-5), written by rank 0 alone, both
+   ranks exiting 0; ``--save_full_model``'s export, streamed from the
+   checkpoint, byte for byte ``save_full_model``'s of the whole base and
+   the run's own deltas, and within 1e-5 of ``--mesh 1,1``'s.
 
 Prints one JSON line per kernel check, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line, and finally
@@ -2034,6 +2048,11 @@ def kernel_checks(dev):
 # 4. The serving path end to end
 # ---------------------------------------------------------------------------
 
+# Phases 4 and 4b serve Mistral-7B cut to 16 of its 32 layers (depth only,
+# to make room for phase 12b's checkpoint on disk).
+SERVE_LAYERS = 16
+
+
 def synthetic_finetune(cfg, base, gen, scale=0.002):
     """base + seeded noise, one layer of one projection at a time (no fp32
     copy of a whole stack exists)."""
@@ -2330,19 +2349,9 @@ def serve(cfg, stack, dev, name, path="serving", kv_dtype=None, model=None,
 
 def stack_to_cpu(stack):
     """A copy of a TenantStack with every tensor on the CPU."""
-    from bitdelta_torch.serving.stacking import TenantStack
+    from bitdelta_torch.serving.stacking import stack_to
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return type(tree)(*(to_cpu(v) for v in tree))
-        return tree.cpu()
-
-    return TenantStack(params=to_cpu(stack.params),
-                       deltas=to_cpu(stack.deltas),
-                       vocab_sizes=stack.vocab_sizes.cpu(),
-                       num_tenants=stack.num_tenants)
+    return stack_to(stack, "cpu")
 
 
 PARITY_RUNS = (  # (label, base_quant, kv_dtype, kernel, compress_embeddings)
@@ -2611,6 +2620,10 @@ def train_parity(cfg_full, dev):
 # ---------------------------------------------------------------------------
 
 MIX_TENANTS, MIX_NOISE = 2, 0.002
+# Mixtral-8x7B cut to 16 of its 32 layers (depth only, to make room for
+# phase 12b's checkpoint on disk): every projection and expert at its
+# full width.
+MIX_LAYERS = 16
 
 
 def build_mixtral_world(cfg, dev, seed=21):
@@ -2869,14 +2882,16 @@ def w8_cast_ms(stack):
 
 
 def mixtral(dev, name):
-    """Phase 8: the full-width Mixtral-8x7B world, its artifact, the
-    canonical decode (row 7), the pair layout, then the engine over
-    HTTP."""
+    """Phase 8: the full-width Mixtral-8x7B world at MIX_LAYERS layers,
+    its artifact, the canonical decode (row 7), the pair layout, then the
+    engine over HTTP."""
+    import dataclasses
+
     from bitdelta_torch.core.artifact import load_delta, save_delta
     from bitdelta_torch.models import mixtral as mx
     from bitdelta_torch.serving.stacking import to_pair_layout
 
-    cfg = mx.mixtral_8x7b()
+    cfg = dataclasses.replace(mx.mixtral_8x7b(), num_layers=MIX_LAYERS)
     free_before, total = torch.cuda.mem_get_info()
     stack, report = build_mixtral_world(cfg, dev)
     report.update(card=name, layers=cfg.num_layers,
@@ -3004,7 +3019,7 @@ def mixtral(dev, name):
             f"{7 * cfg.num_layers} of row 1 and none of row 7")
     # Two x grids (the pair kernel's 12-bit per-row one, row 7's 14-bit
     # global one) of one function. In bf16 every layer rounds each
-    # projection once, and over 32 layers the grids' one-ulp differences
+    # projection once, and over 16 layers the grids' one-ulp differences
     # grow as the card's and the CPU's do; that distance is recorded. In
     # fp32 the layouts are held to 2% of the logit scale at the rows
     # whose routing agrees at every layer (at least 6 of 8).
@@ -3012,7 +3027,7 @@ def mixtral(dev, name):
     report["pair_vs_canonical_bf16"] = held_logits(
         paired[:, 0].float(), first[:, 0].float(), agree.to(dev).float(),
         "pair vs canonical decode, bf16", limit=None)
-    # How far bf16 alone moves the same canonical step over 32 layers.
+    # How far bf16 alone moves the same canonical step over 16 layers.
     report["canonical_bf16_vs_fp32"] = held_logits(
         first[:, 0].float(), canon32[:, 0],
         routing_agreement(route_canon, route32)[:, 0].to(dev).float(),
@@ -4289,15 +4304,100 @@ def tp_mixtral_stack(dev):
     return cfg, stack_tenants(cfg, base, tenants, device=dev)
 
 
-def tp_tiny(dev, meshes, launches):
+def write_tp_tiny_worlds(root, dev):
+    """12a's W8 and W4 worlds on disk: the serving check's base (2 KV
+    heads) as an HF checkpoint (bf16, by the port's exporter) and, for
+    each of ``int8`` and ``int4``, two tenants' artifacts taken against
+    the round trip of the base read back (their ``base_quant`` set).
+    Returns ``{"base": dir, "tenants": {mode: [paths]}}``."""
+    from bitdelta_torch.core.artifact import save_delta
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models.hf_import import load_hf_params
+    from bitdelta_torch.research.quantized_base import roundtrip_base
+    from bitdelta_torch.utils import compiled_check as cc
+
+    cfg = cc.tp_check_config()
+    write_hf_checkpoint(cfg, cc.check_world(cfg, dev), Path(root) / "base",
+                        shards=1)
+    _, base = load_hf_params(str(Path(root) / "base"), cfg, torch.float32,
+                             dev)
+    out = {"base": str(Path(root) / "base"), "tenants": {}}
+    for mode in ("int8", "int4"):
+        deq = roundtrip_base(base, mode, torch.float32)
+        out["tenants"][mode] = []
+        for t in range(2):
+            fine = dict(deq)
+            fine["layers"] = {k: v * (1.01 + 0.01 * t) if v.ndim == 3
+                              else v for k, v in deq["layers"].items()}
+            fine["embed"] = deq["embed"] * (1.01 + 0.01 * t)
+            path = str(Path(root) / f"{mode}_{t}.safetensors")
+            save_delta(path, compress_model(deq, fine), cfg, base_quant=mode)
+            out["tenants"][mode].append(path)
+    return out
+
+
+def tp_quantized_from_disk(dev, mesh, launches, world):
+    """12a's W8 and W4 worlds loaded on each rank's shards: the base
+    quantized on the shards (``quantize_base(mesh=)``; W8's row-parallel
+    absmax over the model axis) must give, paired, the shard of the whole
+    stack quantized whole, bit for bit; the meshed engine on the loaded
+    shard (its launches added to ``launches``) must give the
+    single-process engine's tokens."""
+    from bitdelta_torch.core.artifact import load_delta
+    from bitdelta_torch.models.hf_import import load_hf_params
+    from bitdelta_torch.parallel.sharding import shard_stack
+    from bitdelta_torch.research.quantized_base import quantize_base
+    from bitdelta_torch.serving.engine import Engine, Request
+    from bitdelta_torch.serving.stacking import (load_stack_shard,
+                                                 stack_tenants,
+                                                 to_pair_layout)
+    from bitdelta_torch.utils import compiled_check as cc
+
+    cfg = cc.tp_check_config()
+    reqs = [dict(prompt_ids=[3, 1, 4, 1, 5], tenant_id=t, max_new_tokens=4)
+            for t in range(2)]
+    out = {}
+    for mode, paths in world["tenants"].items():
+        shard = load_stack_shard(cfg, world["base"], paths, mesh,
+                                 dtype=torch.float32, device=dev,
+                                 base_quant=mode)
+        _, base = load_hf_params(world["base"], cfg, torch.float32, dev)
+        whole = stack_tenants(cfg, quantize_base(base, mode),
+                              [load_delta(p, dev)[0] for p in paths], dev)
+        want = shard_stack(cfg, to_pair_layout(whole, tp=TP_RANKS), mesh)
+        got = to_pair_layout(shard.local, tp=TP_RANKS, local=True)
+        pairs = list(zip(_tree_leaves((got.params, got.deltas)),
+                         _tree_leaves((want.params, want.deltas))))
+        require(pairs and all(a.dtype == b.dtype and torch.equal(a, b)
+                              for a, b in pairs),
+                f"12a {mode}: the base quantized on the shards differs from "
+                f"the shard of the whole quantized stack")
+        single = [list(map(int, o)) for o in Engine(
+            cfg, whole, max_slots=2, max_seq=64, prefill_buckets=(16,),
+            kernel="cuda", device=dev).generate([Request(**r)
+                                                 for r in reqs])]
+        with counted(launches):
+            tokens = _mesh_tokens(Engine(
+                cfg, shard, max_slots=2, max_seq=64, prefill_buckets=(16,),
+                kernel="cuda", device=dev, mesh=mesh),
+                [Request(**r) for r in reqs])
+        require(tokens == single, f"12a {mode} from disk at (1, 2): "
+                                  f"{tokens} != {single}")
+        out[mode] = {"leaves_bit_equal": len(pairs), "tokens": tokens}
+    return out
+
+
+def tp_tiny(dev, meshes, launches, world):
     """12a on one rank: the serving check's fp32 two-tenant world (2 KV
     heads) on each mesh, both kernel routes, a cache of the compute dtype
     and the int8 one, and its W4 base: every meshed engine must give the
     single-process engine's tokens. Then the Mixtral world at (1, 2): a
     teacher-forced step's logits against one process's, and the meshed
     engine's ``generate`` held call by call to the single-process
-    engine's (:func:`held_generate_logits`). The meshed runs' launches,
-    and only theirs, are added to ``launches``."""
+    engine's (:func:`held_generate_logits`). Then the W8 and W4 worlds
+    of ``world`` loaded on the shards (:func:`tp_quantized_from_disk`).
+    The meshed runs' launches, and only theirs, are added to
+    ``launches``."""
     from bitdelta_torch.models import llama, mixtral
     from bitdelta_torch.parallel.collectives import all_gather
     from bitdelta_torch.parallel.sharding import (gather_tree, local_config,
@@ -4397,6 +4497,7 @@ def tp_tiny(dev, meshes, launches):
     require(all(torch.equal(a, b) for a, b in zip(
         _tree_leaves(back), _tree_leaves((full.params, full.deltas)))),
         "12a: the gathered Mixtral shards differ from the whole stack")
+    out["from_disk"] = tp_quantized_from_disk(dev, mesh, launches, world)
     return out
 
 
@@ -4416,25 +4517,112 @@ def _logit_err(got, want):
             .float().mean().item()}
 
 
-def tp_70b(dev, mesh, rank, smi):
+def vm_rss_bytes():
+    """This process's resident set now (``VmRSS`` of
+    ``/proc/self/status``: anonymous and file-backed pages alike)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class PeakRss:
+    """This process's resident set over a block: ``VmRSS`` read before
+    it, every ``interval`` seconds by a thread while it runs, and after
+    it. The card's machine gives no ``VmHWM``, and a spawned process's
+    ``ru_maxrss`` starts at its parent's resident set (it carries over
+    the fork), so the peak is sampled."""
+
+    def __init__(self, interval=0.002):
+        self.interval = interval
+        self.samples = []
+        self._stop = threading.Event()
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append(vm_rss_bytes())
+            self._stop.wait(self.interval)
+
+    def __enter__(self):
+        self.before = vm_rss_bytes()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.after = vm_rss_bytes()
+        self.peak = max(self.samples + [self.before, self.after])
+
+    def report(self):
+        return {"vm_rss_before_bytes": self.before,
+                "vm_rss_peak_bytes": self.peak,
+                "vm_rss_after_bytes": self.after,
+                "increase_bytes": self.peak - self.before,
+                "samples": len(self.samples),
+                "interval_s": self.interval}
+
+
+def write_tp_70b_world(root, dev):
+    """12b's world on disk: Llama-2-70B at full width, TP_LAYERS layers,
+    built on the card from one seed, as an HF checkpoint in bf16 (two
+    files, by the port's exporter) and two tenants' artifacts (synthetic
+    fine-tunes, their embed and head kept dense). Returns ``{"base": dir,
+    "tenants": [paths], "largest_tensor_bytes": n}``."""
+    import dataclasses
+
+    from bitdelta_torch.core.artifact import save_delta, stored_tensors
+    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.models import llama
+    from bitdelta_torch.models.config import llama2_70b
+
+    cfg = dataclasses.replace(llama2_70b(), num_layers=TP_LAYERS)
+    Path(root).mkdir(parents=True)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    base = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+    tenants = []
+    for t in range(2):
+        comp = compress_model(base, synthetic_finetune(cfg, base, gen))
+        tenants.append(str(Path(root) / f"tenant{t}.safetensors"))
+        save_delta(tenants[-1], comp, cfg)
+        del comp
+    write_hf_checkpoint(cfg, base, Path(root) / "base", shards=2)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    files = list((Path(root) / "base").glob("*.safetensors")) + tenants
+    largest = max(t.nbytes for f in files for _, t in stored_tensors(str(f)))
+    return {"base": str(Path(root) / "base"), "tenants": tenants,
+            "largest_tensor_bytes": largest,
+            "bytes_on_disk": sum(Path(f).stat().st_size for f in files)}
+
+
+def tp_70b(dev, mesh, rank, smi, world):
     """12b on one rank: Llama-2-70B at full width, 2 layers, two tenants,
-    built on the card from one seed (the same on both ranks); rank 0 takes
-    the tp=1 references; then the stack moves to the host, paired for
-    tp=2, and each route's engine copies this rank's shard of it to the
-    card, leaf by leaf: the build may not peak above the shard and its
-    largest leaf. Returns ``(report, the meshed engines' launches)``."""
+    from ``world`` on disk (:func:`write_tp_70b_world`). Each rank reads
+    its own blocks of the checkpoint and the artifacts to the card
+    (``load_stack_shard``); its host's resident set (:class:`PeakRss`)
+    may grow by no more than its shard and the largest checkpoint
+    tensor. Its stack,
+    paired, must equal the shard of the whole stack built from the same
+    files, bit for bit; rank 0 takes the tp=1 references from that whole
+    stack. Then each route's engine runs on the loaded shard. Returns
+    ``(report, the meshed engines' launches)``."""
     import dataclasses
 
     import torch.distributed as dist
 
-    from bitdelta_torch.core.compress import compress_model
+    from bitdelta_torch.core.artifact import load_delta
     from bitdelta_torch.models import llama
     from bitdelta_torch.models.config import llama2_70b
+    from bitdelta_torch.models.hf_import import load_hf_params
     from bitdelta_torch.parallel import collectives
     from bitdelta_torch.parallel.mesh import MODEL_AXIS
-    from bitdelta_torch.parallel.sharding import local_config
+    from bitdelta_torch.parallel.sharding import local_config, shard_stack
     from bitdelta_torch.serving.engine import Engine, Request
-    from bitdelta_torch.serving.stacking import (stack_nbytes,
+    from bitdelta_torch.serving.stacking import (load_stack_shard,
+                                                 stack_nbytes,
                                                  stack_tenants,
                                                  to_pair_layout)
 
@@ -4442,19 +4630,63 @@ def tp_70b(dev, mesh, rank, smi):
     # Each rank's model sees its own heads.
     cfg_local = local_config(cfg, mesh)
     report = {"rank": rank, "card": smi, "model": "llama2_70b",
-              "layers": TP_LAYERS, "tp": TP_RANKS}
+              "layers": TP_LAYERS, "tp": TP_RANKS,
+              "checkpoint_bytes_on_disk": world["bytes_on_disk"],
+              "largest_tensor_bytes": world["largest_tensor_bytes"]}
+    torch.empty(1, device=dev).add_(1)          # CUDA is up
+    torch.cuda.synchronize()
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        shard = load_stack_shard(cfg, world["base"], world["tenants"], mesh,
+                                 dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        first = Engine(cfg, shard, max_slots=8, max_seq=128,
+                       prefill_buckets=(64,), kernel=llama.CARD_KERNELS[0],
+                       device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+    del first
+
+    def total(nb):
+        return sum(nb[k] for k in ("base_bytes", "deltas_bytes",
+                                   "tenant_extras_bytes"))
+    shard_bytes = total(stack_nbytes(shard.local))
+    whole = total(stack_nbytes(shard.whole))
+    report["host"] = dict(
+        rss.report(), shard_bytes=shard_bytes,
+        allowed_bytes=shard_bytes + world["largest_tensor_bytes"],
+        whole_stack_bytes=whole)
+    increase = report["host"]["increase_bytes"]
+    require(increase <= shard_bytes + world["largest_tensor_bytes"],
+            f"70b: rank {rank}'s host resident set grew by {increase} bytes "
+            f"loading its shard, over its shard {shard_bytes} and the "
+            f"largest tensor {world['largest_tensor_bytes']} (the whole "
+            f"stack: {whole})")
+    report["whole_stack_bytes"] = whole
+    # The whole stack from the same files, on the card: this rank's
+    # loaded shard, paired, must be its shard bit for bit.
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(71)
-    base = llama.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
-    tenants = [compress_model(base, synthetic_finetune(cfg, base, gen))
-               for _ in range(2)]
-    stack = stack_tenants(cfg, base, tenants, device=dev)
-    del base, tenants
+    _, base = load_hf_params(world["base"], cfg, torch.bfloat16, dev)
+    stack = stack_tenants(cfg, base, [load_delta(p, dev)[0]
+                                      for p in world["tenants"]], dev)
+    del base
+    want = shard_stack(cfg, to_pair_layout(stack, tp=TP_RANKS), mesh)
+    got = to_pair_layout(shard.local, tp=TP_RANKS, local=True)
+    pairs = list(zip(_tree_leaves((got.params, got.deltas,
+                                   got.vocab_sizes)),
+                     _tree_leaves((want.params, want.deltas,
+                                   want.vocab_sizes))))
+    differ = [i for i, (a, b) in enumerate(pairs)
+              if a.dtype != b.dtype or a.shape != b.shape
+              or not torch.equal(a, b)]
+    require(pairs and not differ,
+            f"70b: rank {rank}'s loaded shard differs from the whole "
+            f"stack's shard at leaves {differ} of {len(pairs)}")
+    report["shard_leaves_bit_equal"] = len(pairs)
+    report["whole_build_s"] = time.perf_counter() - t0
+    del want, got, pairs
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    report["build_s"] = time.perf_counter() - t0
-    report["full_stack_bytes"] = stack_nbytes(stack)
     g = torch.Generator().manual_seed(13)
     tokens = torch.randint(1, cfg.vocab_size, (8, 64), generator=g).to(dev)
     lengths = torch.tensor([64, 33, 50, 17, 64, 9, 41, 58],
@@ -4497,46 +4729,37 @@ def tp_70b(dev, mesh, rank, smi):
                 for o in eng.generate([Request(**r) for r in reqs])])
             del eng
         del paired
-        gc.collect()
-        torch.cuda.empty_cache()
-    # The meshed engines take the stack from the host, as `cli.serve
-    # --mesh` hands it over: each copies its rank's block of every leaf to
-    # the card, so no rank's card holds the whole stack. Paired for tp=2
-    # here first, on the card: the engine passes such leaves through,
-    # where it would pair canonical ones on the host's cores (phase 12c
-    # runs that path).
-    stack = stack_to_cpu(to_pair_layout(stack, tp=TP_RANKS))
+    del stack
     gc.collect()
     torch.cuda.empty_cache()
-    whole = sum(report["full_stack_bytes"][k] for k in (
-        "base_bytes", "deltas_bytes", "tenant_extras_bytes"))
-    report["whole_stack_bytes"] = whole
     dist.barrier()
-    # From here on only the meshed engines run: their launches alone.
+    # From here on only the meshed engines run, on the loaded shard:
+    # their launches alone.
     reset_counts()
     for kernel in llama.CARD_KERNELS:
         torch.cuda.reset_peak_memory_stats()
-        eng = Engine(cfg, stack, max_slots=8, max_seq=128,
+        loaded = torch.cuda.memory_allocated()
+        eng = Engine(cfg, shard, max_slots=8, max_seq=128,
                      prefill_buckets=(64,), kernel=kernel, device=dev,
                      mesh=mesh)
         if kernel == llama.CARD_KERNELS[-1]:
-            del stack                       # the shards alone stay
+            del shard                       # the engine's stack alone stays
         gc.collect()
         torch.cuda.empty_cache()
-        rep = {"resident_bytes": torch.cuda.memory_allocated(),
+        rep = {"loaded_bytes": loaded,
+               "resident_bytes": torch.cuda.memory_allocated(),
                "build_peak_bytes": torch.cuda.max_memory_allocated(),
                "shard_bytes": stack_nbytes(eng.stack)}
-        # Built leaf by leaf from the host: the card never held more than
-        # the shard and one leaf of it.
-        shard_total = sum(rep["shard_bytes"][k] for k in (
-            "base_bytes", "deltas_bytes", "tenant_extras_bytes"))
+        # The engine pairs the loaded shard on the card: never more than
+        # the loaded shard, the paired one and one leaf of it.
+        paired_total = total(rep["shard_bytes"])
         largest = max(t.numel() * t.element_size() for t in _tree_leaves(
             (eng.stack.params, eng.stack.deltas)))
-        require(rep["build_peak_bytes"] <= shard_total + largest,
+        require(rep["build_peak_bytes"] <= loaded + paired_total + largest,
                 f"70b tp {kernel}: rank {rank}'s engine build peaked at "
-                f"{rep['build_peak_bytes']} bytes, over its shard "
-                f"{shard_total} and largest leaf {largest} (the whole "
-                f"stack: {whole})")
+                f"{rep['build_peak_bytes']} bytes, over the loaded shard "
+                f"{loaded}, its paired shard {paired_total} and largest "
+                f"leaf {largest} (the whole stack: {whole})")
         logits = [x.cpu() for x in steps(cfg_local, eng.stack, kernel, mesh)]
         require(all(torch.isfinite(x).all().item() for x in logits),
                 f"70b tp {kernel}: logits not finite")
@@ -4617,9 +4840,11 @@ def tp_70b(dev, mesh, rank, smi):
     return report, read_counts()
 
 
-def _tp_rank(rank, store, out_dir):
-    """One rank of phase 12 (a spawned process): 12a, then 12b. Writes its
-    report, launches and any error to ``out_dir/rank{rank}.json``."""
+def _tp_rank(rank, store, out_dir, worlds):
+    """One rank of phase 12 (a spawned process): 12b first (its host
+    memory is read from a process that has loaded nothing else), then
+    12a. Writes its report, launches and any error to
+    ``out_dir/rank{rank}.json``."""
     import datetime
     import traceback
 
@@ -4639,13 +4864,14 @@ def _tp_rank(rank, store, out_dir):
         meshes = {s: pmesh.make_mesh(s) for s in ((1, 2), (2, 1))}
         smi = smi_line()
         t0 = time.perf_counter()
-        out["tiny_launches"] = {}
-        out["tiny"] = tp_tiny(dev, meshes, out["tiny_launches"])
-        out["tiny_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
         out["70b"], out["70b_launches"] = tp_70b(dev, meshes[(1, 2)], rank,
-                                                 smi)
+                                                 smi, worlds["70b"])
         out["70b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["tiny_launches"] = {}
+        out["tiny"] = tp_tiny(dev, meshes, out["tiny_launches"],
+                              worlds["tiny"])
+        out["tiny_s"] = time.perf_counter() - t0
         out["ok"] = True
         dist.barrier()
         dist.destroy_process_group()
@@ -4657,17 +4883,18 @@ def _tp_rank(rank, store, out_dir):
     sys.exit(0 if out["ok"] else 1)
 
 
-def _spawn_ranks(target, phase):
-    """Run ``target(rank, store, out_dir)`` in TP_RANKS spawned processes
-    on the card (gloo). Each must finish within TP_PHASE_TIMEOUT_S; a rank
-    still running then is killed and the phase fails, as does one that
-    reports a failure. Returns each rank's report."""
+def _spawn_ranks(target, phase, *args):
+    """Run ``target(rank, store, out_dir, *args)`` in TP_RANKS spawned
+    processes on the card (gloo). Each must finish within
+    TP_PHASE_TIMEOUT_S; a rank still running then is killed and the phase
+    fails, as does one that reports a failure. Returns each rank's
+    report."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         procs = [ctx.Process(target=target,
-                             args=(r, str(Path(tmp) / "store"), tmp))
+                             args=(r, str(Path(tmp) / "store"), tmp, *args))
                  for r in range(TP_RANKS)]
         for p in procs:
             p.start()
@@ -4697,10 +4924,16 @@ def _spawn_ranks(target, phase):
     return reports
 
 
-def tp_ranks(smi):
-    """12a and 12b: two spawned ranks on the card. Returns ``(launches
-    summed over ranks, reports)``."""
-    reports = _spawn_ranks(_tp_rank, "12")
+def tp_ranks(dev):
+    """12a and 12b: their worlds written to disk here, then two spawned
+    ranks on the card. Returns ``(launches summed over ranks, reports,
+    seconds writing the worlds)``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        worlds = {"70b": write_tp_70b_world(Path(tmp) / "70b", dev),
+                  "tiny": write_tp_tiny_worlds(Path(tmp) / "tiny", dev)}
+        write_s = time.perf_counter() - t0
+        reports = _spawn_ranks(_tp_rank, "12", worlds)
     for rep in reports:
         # The meshed runs' launches alone (no single-process reference).
         for kname in TP_TINY_KERNELS:
@@ -4714,7 +4947,7 @@ def tp_ranks(smi):
     launches = {k: sum(rep["tiny_launches"].get(k, 0)
                        + rep["70b_launches"][k] for rep in reports)
                 for k in KERNELS}
-    return launches, reports
+    return launches, reports, write_s
 
 
 def _serve_tokens(cmd, env, label, deltas):
@@ -4827,13 +5060,14 @@ def tp_cli(dev):
 def tp(dev, smi):
     """Phase 12: 12a and 12b on two spawned ranks, then 12c."""
     t_phase = time.perf_counter()
-    launches, reports = tp_ranks(smi)
+    launches, reports, write_s = tp_ranks(dev)
     for rep in reports:
+        emit({"phase": "tp_70b", "seconds": rep["70b_s"],
+              "worlds_write_s": write_s, **rep["70b"],
+              "launches": rep["70b_launches"]})
         emit({"phase": "tp_tiny", "rank": rep["rank"],
               "backend": rep["backend"], "seconds": rep["tiny_s"],
               "tokens": rep["tiny"], "launches": rep["tiny_launches"]})
-        emit({"phase": "tp_70b", "seconds": rep["70b_s"], **rep["70b"],
-              "launches": rep["70b_launches"]})
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5272,15 +5506,23 @@ def _train_rank(rank, store, out_dir):
 
 
 def train_cli_mesh(dev):
-    """13d: ``cli.train --mesh 1,2`` under ``torch.distributed.run`` on a
-    tiny fp32 HF pair written here, against ``--mesh 1,1``: the artifacts'
-    words bit-exact and scales within 1e-5, written by rank 0 alone, both
-    ranks exiting 0."""
+    """13d: ``cli.train --mesh 1,2 --save_full_model`` under
+    ``torch.distributed.run`` on a tiny fp32 HF pair written here (each
+    rank reading its own blocks of it), against ``--mesh 1,1``: the
+    artifacts' words bit-exact and scales within 1e-5, written by rank 0
+    alone, both ranks exiting 0; the exported model (rank 0 reads the base
+    one tensor at a time as it writes) byte for byte the file
+    ``save_full_model`` writes of the whole base fused with the run's own
+    ``diff.safetensors``, and within 1e-5 of ``--mesh 1,1``'s export."""
     import dataclasses
+    import filecmp
     import os
 
-    from bitdelta_torch.core.artifact import read_safetensors
+    from bitdelta_torch.core.artifact import load_delta, read_safetensors
+    from bitdelta_torch.core.compress import fuse_compressed
+    from bitdelta_torch.core.export import save_full_model
     from bitdelta_torch.models import llama
+    from bitdelta_torch.models.hf_import import load_hf_params
     from bitdelta_torch.utils import compiled_check as cc
 
     cfg = dataclasses.replace(cc.tp_check_config(), max_seq_len=256)
@@ -5298,7 +5540,8 @@ def train_cli_mesh(dev):
                   str(Path(tmp) / "fine"), "--num_steps", "3",
                   "--batch_size", "2", "--max_length", "16",
                   "--dataset_name", "synthetic", "--dtype", "float32",
-                  "--kernel", "cuda", "--device", dev.type]
+                  "--kernel", "cuda", "--device", dev.type,
+                  "--save_full_model"]
         runs = {"1x1": [sys.executable, *common, "--mesh", "1,1"],
                 "1x2": [sys.executable, "-m", "torch.distributed.run",
                         "--nproc-per-node", "2", "--master-addr",
@@ -5332,22 +5575,48 @@ def train_cli_mesh(dev):
             require(report[f"mesh_{label}_saved_lines"] == 1,
                     f"train --mesh {label}: not one rank wrote")
             require(sorted(os.listdir(out_dir)) == [
-                "diff.safetensors", "diff_untrained.safetensors"],
+                "calibrated_model", "diff.safetensors",
+                "diff_untrained.safetensors"],
                 f"train --mesh {label} wrote {os.listdir(out_dir)}")
             saved[label] = {name: read_safetensors(str(out_dir / name))[0]
-                            for name in os.listdir(out_dir)}
-    worst = 0.0
+                            for name in os.listdir(out_dir)
+                            if name.endswith(".safetensors")}
+            saved[label]["calibrated_model"] = read_safetensors(
+                str(out_dir / "calibrated_model" / "model.safetensors"))[0]
+        # The meshed run's export against the whole base fused with its
+        # own deltas, written by save_full_model here.
+        _, base = load_hf_params(str(Path(tmp) / "base"), cfg, torch.float32,
+                                 dev)
+        comp, _ = load_delta(str(Path(tmp) / "1x2" / "diff.safetensors"), dev)
+        save_full_model(cfg, fuse_compressed(base, comp),
+                        str(Path(tmp) / "want"))
+        report["export_bytes_equal"] = filecmp.cmp(
+            Path(tmp) / "want" / "model.safetensors",
+            Path(tmp) / "1x2" / "calibrated_model" / "model.safetensors",
+            shallow=False)
+        require(report["export_bytes_equal"],
+                "13d: train --mesh 1,2's export differs from save_full_model"
+                " of the whole base and its own deltas")
+        del base, comp
+    worst = export_worst = 0.0
     for name, want in saved["1x1"].items():
         got = saved["1x2"][name]
         require(set(got) == set(want), f"13d {name}: other tensors")
         for key, w in want.items():
-            if key.endswith(".scale"):
+            if name == "calibrated_model":
+                # Fused with scales 1e-7 apart: within 1e-5 of each
+                # tensor's largest value.
+                err = float(abs(got[key] - w).max() / abs(w).max())
+                export_worst = max(export_worst, err)
+                require(err <= 1e-5, f"13d export {key}: {err}")
+            elif key.endswith(".scale"):
                 err = float(abs(got[key] - w).max() / abs(w).max())
                 worst = max(worst, err)
                 require(err <= 1e-5, f"13d {name} {key}: {err}")
             else:
                 require((got[key] == w).all(), f"13d {name} {key} differs")
     report["scale_rel_err"] = worst
+    report["export_rel_err"] = export_worst
     return report
 
 
@@ -5391,6 +5660,8 @@ def _timing_keys(res):
 
 
 def main(argv=None):
+    import dataclasses
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every result as JSON to this file")
@@ -5418,15 +5689,16 @@ def main(argv=None):
     checks = kernel_checks(dev)
     report = {"checks": checks}
     cfg = mistral_7b()
+    serve_cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS)
     # Each stack is handed over without another reference, so the
     # engine's pair-layout copy replaces the canonical deltas.
-    serve_counts, report["serving"] = serve(cfg, build_world(cfg, dev),
-                                            dev, name)
+    serve_counts, report["serving"] = serve(
+        serve_cfg, build_world(serve_cfg, dev), dev, name)
     gc.collect()
     torch.cuda.empty_cache()
     density_counts, report["density"] = serve(
-        cfg, build_world(cfg, dev, base_quant="int4"), dev, name,
-        path="density", kv_dtype="int8")
+        serve_cfg, build_world(serve_cfg, dev, base_quant="int4"), dev,
+        name, path="density", kv_dtype="int8")
     gc.collect()
     torch.cuda.empty_cache()
     report["parity"] = []

@@ -24,7 +24,10 @@ ranks. Tolerances, fp32 throughout:
   sequence-sharded forward within 2e-5, as ``tests/test_seq_sharding.py``;
 * the collectives' output and gradients within 1e-5 of one process's
   autograd (fp32 products of values up to about 80, summed over two
-  shards in another order).
+  shards in another order);
+* each rank's ``load_hf_params(mesh=)`` of a checkpoint on disk (bf16
+  and fp32 files, loaded as bf16 and fp32; a Mixtral), and a W8 / W4
+  round trip on those shards, bit-equal to the shard of the whole.
 """
 
 import dataclasses
@@ -47,7 +50,7 @@ from bitdelta_tpu.models import llama as jl
 from bitdelta_tpu.models import mixtral as jmx
 from bitdelta_tpu.train.data import synthetic_batches
 from bitdelta_tpu.train.distill import DistillConfig, distill_scales
-from tests.torch_mesh_worker import free_port, spawn_world
+from tests.torch_mesh_worker import free_port, spawn_world, write_checkpoint
 
 LOSS_RTOL = 1e-4
 SCALE_RTOL = 1e-5
@@ -168,6 +171,20 @@ PPL_CASES = [  # (mesh, kernel, with deltas, tokens, context, window)
 ]
 
 
+BF16 = dict(dtype=torch.bfloat16)
+LOAD_CASES = [  # (case id, world, mesh, case fields)
+    ("load_bf16_2x2", "ckpt_bf16", (2, 2), {}),
+    ("load_bf16_1x4_as_bf16", "ckpt_bf16", (1, 4), BF16),
+    ("load_fp32_1x4_as_bf16", "ckpt_fp32", (1, 4), BF16),
+    ("load_mixtral_1x2", "ckpt_mixtral", (1, 2), {}),
+    ("load_mixtral_2x2", "ckpt_mixtral", (2, 2), {}),
+    ("load_w8_1x4", "ckpt_fp32", (1, 4), dict(quantize="int8")),
+    ("load_w8_2x2_bf16", "ckpt_bf16", (2, 2), dict(quantize="int8", **BF16)),
+    ("load_w4_1x2", "ckpt_fp32", (1, 2), dict(quantize="int4")),
+    ("load_w4_2x2_bf16", "ckpt_bf16", (2, 2), dict(quantize="int4", **BF16)),
+]
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Every case on one 4-rank world over tcp, and JAX's unsharded
@@ -256,6 +273,22 @@ def world(tmp_path_factory):
                      "b": torch.randn((16, 8), generator=g)}
     cases.append(dict(kind="collectives", id="collectives", world="mlp",
                       mesh=(2, 2)))
+
+    root = tmp_path_factory.mktemp("ckpts")
+    lcfg = jcfgs.tiny_test_config(vocab_size=128, hidden_size=256,
+                                  intermediate_size=512, num_layers=2,
+                                  num_heads=4, num_kv_heads=4,
+                                  dtype="float32")
+    lbase = _np(jl.init_params(lcfg, jax.random.PRNGKey(11), jnp.float32,
+                               scale=0.25))
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        worlds[f"ckpt_{name}"] = dict(cfg=_tcfg(lcfg), ckpt=write_checkpoint(
+            root / name, _tcfg(lcfg), lbase, dtype))
+    worlds["ckpt_mixtral"] = dict(cfg=_tcfg(mcfg), ckpt=write_checkpoint(
+        root / "mixtral", _tcfg(mcfg), _np(mbase), torch.float32, files=3))
+    for cid, wname, m, extra in LOAD_CASES:
+        cases.append(dict(kind="load_params", id=cid, world=wname, mesh=m,
+                          **extra))
 
     init = f"tcp://127.0.0.1:{free_port()}"
     ranks = spawn_world(dict(worlds=worlds, cases=cases), 4,
@@ -414,3 +447,17 @@ def test_megatron_collectives_give_one_process_gradients(world):
             np.testing.assert_allclose(got.numpy(), want.detach().numpy(),
                                        rtol=1e-5, atol=1e-5)
         assert r["calls"] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("cid", [c[0] for c in LOAD_CASES])
+def test_shards_loaded_from_disk_are_the_whole_params_shards(world, cid):
+    """Every rank of the mesh reads its own blocks of the checkpoint
+    (``load_hf_params(mesh=)``; with ``quantize``, quantized on the shards,
+    W8's row-parallel absmax taken over the model axis) and gets
+    ``shard_tree`` of the whole params (quantized whole), every leaf equal
+    in dtype and every bit."""
+    mesh = next(m for c, _, m, _ in LOAD_CASES if c == cid)
+    results = _in_mesh(world, cid)
+    assert len(results) == mesh[0] * mesh[1]
+    for r in results:
+        assert r["leaves"] > 0 and r["differ"] == []

@@ -34,7 +34,18 @@ a replay; None on a rank outside the case's mesh). Cases:
   sequence split over the data axis, the logits gathered whole;
 * ``collectives``: a column-parallel and a row-parallel matmul through
   ``copy_to_model`` / ``reduce_from_model``, its output, the gradients
-  of its input and weights gathered whole, and the calls counted.
+  of its input and weights gathered whole, and the calls counted;
+* ``shard_load``: a world written to disk (an HF checkpoint and delta
+  artifacts): this rank's ``load_stack_shard``, paired with
+  ``to_pair_layout(local=True)``, against ``shard_stack`` of the whole
+  stack read by one process and paired for the model axis: the leaves
+  that differ (dtype or any bit) and how many were compared;
+* ``load_params``: ``load_hf_params(mesh=)`` of a checkpoint, with
+  ``"quantize"`` round-tripped on the shards, against ``shard_model`` of
+  the whole params: the leaves that differ and how many were compared.
+
+An ``engine`` or ``refuse`` case on a world written to disk builds its
+engine on the rank's ``load_stack_shard``.
 """
 
 from __future__ import annotations
@@ -50,23 +61,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+from bitdelta_torch.core.artifact import load_delta  # noqa: E402
 from bitdelta_torch.core.compress import get_scales  # noqa: E402
 from bitdelta_torch.eval.ppl import eval_ppl  # noqa: E402
 from bitdelta_torch.models import llama, mixtral  # noqa: E402
+from bitdelta_torch.models.hf_import import load_hf_params  # noqa: E402
 from bitdelta_torch.parallel import collectives as coll  # noqa: E402
 from bitdelta_torch.parallel import mesh as pmesh  # noqa: E402
 from bitdelta_torch.parallel import sharding as psh  # noqa: E402
 from bitdelta_torch.parallel.collectives import all_gather  # noqa: E402
 from bitdelta_torch.train import distill  # noqa: E402
 from bitdelta_torch.serving.engine import Engine, Request  # noqa: E402
-from bitdelta_torch.serving.stacking import to_pair_layout  # noqa: E402
+from bitdelta_torch.research import quantized_base as qb  # noqa: E402
+from bitdelta_torch.serving.stacking import (  # noqa: E402
+    load_stack_shard, stack_tenants, to_pair_layout)
 
 MODELS = {"llama": llama, "mixtral": mixtral}
 
 
+def _disk_stack(world, mesh):
+    """This rank's ``StackShard`` of a world written to disk."""
+    return load_stack_shard(world["cfg"], world["base_dir"], world["deltas"],
+                            mesh, dtype=torch.float32, device="cpu",
+                            base_quant=world.get("base_quant"))
+
+
 def _engine(world, case, mesh):
     kw = {} if case.get("kv_dtype") is None else {"kv_dtype": case["kv_dtype"]}
-    return Engine(world["cfg"], world["stack"], max_slots=case["max_slots"],
+    stack = (_disk_stack(world, mesh) if "base_dir" in world
+             else world["stack"])
+    return Engine(world["cfg"], stack, max_slots=case["max_slots"],
                   max_seq=64, prefill_buckets=(16,), kernel=case["kernel"],
                   device="cpu", model=MODELS[world.get("model", "llama")],
                   mesh=mesh, **kw)
@@ -185,6 +209,48 @@ def run_roundtrip(world, case, mesh):
     return len(pairs) > 0 and all(torch.equal(a, b) for a, b in pairs)
 
 
+def _differ(got, want):
+    """``{"leaves": how many, "differ": [indices of the leaves whose dtype
+    or any bit differs]}`` of two trees of one structure."""
+    pairs = list(zip(_leaves(got), _leaves(want)))
+    return {"leaves": len(pairs),
+            "differ": [i for i, (a, b) in enumerate(pairs)
+                       if a.dtype != b.dtype or not torch.equal(a, b)]}
+
+
+def run_shard_load(world, case, mesh):
+    cfg, tp = world["cfg"], case["mesh"][1]
+    shard = _disk_stack(world, mesh)
+    psh.check_stack_shard(cfg, shard.local, shard.whole, mesh)
+    got = to_pair_layout(shard.local, tp=tp, local=True)
+    _, base = load_hf_params(world["base_dir"], cfg, torch.float32, "cpu")
+    if world.get("base_quant"):
+        base = qb.quantize_base(base, world["base_quant"])
+    whole = stack_tenants(cfg, base, [load_delta(p, "cpu")[0]
+                                      for p in world["deltas"]], "cpu")
+    want = psh.shard_stack(cfg, to_pair_layout(whole, tp=tp), mesh)
+    return _differ((got.params, got.deltas, got.vocab_sizes),
+                   (want.params, want.deltas, want.vocab_sizes))
+
+
+QUANTIZE = {"int8": lambda p, mesh: qb.quantize_base(p, "int8", mesh),
+            "int4": lambda p, mesh: qb.quantize_base(p, "int4", mesh)}
+
+
+def run_load_params(world, case, mesh):
+    cfg, ckpt = world["cfg"], world["ckpt"]
+    dtype = case.get("dtype", torch.float32)
+    _, got = load_hf_params(ckpt, cfg, dtype, "cpu", mesh=mesh)
+    _, whole = load_hf_params(ckpt, cfg, dtype, "cpu")
+    if case.get("quantize"):
+        quantize = QUANTIZE[case["quantize"]]
+        got, whole = quantize(got, mesh), quantize(whole, None)
+        specs = psh.serving_param_specs(cfg, whole, tp=case["mesh"][1])
+    else:
+        specs = psh.param_specs(cfg)
+    return _differ(got, psh.shard_tree(whole, specs, mesh))
+
+
 def _sharded_compressed(cfg, comp, mesh):
     return comp._replace(
         deltas=psh.shard_deltas(cfg, comp.deltas, mesh),
@@ -294,7 +360,30 @@ def run_collectives(world, case, mesh):
 RUN = {"engine": run_engine, "refuse": run_refuse, "logits": run_logits,
        "replay": run_replay, "roundtrip": run_roundtrip,
        "distill": run_distill, "compress": run_compress, "ppl": run_ppl,
-       "seqfwd": run_seqfwd, "collectives": run_collectives}
+       "seqfwd": run_seqfwd, "collectives": run_collectives,
+       "shard_load": run_shard_load, "load_params": run_load_params}
+
+
+def write_checkpoint(path, cfg, params, dtype, files=2) -> str:
+    """Params (the port's layout, numpy arrays) as an HF checkpoint under
+    the new directory ``path``: ``config.json`` and ``files`` safetensors
+    files in ``dtype``, by the port's exporter (``core/export.py``)."""
+    import json
+
+    from bitdelta_torch.convert import tree_from_numpy
+    from bitdelta_torch.core.artifact import write_safetensors
+    from bitdelta_torch.core.export import hf_config_dict, hf_state_dict
+
+    path = Path(path)
+    path.mkdir()
+    (path / "config.json").write_text(
+        json.dumps(hf_config_dict(cfg, dtype=dtype)))
+    sd = hf_state_dict(cfg, tree_from_numpy(params, "cpu"), dtype)
+    keys = sorted(sd)
+    for i in range(files):
+        write_safetensors(str(path / f"model-{i}.safetensors"),
+                          {k: sd[k] for k in keys[i::files]})
+    return str(path)
 
 
 def free_port() -> int:
