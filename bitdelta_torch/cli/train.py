@@ -17,12 +17,17 @@ started by ``python -m torch.distributed.run --nproc-per-node dp*tp -m
 bitdelta_torch.cli.train --mesh dp,tp ...``. Every rank reads its own
 blocks of the base and the fine-tune straight from the checkpoints to its
 card (``load_hf_params(mesh=)``; with ``--quantize_base`` the round trip
-runs on the shards); the deltas are compressed on the shards and
-distilled over the mesh (``train/distill.py``), each rank taking its rows
-of every batch. Rank 0 alone writes the files: the artifacts from the
-shards gathered leaf by leaf (the other ranks drop each leaf at once);
-``--debug``'s statistics and ``--save_full_model``'s export read the
-checkpoints one matrix at a time, so no rank holds either model whole.
+runs on the shards, bit for bit the whole base's, a W4 group straddling
+ranks where the model axis splits one); the deltas are compressed on the
+shards and distilled over the mesh (``train/distill.py``), each rank
+taking its rows of every batch. Rank 0 alone writes the files: the
+artifacts from the shards gathered leaf by leaf (the other ranks drop
+each leaf at once); ``--debug``'s statistics read the checkpoints one
+matrix at a time, so no rank holds either model whole.
+
+``--save_full_model``'s export, with or without a mesh, reads the base
+from its checkpoint one tensor at a time as it fuses and writes it
+(``core/export.py::fused_checkpoint``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch.distributed as dist
 
 from . import args as A
 from ..core.artifact import save_delta
-from ..core.compress import compress_model, fuse_compressed
+from ..core.compress import compress_model
 from ..device import resolve_device, torch_dtype
 from ..models import llama, resolve_model_module
 from ..models.hf_import import load_hf_params
@@ -189,17 +194,15 @@ def main(argv=None):
     print(f"saved {os.path.join(args.save_dir, 'diff.safetensors')}")
 
     if args.save_full_model:
-        from ..core.export import save_full_model, save_full_model_streamed
-        out_dir = os.path.join(args.save_dir, "calibrated_model")
-        if mesh is None:
-            save_full_model(cfg, fuse_compressed(base, whole), out_dir,
-                            tokenizer_src=args.finetuned_model)
-        else:
-            save_full_model_streamed(cfg, args.base_model, whole, out_dir,
-                                     dtype=dtype,
-                                     base_quant=args.quantize_base,
-                                     tokenizer_src=args.finetuned_model,
-                                     device=device)
+        from ..core.export import fused_checkpoint, save_full_model
+
+        # The base read from its checkpoint one tensor at a time as it is
+        # fused and written, so it is never whole on the writer's host.
+        save_full_model(cfg, fused_checkpoint(
+            cfg, args.base_model, whole, dtype=dtype,
+            base_quant=args.quantize_base, device=device),
+            os.path.join(args.save_dir, "calibrated_model"),
+            tokenizer_src=args.finetuned_model)
         print("exported calibrated model")
 
 

@@ -14,13 +14,14 @@ from __future__ import annotations
 import functools
 import json
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..models.config import ModelConfig
 from ..models.hf_import import _EXPERTS, _LAYER_MAP, _MIXTRAL_LAYER_MAP
 from ..models.mixtral import MixtralConfig
+from .artifact import Deferred
 
 # Our layer names -> (HF sub-name, transposed?): the inverse of the
 # import's maps. Mixtral's experts are ``{_EXPERTS}.{e}.w1|w2|w3``.
@@ -31,10 +32,49 @@ HF_NAMES.update({ours: (hf, True) for hf, ours in _MIXTRAL_LAYER_MAP.items()
 _EXPERT_NAMES = ("w1", "w2", "w3")
 
 
+class Lazy(NamedTuple):
+    """A params leaf read only when :func:`save_full_model` writes it: its
+    shape in the port's layout (a layer leaf's layer axis first) and
+    ``read(*index)``, the tensor at ``index`` (a layer; nothing for the
+    embed, the head and the final norm)."""
+
+    shape: Tuple[int, ...]
+    read: Callable[..., torch.Tensor]
+
+
 def _host(t: torch.Tensor, dtype, transpose: bool = False) -> torch.Tensor:
     """A ``dtype`` copy on the host (transposed on the device first)."""
     t = t.t() if transpose else t
     return t.detach().to(dtype).contiguous().cpu()
+
+
+def _hf_entries(cfg: ModelConfig, params, dtype) -> Dict[str, Deferred]:
+    """:func:`hf_state_dict`'s tensors as :class:`Deferred` ones, each
+    made from its params leaf (a tensor, or a :class:`Lazy` one) only as
+    it is written."""
+    def entry(w, index=(), transpose=False):
+        shape = tuple(w.shape[len(index):])
+        part = (functools.partial(w.read, *index) if isinstance(w, Lazy)
+                else functools.partial(w.__getitem__, index))
+        return Deferred(dtype, shape[::-1] if transpose else shape,
+                        lambda: _host(part(), dtype, transpose))
+
+    sd = {"model.embed_tokens.weight": entry(params["embed"]),
+          "model.norm.weight": entry(params["final_norm"])}
+    if "lm_head" in params:
+        sd["lm_head.weight"] = entry(params["lm_head"], transpose=True)
+    layers = params["layers"]
+    for l in range(cfg.num_layers):
+        pre = f"model.layers.{l}"
+        for ours, w in layers.items():
+            if ours in _EXPERT_NAMES:
+                for e in range(w.shape[1]):
+                    sd[f"{pre}.{_EXPERTS}.{e}.{ours}.weight"] = entry(
+                        w, (l, e), True)
+            elif ours in HF_NAMES:
+                hf, transpose = HF_NAMES[ours]
+                sd[f"{pre}.{hf}.weight"] = entry(w, (l,), transpose)
+    return sd
 
 
 def hf_state_dict(cfg: ModelConfig, params,
@@ -44,22 +84,7 @@ def hf_state_dict(cfg: ModelConfig, params,
     ``dtype`` (fp32 by default, as JAX exports): the inverse of
     ``models/hf_import.py``. Layer tensors outside its maps (Qwen2's
     biases) are not written, as in JAX."""
-    sd = {"model.embed_tokens.weight": _host(params["embed"], dtype),
-          "model.norm.weight": _host(params["final_norm"], dtype)}
-    if "lm_head" in params:
-        sd["lm_head.weight"] = _host(params["lm_head"], dtype, True)
-    layers = params["layers"]
-    for l in range(cfg.num_layers):
-        pre = f"model.layers.{l}"
-        for ours, w in layers.items():
-            if ours in _EXPERT_NAMES:
-                for e in range(w.shape[1]):
-                    sd[f"{pre}.{_EXPERTS}.{e}.{ours}.weight"] = _host(
-                        w[l, e], dtype, True)
-            elif ours in HF_NAMES:
-                hf, transpose = HF_NAMES[ours]
-                sd[f"{pre}.{hf}.weight"] = _host(w[l], dtype, transpose)
-    return sd
+    return {k: d.make() for k, d in _hf_entries(cfg, params, dtype).items()}
 
 
 def hf_config_dict(cfg: ModelConfig, model_type: str = "llama",
@@ -98,23 +123,24 @@ def hf_config_dict(cfg: ModelConfig, model_type: str = "llama",
 
 def save_full_model(cfg: ModelConfig, params, out_dir: str,
                     tokenizer_src: Optional[str] = None) -> None:
-    _write_model(cfg, hf_state_dict(cfg, params), out_dir, tokenizer_src)
+    """``params`` as an HF checkpoint in fp32, written one tensor at a
+    time (each made from its leaf only as it is written). A leaf may be
+    :class:`Lazy` (:func:`fused_checkpoint`)."""
+    _write_model(cfg, _hf_entries(cfg, params, torch.float32), out_dir,
+                 tokenizer_src)
 
 
-def save_full_model_streamed(cfg: ModelConfig, ckpt_dir: str, compressed,
-                             out_dir: str, dtype=torch.bfloat16,
-                             base_quant: Optional[str] = None,
-                             tokenizer_src: Optional[str] = None,
-                             device="cpu") -> None:
-    """:func:`save_full_model` of ``fuse_compressed(base, compressed)``,
+def fused_checkpoint(cfg: ModelConfig, ckpt_dir: str, compressed,
+                     dtype=torch.bfloat16, base_quant: Optional[str] = None,
+                     device="cpu"):
+    """``fuse_compressed(base, compressed)`` with :class:`Lazy` leaves,
     where ``base`` is ``load_hf_params(ckpt_dir, dtype=dtype)`` (round-
-    tripped through ``base_quant`` where given), written byte for byte as
-    that call writes it, with the base never whole: each of its tensors
-    is read from the checkpoint on ``device``, fused and written in turn.
+    tripped through ``base_quant`` where given): each of the base's
+    tensors is read from the checkpoint on ``device`` and fused only when
+    :func:`save_full_model` writes it, so the base is never whole.
     Llama-family models (the train CLI exports no Mixtral)."""
     from ..models.hf_import import checkpoint_index, read_layer
     from ..research.quantized_base import roundtrip_matrix
-    from .artifact import Deferred
     from .compress import LAYER_EXTRA_NAMES
     from .delta import BinaryDelta, apply_delta
 
@@ -128,56 +154,47 @@ def save_full_model_streamed(cfg: ModelConfig, ckpt_dir: str, compressed,
         return index[key].read().to(device).to(dtype)
 
     def embed():
-        if "embed" in extras:
-            return _host(extras["embed"], torch.float32)
         w = top("model.embed_tokens.weight")
         if "embed" in deltas:
             w = apply_delta(w.t(), on(deltas["embed"])).t()
-        return _host(w, torch.float32)
+        return w
 
     def lm_head():
-        if "lm_head" in extras:
-            return _host(extras["lm_head"], torch.float32, True)
         w = top("lm_head.weight").t()
         if "lm_head" in deltas:
             w = apply_delta(w, on(deltas["lm_head"]))
-        return _host(w, torch.float32, True)
+        return w
 
     def layer(name, l):
-        if name in extras:
-            return _host(extras[name][l], torch.float32)
         w = read_layer(index, cfg, name, l, dtype, device)
         if base_quant is not None and name not in LAYER_EXTRA_NAMES:
             w = roundtrip_matrix(w, base_quant, dtype)
         if name in deltas:
             d = deltas[name]
             w = apply_delta(w, on(BinaryDelta(d.packed[l], d.scale[l])))
-        return _host(w, torch.float32, HF_NAMES[name][1])
+        return w
 
-    def shape(name, key):
-        """A tensor's HF shape: the fine-tune's extra's where it has one
-        (its vocabulary may differ), else the base checkpoint's."""
+    params = {"final_norm": extras["final_norm"], "layers": {}}
+    if "embed" in extras:
+        params["embed"] = extras["embed"]
+    else:
+        params["embed"] = Lazy(
+            tuple(index["model.embed_tokens.weight"].shape), embed)
+    if "lm_head" in extras:
+        params["lm_head"] = extras["lm_head"]
+    elif "embed" not in extras and "lm_head.weight" in index:
+        params["lm_head"] = Lazy(
+            tuple(index["lm_head.weight"].shape)[::-1], lm_head)
+    for name, (hf, transpose) in HF_NAMES.items():
+        shape = getattr(index.get(f"model.layers.0.{hf}.weight"), "shape",
+                        None)
         if name in extras:
-            s = tuple(extras[name].shape)
-            return s[::-1] if name == "lm_head" else s
-        return tuple(index[key].shape)
-    f32 = torch.float32
-    sd = {"model.embed_tokens.weight": Deferred(
-              f32, shape("embed", "model.embed_tokens.weight"), embed),
-          "model.norm.weight": Deferred(
-              f32, shape("final_norm", None),
-              lambda: _host(extras["final_norm"], f32))}
-    if "lm_head" in extras or ("embed" not in extras
-                               and "lm_head.weight" in index):
-        sd["lm_head.weight"] = Deferred(
-            f32, shape("lm_head", "lm_head.weight"), lm_head)
-    for l in range(cfg.num_layers):
-        for name, (hf, _) in HF_NAMES.items():
-            key = f"model.layers.{l}.{hf}.weight"
-            if key in index and name not in _EXPERT_NAMES:
-                sd[key] = Deferred(f32, tuple(index[key].shape),
-                                   functools.partial(layer, name, l))
-    _write_model(cfg, sd, out_dir, tokenizer_src)
+            params["layers"][name] = extras[name]
+        elif shape is not None and name not in _EXPERT_NAMES:
+            params["layers"][name] = Lazy(
+                (cfg.num_layers, *(shape[::-1] if transpose else shape)),
+                functools.partial(layer, name))
+    return params
 
 
 def _write_model(cfg, sd, out_dir, tokenizer_src) -> None:

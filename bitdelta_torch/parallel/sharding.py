@@ -414,13 +414,27 @@ def _pairs(a, b, path=()):
         yield "/".join(path), a, b
 
 
+def _canonical_shapes(d):
+    """A delta as the canonical leaves of its shapes: a pair-layout one
+    (``(*, K//16, N//2)`` words) as meta tensors of ``(*, K//32, N)``."""
+    if not isinstance(d, PairedBinaryDelta):
+        return d
+    *lead, k16, n2 = d.packed_pairs.shape
+    return BinaryDelta(packed=torch.empty((*lead, k16 // 2, n2 * 2),
+                                          dtype=d.packed_pairs.dtype,
+                                          device="meta"),
+                       scale=d.scale)
+
+
 def check_stack_shard(cfg: ModelConfig, local, whole, mesh) -> None:
     """Raise ``ValueError`` unless ``local`` (a rank's stack, loaded as a
     shard) has, leaf for leaf, the shapes and dtypes :func:`shard_stack`
     gives this rank of ``whole`` (the whole stack, e.g. as meta
-    tensors)."""
+    tensors). A delta ``local`` holds in the pair layout (an engine
+    pairs a ``StackShard`` in place) is held by its canonical shapes."""
     want = shard_stack(cfg, whole, mesh)
-    for path, got, exp in _pairs((local.params, local.deltas,
+    deltas = {n: _canonical_shapes(d) for n, d in local.deltas.items()}
+    for path, got, exp in _pairs((local.params, deltas,
                                   local.vocab_sizes),
                                  (want.params, want.deltas,
                                   want.vocab_sizes)):

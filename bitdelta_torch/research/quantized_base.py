@@ -157,33 +157,12 @@ def int4_matmul(x: torch.Tensor, w: Int4Weight, compute_dtype=torch.bfloat16,
 # Whole-model conversion
 # ---------------------------------------------------------------------------
 
-def _quantized_meta(quantize, w: torch.Tensor):
-    """The leaves ``quantize`` (:func:`quantize_int8` or
-    :func:`quantize_int4`) gives a meta tensor, their shapes and dtypes
-    alone: a whole stack described from checkpoint headers
-    (``stacking.load_stack_shard``) without running PyTorch's Python meta
-    kernels."""
-    *lead, k, n = w.shape
-
-    def meta(*shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-    if quantize is quantize_int8:
-        return Int8Weight(q=meta(*w.shape, dtype=torch.int8),
-                          scale=meta(*lead, n, dtype=torch.float32))
-    if k % INT4_GROUP:
-        raise ValueError(f"K={k} must divide into {INT4_GROUP}-row groups "
-                         f"of whole words")
-    return Int4Weight(packed=meta(*lead, k // 8, n, dtype=torch.int32),
-                      scale=meta(*lead, k // INT4_GROUP, n,
-                                 dtype=torch.float32))
-
-
 def _layerwise(quantize, w: torch.Tensor):
     """``quantize`` over the leading layer axis of an ``(L, K, N)`` stack,
     one layer at a time into preallocated outputs (a 2-D matrix is
-    quantized directly)."""
-    if w.is_meta:
-        return _quantized_meta(quantize, w)
+    quantized directly). On meta tensors (a whole stack described from
+    checkpoint headers, ``stacking.load_stack_shard``) it gives the
+    leaves' shapes and dtypes."""
     if w.ndim == 2:
         return quantize(w)
     first = quantize(w[0])
@@ -309,10 +288,45 @@ def quantize_base(params, mode: str, mesh=None):
 
 def roundtrip_base(params, mode: str, dtype=None, mesh=None):
     """``deq(q(params))`` — the dense base the deltas must be taken
-    against so that W8/W4 + W1 serving is exact. ``mesh``: on a rank's
-    shards, as :func:`quantize_base`."""
-    return dequantize_base_projections(quantize_base(params, mode, mesh),
-                                       dtype)
+    against so that W8/W4 + W1 serving is exact. ``mesh``: the params
+    are a rank's shards (``parallel/sharding.py::param_specs``), and the
+    result is the shard of the whole round trip, bit for bit: a
+    column-parallel matrix holds whole columns, and a row-parallel one
+    is rounded by :func:`_roundtrip_k_shard`, so a W4 group may straddle
+    ranks, as the whole matrix's groups allow."""
+    from ..parallel.collectives import axis_size
+    from ..parallel.mesh import MODEL_AXIS
+
+    if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+        return dequantize_base_projections(quantize_base(params, mode),
+                                           dtype)
+    from ..models.llama import PROJ_NAMES
+    from ..parallel.sharding import ROW_PARALLEL
+
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    for name in PROJ_NAMES:
+        if name in ROW_PARALLEL:
+            fn = functools.partial(_roundtrip_k_shard, mode=mode, mesh=mesh,
+                                   dtype=dtype)
+        else:
+            fn = functools.partial(roundtrip_matrix, mode=mode, dtype=dtype)
+        out["layers"][name] = _dense_layerwise(fn, params["layers"][name])
+    return out
+
+
+def _dense_layerwise(fn, w: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a matrix to a matrix) over the leading layer axis of an
+    ``(L, K, N)`` stack, one layer at a time into one output."""
+    if w.ndim == 2:
+        return fn(w)
+    first = fn(w[0])
+    out = torch.empty((w.shape[0], *first.shape), dtype=first.dtype,
+                      device=first.device)
+    out[0] = first
+    for layer in range(1, w.shape[0]):
+        out[layer] = fn(w[layer])
+    return out
 
 
 def roundtrip_matrix(w: torch.Tensor, mode: str, dtype=None) -> torch.Tensor:
@@ -323,6 +337,43 @@ def roundtrip_matrix(w: torch.Tensor, mode: str, dtype=None) -> torch.Tensor:
         return dequantize_int4(quantize_int4(w), dtype or torch.bfloat16)
     raise ValueError(f"unknown base_quant mode {mode!r}; "
                      f"expected one of {BASE_QUANT_MODES}")
+
+
+def _roundtrip_k_shard(w: torch.Tensor, mode: str, mesh,
+                       dtype=None) -> torch.Tensor:
+    """:func:`roundtrip_matrix` of a whole row-parallel matrix, on this
+    rank's ``(K/tp, N)`` block of its rows. The rows are cut at the whole
+    matrix's group edges (W8: one group, all of K; W4: 128 rows), each
+    group's absmax is the max over the ranks that hold part of it (a
+    max all-reduce over the model axis, which rounds nothing), and every
+    row is rounded as the whole matrix's is: the block of the whole round
+    trip, bit for bit, where a W4 group straddles ranks too."""
+    from ..parallel.collectives import axis_index, axis_size
+    from ..parallel.mesh import MODEL_AXIS
+
+    if mode not in BASE_QUANT_MODES:
+        raise ValueError(f"unknown base_quant mode {mode!r}; "
+                         f"expected one of {BASE_QUANT_MODES}")
+    k, n = w.shape
+    whole_k = k * axis_size(mesh, MODEL_AXIS)
+    start = k * axis_index(mesh, MODEL_AXIS)
+    group, qmax = (whole_k, 127.0) if mode == "int8" else (INT4_GROUP, 7.0)
+    if whole_k % group:
+        raise ValueError(f"K={whole_k} must divide into {group}-row groups "
+                         f"of whole words")
+    edges = sorted({0, k, *range(-start % group, k, group)})
+    pieces = [(a, b, (start + a) // group) for a, b in zip(edges, edges[1:])]
+    w32 = w.to(torch.float32)
+    absmax = w32.new_zeros((whole_k // group, n))
+    for a, b, g in pieces:
+        absmax[g] = w32[a:b].abs().amax(dim=0)
+    scale = torch.clamp(pmax(absmax, mesh), min=1e-8) / qmax
+    out = torch.empty((k, n), dtype=dtype or torch.bfloat16, device=w.device)
+    for a, b, g in pieces:
+        # Through the integers, as the stored values are (-0.0 -> 0).
+        q = torch.clamp(torch.round(w32[a:b] / scale[g]), -qmax, qmax)
+        out[a:b] = q.to(torch.int32).to(torch.float32) * scale[g]
+    return out
 
 
 def int8_delta_linear(x: torch.Tensor, qbase: Int8Weight, delta,

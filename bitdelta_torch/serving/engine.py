@@ -190,9 +190,12 @@ class Engine:
         rank's card ever holds the whole stack. A ``StackShard``
         (``stacking.load_stack_shard``) is this rank's shard already,
         marked as such by its type: the engine checks its shapes against
-        the whole stack's it carries, pairs it with
-        ``to_pair_layout(local=True)`` and moves it to ``device``, and the
-        checks below run on the whole stack's sizes. ``max_slots`` must split over the data
+        the whole stack's it carries, pairs it in place with
+        ``to_pair_layout(local=True, in_place=True)`` (the engine takes
+        over the loaded shard: each canonical projection gives way to its
+        pair layout, so a rank never holds both; a later engine on the
+        same ``StackShard`` finds it paired) and moves it to ``device``,
+        and the checks below run on the whole stack's sizes. ``max_slots`` must split over the data
         axis and the KV heads, query heads and padded vocabulary over the
         model axis (every route runs the same per-rank code here; JAX
         needs the last two on its Pallas route only), and a W4
@@ -243,7 +246,8 @@ class Engine:
         # Decode hot path: pair-packed delta layout (prefill un-pairs on
         # the fly); same bytes as the canonical layout. Under TP the
         # row-parallel colsums are per K shard.
-        self.stack = (to_pair_layout(stack, tp=tp, local=shard)
+        self.stack = (to_pair_layout(stack, tp=tp, local=shard,
+                                     in_place=shard)
                       if llama.on_card(kernel) else stack)
         del stack
         if shard:

@@ -18,6 +18,7 @@ straight from the checkpoint and the artifacts on disk (a
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
@@ -68,9 +69,9 @@ def _pad_vocab(arr: torch.Tensor, target: int, axis: int) -> torch.Tensor:
 
 def _stack(tensors, dim: int, device, dtype=None) -> torch.Tensor:
     """``torch.stack(tensors, dim)`` on ``device`` (cast to ``dtype``),
-    each tensor copied into its slot of one allocation: one crosses to
-    ``device`` at a time, and on meta tensors (:func:`load_stack_shard`'s
-    whole stack) none of PyTorch's Python meta kernels runs."""
+    each tensor copied into its slot of one allocation, so that tenants
+    on the host cross to the card one at a time: the card holds the
+    stacked leaf, not also a copy of every tenant's."""
     first = tensors[0]
     if any(t.shape != first.shape for t in tensors):
         raise ValueError(f"stacking tensors of shapes "
@@ -192,20 +193,24 @@ def _pair(d: BinaryDelta, shards: Optional[int]) -> PairedBinaryDelta:
                              scale=d.scale.to(torch.float32))
 
 
-def _pair_by_layer(d: BinaryDelta,
-                   shards: Optional[int] = None) -> PairedBinaryDelta:
-    """:func:`_pair` of a stacked delta one slice of its leading axis (a
-    layer; the tenant of an lm_head delta) at a time into preallocated
-    outputs, so the conversion's int64 transients stay one slice's size."""
-    first = _pair(BinaryDelta(d.packed[0], d.scale[0]), shards)
-    out = PairedBinaryDelta(*(torch.empty((d.packed.shape[0], *f.shape),
-                                          dtype=f.dtype, device=f.device)
-                              for f in first))
-    for layer in range(d.packed.shape[0]):
-        part = first if layer == 0 else _pair(
-            BinaryDelta(d.packed[layer], d.scale[layer]), shards)
-        for dst, src in zip(out, part):
-            dst[layer] = src
+def _pair_by_matrix(d: BinaryDelta,
+                    shards: Optional[int] = None) -> PairedBinaryDelta:
+    """:func:`_pair` of a stacked delta one ``(K//32, N)`` matrix (a
+    layer's tenant; its expert) at a time into preallocated outputs, so
+    the conversion's int64 transients stay one matrix's size."""
+    lead = tuple(d.scale.shape)          # one scale a matrix
+    matrices = itertools.product(*map(range, lead))
+    idx = next(matrices)
+    first = _pair(BinaryDelta(d.packed[idx], d.scale[idx]), shards)
+    out = PairedBinaryDelta(*(torch.empty((*lead, *f.shape), dtype=f.dtype,
+                                          device=f.device) for f in first))
+    for dst, src in zip(out, first):
+        dst[idx] = src
+    del first
+    for idx in matrices:
+        for dst, src in zip(out, _pair(BinaryDelta(d.packed[idx],
+                                                   d.scale[idx]), shards)):
+            dst[idx] = src
     return out
 
 
@@ -263,7 +268,7 @@ def to_pair_layout(stack: TenantStack, *, tp: int = 1,
         else:
             eligible = (n // tp if name in col_par and not local
                         else n) % PAIR_BLOCK == 0
-        deltas[name] = _pair_by_layer(d, shards) if eligible else d
+        deltas[name] = _pair_by_matrix(d, shards) if eligible else d
         del d
     return stack._replace(deltas=deltas)
 

@@ -149,15 +149,17 @@ Phases (any failure exits non-zero; no phase is skipped on error):
    rank reading its own blocks of them to the card
    (``load_stack_shard``): its host's resident set (``VmRSS`` sampled
    every 2 ms while it loads and builds its first engine) may grow by no
-   more than its shard and the
-   largest checkpoint tensor, and its stack, paired, must equal the
+   more than the largest checkpoint tensor and ``HOST_SLACK_BYTES`` (nor
+   than its shard and that tensor), the first engine, which pairs the
+   loaded shard in place, may peak on the card at no more than the
+   shard and one leaf of it, and the stack so paired must equal the
    shard of the whole stack built from the same files, bit for bit; a
    B=8 prefill and one decode step at tp=2 on ``"cuda"`` and
    ``"cuda_fused"`` within 2% of the logit scale of the same world
    served by one process at tp=1 (the launches counted from the meshed
    engines alone), the share of agreeing greedy ``generate`` tokens
    printed, each meshed engine built on the loaded shard (the card
-   holding no more than it, its paired copy and one leaf), and each
+   holding no more than it and one leaf of it), and each
    rank's shard and peak bytes, a decode step's wall and device ms with
    its top kernels, and its psums timed alone; (a) ends with W8 and W4
    bases on disk quantized on each rank's shards, bit-equal to the
@@ -4183,6 +4185,12 @@ def rest(dev, smi):
 
 TP_RANKS = 2
 TP_LAYERS = 2                  # Llama-2-70B cut to 2 layers (depth only)
+# What a 12b rank's host resident set may grow by over its load and first
+# engine beyond the largest checkpoint tensor (a block of it at a time is
+# read): libraries and buffers. The reading was 0.32 GB on the H100's
+# machine; a memmap left resident (about 2.3 GB of a rank's pages) or
+# the blocks kept on the host (its 2.97 GB shard) pass 0.5 GB, not this.
+HOST_SLACK_BYTES = int(0.5e9)
 TP_COLLECTIVE_TIMEOUT_S = 300  # a rank waiting longer on a peer fails
 TP_PHASE_TIMEOUT_S = 900       # the parent kills ranks still running then
 # The rows every rank of 12a must launch (all but 6, the training path).
@@ -4603,12 +4611,14 @@ def tp_70b(dev, mesh, rank, smi, world):
     from ``world`` on disk (:func:`write_tp_70b_world`). Each rank reads
     its own blocks of the checkpoint and the artifacts to the card
     (``load_stack_shard``); its host's resident set (:class:`PeakRss`)
-    may grow by no more than its shard and the largest checkpoint
-    tensor. Its stack,
-    paired, must equal the shard of the whole stack built from the same
-    files, bit for bit; rank 0 takes the tp=1 references from that whole
-    stack. Then each route's engine runs on the loaded shard. Returns
-    ``(report, the meshed engines' launches)``."""
+    may grow by no more than the largest checkpoint tensor and
+    ``HOST_SLACK_BYTES``, nor than its shard and that tensor. Its first
+    engine pairs the loaded shard in place, its card peaking at no more
+    than the shard and one leaf; the stack so paired must equal the shard
+    of the whole stack built from the same files, bit for bit; rank 0
+    takes the tp=1 references from that whole stack. Then each route's
+    engine runs on the loaded shard. Returns ``(report, the meshed
+    engines' launches)``."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4635,43 +4645,67 @@ def tp_70b(dev, mesh, rank, smi, world):
               "largest_tensor_bytes": world["largest_tensor_bytes"]}
     torch.empty(1, device=dev).add_(1)          # CUDA is up
     torch.cuda.synchronize()
+
+    def total(nb):
+        return sum(nb[k] for k in ("base_bytes", "deltas_bytes",
+                                   "tenant_extras_bytes"))
+
+    def check_build(eng, label, rep):
+        """The engine's build peak on the card against its stack (this
+        rank's shard) and the stack's largest leaf."""
+        rep.update(resident_bytes=torch.cuda.memory_allocated(),
+                   build_peak_bytes=torch.cuda.max_memory_allocated(),
+                   shard_bytes=stack_nbytes(eng.stack))
+        shard_total = total(rep["shard_bytes"])
+        largest = max(t.numel() * t.element_size() for t in _tree_leaves(
+            (eng.stack.params, eng.stack.deltas)))
+        rep["allowed_peak_bytes"] = shard_total + largest
+        require(rep["build_peak_bytes"] <= shard_total + largest,
+                f"70b tp {label}: rank {rank}'s engine build peaked at "
+                f"{rep['build_peak_bytes']} bytes, over its shard "
+                f"{shard_total} and largest leaf {largest}")
+
     with PeakRss() as rss:
         t0 = time.perf_counter()
         shard = load_stack_shard(cfg, world["base"], world["tenants"], mesh,
                                  dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
         report["load_s"] = time.perf_counter() - t0
+        # The first engine pairs the loaded canonical shard in place.
+        report["first_engine"] = {"loaded_bytes":
+                                  torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
         first = Engine(cfg, shard, max_slots=8, max_seq=128,
                        prefill_buckets=(64,), kernel=llama.CARD_KERNELS[0],
                        device=dev, mesh=mesh)
         torch.cuda.synchronize()
+    check_build(first, "first engine", report["first_engine"])
     del first
 
-    def total(nb):
-        return sum(nb[k] for k in ("base_bytes", "deltas_bytes",
-                                   "tenant_extras_bytes"))
     shard_bytes = total(stack_nbytes(shard.local))
     whole = total(stack_nbytes(shard.whole))
+    largest = world["largest_tensor_bytes"]
     report["host"] = dict(
         rss.report(), shard_bytes=shard_bytes,
-        allowed_bytes=shard_bytes + world["largest_tensor_bytes"],
+        allowed_bytes=min(shard_bytes, HOST_SLACK_BYTES) + largest,
         whole_stack_bytes=whole)
     increase = report["host"]["increase_bytes"]
-    require(increase <= shard_bytes + world["largest_tensor_bytes"],
+    require(increase <= min(shard_bytes, HOST_SLACK_BYTES) + largest,
             f"70b: rank {rank}'s host resident set grew by {increase} bytes "
-            f"loading its shard, over its shard {shard_bytes} and the "
-            f"largest tensor {world['largest_tensor_bytes']} (the whole "
-            f"stack: {whole})")
+            f"loading its shard, over the largest tensor {largest} and "
+            f"the lesser of its shard {shard_bytes} and "
+            f"{HOST_SLACK_BYTES} (the whole stack: {whole})")
     report["whole_stack_bytes"] = whole
     # The whole stack from the same files, on the card: this rank's
-    # loaded shard, paired, must be its shard bit for bit.
+    # loaded shard, as the first engine paired it in place, must be its
+    # shard bit for bit.
     t0 = time.perf_counter()
     _, base = load_hf_params(world["base"], cfg, torch.bfloat16, dev)
     stack = stack_tenants(cfg, base, [load_delta(p, dev)[0]
                                       for p in world["tenants"]], dev)
     del base
     want = shard_stack(cfg, to_pair_layout(stack, tp=TP_RANKS), mesh)
-    got = to_pair_layout(shard.local, tp=TP_RANKS, local=True)
+    got = shard.local
     pairs = list(zip(_tree_leaves((got.params, got.deltas,
                                    got.vocab_sizes)),
                      _tree_leaves((want.params, want.deltas,
@@ -4738,7 +4772,7 @@ def tp_70b(dev, mesh, rank, smi, world):
     reset_counts()
     for kernel in llama.CARD_KERNELS:
         torch.cuda.reset_peak_memory_stats()
-        loaded = torch.cuda.memory_allocated()
+        rep = {"loaded_bytes": torch.cuda.memory_allocated()}
         eng = Engine(cfg, shard, max_slots=8, max_seq=128,
                      prefill_buckets=(64,), kernel=kernel, device=dev,
                      mesh=mesh)
@@ -4746,20 +4780,9 @@ def tp_70b(dev, mesh, rank, smi, world):
             del shard                       # the engine's stack alone stays
         gc.collect()
         torch.cuda.empty_cache()
-        rep = {"loaded_bytes": loaded,
-               "resident_bytes": torch.cuda.memory_allocated(),
-               "build_peak_bytes": torch.cuda.max_memory_allocated(),
-               "shard_bytes": stack_nbytes(eng.stack)}
-        # The engine pairs the loaded shard on the card: never more than
-        # the loaded shard, the paired one and one leaf of it.
-        paired_total = total(rep["shard_bytes"])
-        largest = max(t.numel() * t.element_size() for t in _tree_leaves(
-            (eng.stack.params, eng.stack.deltas)))
-        require(rep["build_peak_bytes"] <= loaded + paired_total + largest,
-                f"70b tp {kernel}: rank {rank}'s engine build peaked at "
-                f"{rep['build_peak_bytes']} bytes, over the loaded shard "
-                f"{loaded}, its paired shard {paired_total} and largest "
-                f"leaf {largest} (the whole stack: {whole})")
+        # The shard is paired already (the first engine did it in place):
+        # the card never holds more than it and one leaf of it.
+        check_build(eng, kernel, rep)
         logits = [x.cpu() for x in steps(cfg_local, eng.stack, kernel, mesh)]
         require(all(torch.isfinite(x).all().item() for x in logits),
                 f"70b tp {kernel}: logits not finite")

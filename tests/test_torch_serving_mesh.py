@@ -384,6 +384,18 @@ def test_loaded_shard_is_the_whole_stacks_shard_bit_for_bit(mesh_run, cid):
         assert r["leaves"] > 0 and r["differ"] == []
 
 
+@pytest.mark.parametrize("cid", [c[0] for c in DISK_LOAD_CASES])
+def test_engine_pairs_a_loaded_shard_in_place(mesh_run, cid):
+    """``Engine(mesh=)`` on a ``StackShard`` pairs the loaded shard in
+    place, so a rank never holds its canonical and its paired deltas
+    together: afterwards the ``StackShard`` itself holds the whole
+    stack's paired shard, bit for bit, and a second engine built on it
+    passes the shape check and shares the first one's deltas."""
+    for r in mesh_run[cid]:
+        assert r["in_place"]["leaves"] > 0 and r["in_place"]["differ"] == []
+        assert r["shared"]
+
+
 def test_mesh_vocab_tenants_differ(mesh_run):
     # Three vocabularies (128, 120, 100): each tenant's tokens its own.
     _, want = mesh_run["disk_vocab_1x2_cuda"]

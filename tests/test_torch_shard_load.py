@@ -30,7 +30,7 @@ import torch
 
 from bitdelta_torch.core import artifact as tart
 from bitdelta_torch.core.compress import compress_model, fuse_compressed
-from bitdelta_torch.core.export import save_full_model, save_full_model_streamed
+from bitdelta_torch.core.export import fused_checkpoint, save_full_model
 from bitdelta_torch.models import hf_import as thf
 from bitdelta_torch.models import llama
 from bitdelta_torch.models import mixtral as tmx
@@ -302,8 +302,10 @@ def test_streamed_export_writes_save_full_models_bytes(tmp_path, tied,
     fine["embed"] = base["embed"] + 0.01
     comp = compress_model(base, fine, compress_embeddings=embeddings)
     save_full_model(cfg, fuse_compressed(base, comp), str(tmp_path / "w"))
-    save_full_model_streamed(cfg, ckpt, comp, str(tmp_path / "s"),
-                             dtype=torch.bfloat16, base_quant=base_quant)
+    save_full_model(cfg, fused_checkpoint(cfg, ckpt, comp,
+                                          dtype=torch.bfloat16,
+                                          base_quant=base_quant),
+                    str(tmp_path / "s"))
     for name in ("model.safetensors", "config.json"):
         assert filecmp.cmp(tmp_path / "w" / name, tmp_path / "s" / name,
                            shallow=False)

@@ -182,6 +182,13 @@ LOAD_CASES = [  # (case id, world, mesh, case fields)
     ("load_w8_2x2_bf16", "ckpt_bf16", (2, 2), dict(quantize="int8", **BF16)),
     ("load_w4_1x2", "ckpt_fp32", (1, 2), dict(quantize="int4")),
     ("load_w4_2x2_bf16", "ckpt_bf16", (2, 2), dict(quantize="int4", **BF16)),
+    # train --quantize_base's round trip on the shards. At (1, 4) o_proj's
+    # K of 256 gives each rank 64 rows, half of a W4 group.
+    ("roundtrip_w8_1x4", "ckpt_fp32", (1, 4), dict(roundtrip="int8")),
+    ("roundtrip_w4_1x4", "ckpt_fp32", (1, 4), dict(roundtrip="int4")),
+    ("roundtrip_w4_1x4_bf16", "ckpt_bf16", (1, 4),
+     dict(roundtrip="int4", **BF16)),
+    ("roundtrip_w4_2x2", "ckpt_fp32", (2, 2), dict(roundtrip="int4")),
 ]
 
 
@@ -453,8 +460,10 @@ def test_megatron_collectives_give_one_process_gradients(world):
 def test_shards_loaded_from_disk_are_the_whole_params_shards(world, cid):
     """Every rank of the mesh reads its own blocks of the checkpoint
     (``load_hf_params(mesh=)``; with ``quantize``, quantized on the shards,
-    W8's row-parallel absmax taken over the model axis) and gets
-    ``shard_tree`` of the whole params (quantized whole), every leaf equal
+    W8's row-parallel absmax taken over the model axis; with
+    ``roundtrip``, ``train --quantize_base``'s round trip on the shards,
+    a W4 group straddling two ranks at (1, 4)) and gets ``shard_tree`` of
+    the whole params (quantized or round-tripped whole), every leaf equal
     in dtype and every bit."""
     mesh = next(m for c, _, m, _ in LOAD_CASES if c == cid)
     results = _in_mesh(world, cid)

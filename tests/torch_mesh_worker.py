@@ -39,10 +39,15 @@ a replay; None on a rank outside the case's mesh). Cases:
   artifacts): this rank's ``load_stack_shard``, paired with
   ``to_pair_layout(local=True)``, against ``shard_stack`` of the whole
   stack read by one process and paired for the model axis: the leaves
-  that differ (dtype or any bit) and how many were compared;
+  that differ (dtype or any bit) and how many were compared; then the
+  same for the shard an engine built on it paired in place
+  (``"in_place"``), and whether a second engine on it shares the first
+  one's deltas (``"shared"``);
 * ``load_params``: ``load_hf_params(mesh=)`` of a checkpoint, with
-  ``"quantize"`` round-tripped on the shards, against ``shard_model`` of
-  the whole params: the leaves that differ and how many were compared.
+  ``"quantize"`` quantized on the shards (``quantize_base(mesh=)``) or
+  with ``"roundtrip"`` round-tripped on them (``roundtrip_base(mesh=)``),
+  against the shard of the whole params treated so: the leaves that
+  differ and how many were compared.
 
 An ``engine`` or ``refuse`` case on a world written to disk builds its
 engine on the rank's ``load_stack_shard``.
@@ -229,8 +234,21 @@ def run_shard_load(world, case, mesh):
     whole = stack_tenants(cfg, base, [load_delta(p, "cpu")[0]
                                       for p in world["deltas"]], "cpu")
     want = psh.shard_stack(cfg, to_pair_layout(whole, tp=tp), mesh)
-    return _differ((got.params, got.deltas, got.vocab_sizes),
-                   (want.params, want.deltas, want.vocab_sizes))
+    out = _differ((got.params, got.deltas, got.vocab_sizes),
+                  (want.params, want.deltas, want.vocab_sizes))
+    # An engine takes the shard over and pairs it in place; a second
+    # engine on the same StackShard finds it paired and shares its leaves.
+    kw = dict(max_slots=2, max_seq=64, prefill_buckets=(16,),
+              kernel="cuda", device="cpu", mesh=mesh,
+              model=MODELS[world.get("model", "llama")])
+    first = Engine(cfg, shard, **kw)
+    out["in_place"] = _differ(
+        (shard.local.params, shard.local.deltas, shard.local.vocab_sizes),
+        (want.params, want.deltas, want.vocab_sizes))
+    second = Engine(cfg, shard, **kw)
+    out["shared"] = all(a is b for a, b in zip(
+        _leaves(first.stack.deltas), _leaves(second.stack.deltas)))
+    return out
 
 
 QUANTIZE = {"int8": lambda p, mesh: qb.quantize_base(p, "int8", mesh),
@@ -246,6 +264,10 @@ def run_load_params(world, case, mesh):
         quantize = QUANTIZE[case["quantize"]]
         got, whole = quantize(got, mesh), quantize(whole, None)
         specs = psh.serving_param_specs(cfg, whole, tp=case["mesh"][1])
+    elif case.get("roundtrip"):
+        got = qb.roundtrip_base(got, case["roundtrip"], dtype, mesh)
+        whole = qb.roundtrip_base(whole, case["roundtrip"], dtype)
+        specs = psh.param_specs(cfg)
     else:
         specs = psh.param_specs(cfg)
     return _differ(got, psh.shard_tree(whole, specs, mesh))
