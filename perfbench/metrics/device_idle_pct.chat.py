@@ -1,0 +1,11 @@
+"""Device: the share of the profiled stretch with nothing running on the
+card."""
+
+from perfbench import layer
+
+MOVES = "tpot_p90_ms"
+UNIT = "%"
+
+
+def read(ctx, result):
+    return layer.idle_pct(ctx, result)
