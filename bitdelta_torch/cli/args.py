@@ -55,7 +55,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--debug", action="store_true")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the "
-                        "distillation loop into this dir")
+                        "distillation loop, with the program's host "
+                        "spans on the kernels' clock, into this dir")
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="save distillation state (scales + optimizer) to "
                         "save_dir/distill_ckpt.safetensors every N steps "

@@ -72,6 +72,7 @@ from ..parallel.collectives import (all_gather, axis_index, axis_size,
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..research.quantized_base import (INT4_GROUP, Int4Weight, Int8Weight,
                                        int4_matmul)
+from ..utils.profiling import RECORDER
 from .config import ModelConfig
 
 PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
@@ -511,8 +512,9 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
                q_positions, kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, kernel: str = "torch", lengths=None,
                cache_k_scale=None, cache_v_scale=None, tp_group=None,
-               seq_group=None):
-    """One decoder block. ``p``/``d``: this layer's params / deltas. With
+               seq_group=None, layer: int = 0):
+    """One decoder block (``layer``, for its host spans). ``p``/``d``:
+    this layer's params / deltas. With
     ``cache_k``/``cache_v`` (``(B, S, KV, hd)`` views of the cache) the
     new K/V are written IN PLACE at ``write_pos`` per row — the JAX
     version returns a new cache from ``.at[].set``; here the cache
@@ -561,59 +563,62 @@ def _layer_fwd(cfg: ModelConfig, compute_dtype, x, p, d, tenant_ids,
             bias = bias[:, None, :]
         return (y.to(torch.float32) + bias).to(y.dtype)
 
-    h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps),
-                      tp_group)
-    q = biased("q_proj", proj("q_proj", h)).reshape(
-        b, sq, cfg.num_heads, cfg.head_dim)
-    k = biased("k_proj", proj("k_proj", h)).reshape(
-        b, sq, cfg.num_kv_heads, cfg.head_dim)
-    v = biased("v_proj", proj("v_proj", h)).reshape(
-        b, sq, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    with RECORDER.span("model.attention", layer=layer):
+        h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]),
+                                   cfg.rms_norm_eps), tp_group)
+        q = biased("q_proj", proj("q_proj", h)).reshape(
+            b, sq, cfg.num_heads, cfg.head_dim)
+        k = biased("k_proj", proj("k_proj", h)).reshape(
+            b, sq, cfg.num_kv_heads, cfg.head_dim)
+        v = biased("v_proj", proj("v_proj", h)).reshape(
+            b, sq, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    quantized = cache_k is not None and cache_k_scale is not None
-    kernel_decode = on_card(kernel) and cache_k is not None and sq == 1
-    if cache_k is not None:
-        if quantized:
-            k_store, ks_new = quantize_kv(k)
-            v_store, vs_new = quantize_kv(v)
-            write_cache(cache_k_scale, write_pos, ks_new)
-            write_cache(cache_v_scale, write_pos, vs_new)
+        quantized = cache_k is not None and cache_k_scale is not None
+        kernel_decode = on_card(kernel) and cache_k is not None and sq == 1
+        if cache_k is not None:
+            if quantized:
+                k_store, ks_new = quantize_kv(k)
+                v_store, vs_new = quantize_kv(v)
+                write_cache(cache_k_scale, write_pos, ks_new)
+                write_cache(cache_v_scale, write_pos, vs_new)
+            else:
+                k_store, v_store = k, v
+            write_cache(cache_k, write_pos, k_store)
+            write_cache(cache_v, write_pos, v_store)
+            k_all, v_all = cache_k, cache_v
+            if quantized and not kernel_decode:
+                k_all = dequantize_kv(cache_k, cache_k_scale, compute_dtype)
+                v_all = dequantize_kv(cache_v, cache_v_scale, compute_dtype)
+        elif seq_group is not None:
+            k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
+            v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
         else:
-            k_store, v_store = k, v
-        write_cache(cache_k, write_pos, k_store)
-        write_cache(cache_v, write_pos, v_store)
-        k_all, v_all = cache_k, cache_v
-        if quantized and not kernel_decode:
-            k_all = dequantize_kv(cache_k, cache_k_scale, compute_dtype)
-            v_all = dequantize_kv(cache_v, cache_v_scale, compute_dtype)
-    elif seq_group is not None:
-        k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
-        v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
-    else:
-        k_all, v_all = k, v
+            k_all, v_all = k, v
 
-    if kernel_decode:
-        attn = flash_decode_attention(
-            q[:, 0], k_all, v_all, q_positions[:, 0] + 1,
-            k_scale=cache_k_scale if quantized else None,
-            v_scale=cache_v_scale if quantized else None,
-            window=cfg.sliding_window).reshape(b, sq, -1)
-    elif (on_card(kernel) and lengths is not None and seq_group is None
-          and sq > 1 and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
-        attn = flash_prefill_attention(q, k_all, v_all, lengths,
-                                       window=cfg.sliding_window)
-    else:
-        attn = _attention(cfg, q, k_all, v_all, q_positions, kv_valid)
-    x = x + proj("o_proj", attn)
+        if kernel_decode:
+            attn = flash_decode_attention(
+                q[:, 0], k_all, v_all, q_positions[:, 0] + 1,
+                k_scale=cache_k_scale if quantized else None,
+                v_scale=cache_v_scale if quantized else None,
+                window=cfg.sliding_window).reshape(b, sq, -1)
+        elif (on_card(kernel) and lengths is not None and seq_group is None
+              and sq > 1 and sq % 8 == 0 and k_all.shape[1] % 8 == 0):
+            attn = flash_prefill_attention(q, k_all, v_all, lengths,
+                                           window=cfg.sliding_window)
+        else:
+            attn = _attention(cfg, q, k_all, v_all, q_positions, kv_valid)
+        x = x + proj("o_proj", attn)
 
-    h = copy_to_model(rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps),
-                      tp_group)
-    gate = proj("gate_proj", h)
-    up = proj("up_proj", h)
-    act = torch.nn.functional.silu(gate.to(torch.float32)).to(compute_dtype)
-    return x + proj("down_proj", act * up)
+    with RECORDER.span("model.mlp", layer=layer):
+        h = copy_to_model(rms_norm(x, norm_w(p["mlp_norm"]),
+                                   cfg.rms_norm_eps), tp_group)
+        gate = proj("gate_proj", h)
+        up = proj("up_proj", h)
+        act = torch.nn.functional.silu(gate.to(torch.float32)).to(
+            compute_dtype)
+        return x + proj("down_proj", act * up)
 
 
 def _layer(params: Params, deltas: Optional[Deltas], layer: int):
@@ -712,7 +717,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                        write_pos=write_pos if cache is not None else None,
                        kernel=kernel, lengths=lengths, cache_k_scale=cks,
                        cache_v_scale=cvs, tp_group=tp_group,
-                       seq_group=seq_group)
+                       seq_group=seq_group, layer=layer)
 
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, copy_to_model(x, tp_group), tenant_ids,
@@ -752,7 +757,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                        positions, kv_valid, cos, sin,
                        cache_k=ck, cache_v=cv, write_pos=cache.length,
                        kernel=kernel, cache_k_scale=cks, cache_v_scale=cvs,
-                       tp_group=tp_group)
+                       tp_group=tp_group, layer=layer)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
                              head_delta=head_delta, embed_delta=embed_delta)

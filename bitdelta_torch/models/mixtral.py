@@ -53,6 +53,7 @@ from ..parallel.collectives import (all_gather, copy_to_model,
                                     reduce_from_model)
 from ..parallel.mesh import DATA_AXIS
 from ..research.quantized_base import Int8Weight
+from ..utils.profiling import RECORDER
 from .config import ModelConfig
 from .llama import (KVCache, Params, _attention, _base_matmul, _cache_views,
                     _embed_lookup, _final_norm_w, _layer, _lm_head_logits,
@@ -287,12 +288,13 @@ def _moe_ffn(cfg: MixtralConfig, compute_dtype, x, p, d, tenant_ids=None,
 def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
                kv_valid, cos, sin, cache_k=None, cache_v=None,
                write_pos=None, tenant_ids=None, kernel: str = "torch",
-               tp_group=None, seq_group=None):
-    """One Mixtral block. With ``cache_k``/``cache_v`` (``(B, S, KV,
-    hd)`` views) the new K/V are written IN PLACE at ``write_pos`` per
-    row and attention runs over the cache. Decode under ``kernel="cuda"``
-    takes flash decode; every other attention, prefill included, is the
-    plain one, as in JAX. ``seq_group``: as llama's ``_layer_fwd``."""
+               tp_group=None, seq_group=None, layer: int = 0):
+    """One Mixtral block (``layer``, for its host spans). With
+    ``cache_k``/``cache_v`` (``(B, S, KV, hd)`` views) the new K/V are
+    written IN PLACE at ``write_pos`` per row and attention runs over the
+    cache. Decode under ``kernel="cuda"`` takes flash decode; every other
+    attention, prefill included, is the plain one, as in JAX.
+    ``seq_group``: as llama's ``_layer_fwd``."""
     d = d or {}
     b, sq, _ = x.shape
 
@@ -309,36 +311,39 @@ def _layer_fwd(cfg: MixtralConfig, compute_dtype, x, p, d, positions,
             y = reduce_from_model(y, tp_group, dtype=torch.float32)
         return y
 
-    h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]), cfg.rms_norm_eps),
-                      tp_group)
-    q = attn_proj(h, "q_proj").reshape(b, sq, cfg.num_heads, cfg.head_dim)
-    k = attn_proj(h, "k_proj").reshape(b, sq, cfg.num_kv_heads,
-                                       cfg.head_dim)
-    v = attn_proj(h, "v_proj").reshape(b, sq, cfg.num_kv_heads,
-                                       cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    with RECORDER.span("model.attention", layer=layer):
+        h = copy_to_model(rms_norm(x, norm_w(p["attn_norm"]),
+                                   cfg.rms_norm_eps), tp_group)
+        q = attn_proj(h, "q_proj").reshape(b, sq, cfg.num_heads,
+                                           cfg.head_dim)
+        k = attn_proj(h, "k_proj").reshape(b, sq, cfg.num_kv_heads,
+                                           cfg.head_dim)
+        v = attn_proj(h, "v_proj").reshape(b, sq, cfg.num_kv_heads,
+                                           cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    if cache_k is not None:
-        write_cache(cache_k, write_pos, k)
-        write_cache(cache_v, write_pos, v)
-        k_all, v_all = cache_k, cache_v
-    elif seq_group is not None:
-        k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
-        v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
-    else:
-        k_all, v_all = k, v
+        if cache_k is not None:
+            write_cache(cache_k, write_pos, k)
+            write_cache(cache_v, write_pos, v)
+            k_all, v_all = cache_k, cache_v
+        elif seq_group is not None:
+            k_all = all_gather(k, seq_group, DATA_AXIS, dim=1)
+            v_all = all_gather(v, seq_group, DATA_AXIS, dim=1)
+        else:
+            k_all, v_all = k, v
 
-    if on_card(kernel) and cache_k is not None and sq == 1:
-        attn = flash_decode_attention(
-            q[:, 0], k_all, v_all, positions[:, 0] + 1,
-            window=cfg.sliding_window).reshape(b, sq, -1)
-    else:
-        attn = _attention(cfg, q, k_all, v_all, positions, kv_valid)
-    x = x + attn_proj(attn, "o_proj")
-    h = rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps)
-    return x + _moe_ffn(cfg, compute_dtype, h, p, d, tenant_ids, kernel,
-                        tp_group)
+        if on_card(kernel) and cache_k is not None and sq == 1:
+            attn = flash_decode_attention(
+                q[:, 0], k_all, v_all, positions[:, 0] + 1,
+                window=cfg.sliding_window).reshape(b, sq, -1)
+        else:
+            attn = _attention(cfg, q, k_all, v_all, positions, kv_valid)
+        x = x + attn_proj(attn, "o_proj")
+    with RECORDER.span("model.mlp", layer=layer):
+        h = rms_norm(x, norm_w(p["mlp_norm"]), cfg.rms_norm_eps)
+        return x + _moe_ffn(cfg, compute_dtype, h, p, d, tenant_ids, kernel,
+                            tp_group)
 
 
 def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
@@ -389,7 +394,7 @@ def forward(cfg: MixtralConfig, params: Params, tokens: torch.Tensor, *,
         x = _layer_fwd(cfg, compute_dtype, x, lp, ld, positions, kv_valid,
                        cos, sin, cache_k=ck, cache_v=cv, write_pos=write_pos,
                        tenant_ids=tenant_ids, kernel=kernel,
-                       tp_group=tp_group, seq_group=seq_group)
+                       tp_group=tp_group, seq_group=seq_group, layer=layer)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, copy_to_model(x, tp_group), tenant_ids,
                              compute_dtype, kernel, head_delta=head_delta,
@@ -429,7 +434,7 @@ def decode_step(cfg: MixtralConfig, params: Params, tokens: torch.Tensor,
                        cos, sin, cache_k=cache.k[layer],
                        cache_v=cache.v[layer], write_pos=cache.length,
                        tenant_ids=tenant_ids, kernel=kernel,
-                       tp_group=tp_group)
+                       tp_group=tp_group, layer=layer)
     x = rms_norm(x, _final_norm_w(params, tenant_ids), cfg.rms_norm_eps)
     logits = _lm_head_logits(params, x, tenant_ids, compute_dtype, kernel,
                              head_delta=head_delta, embed_delta=embed_delta)

@@ -58,7 +58,7 @@ from ..parallel.collectives import (all_gather, axis_index, axis_size,
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.sharding import (check_stack_shard, check_stack_tp,
                                  local_config, shard_stack)
-from ..utils.profiling import StepTimer
+from ..utils.profiling import RECORDER, StepTimer
 from .sampling import sample_tokens
 from .stacking import StackShard, TenantStack, stack_to, to_pair_layout
 
@@ -114,13 +114,16 @@ class SlotState:
 class _ChunkTicket:
     """One dispatched chunk: ``toks`` (k, B) tokens (-1 where a lane was
     parked) — a host tensor filled asynchronously until ``ready`` (a CUDA
-    event, None on the CPU) completes — and the slot-requests and step
-    count it was dispatched for."""
+    event, None on the CPU) completes — the slot-requests and step count
+    it was dispatched for, the steps it ran (fewer once every lane
+    parked) and, once read back, the tokens it produced."""
     toks: torch.Tensor
     ready: Optional[torch.cuda.Event]
     active: np.ndarray
     epochs: np.ndarray
     steps: int
+    ran: int
+    produced: int = 0
 
 
 @dataclasses.dataclass
@@ -154,6 +157,12 @@ def _replicated(method):
             finally:
                 self._op_depth -= 1
     return call
+
+
+def _count_admissions(n: int, prompt_tokens: int, padded: int) -> None:
+    RECORDER.count("engine.admissions", n)
+    RECORDER.count("engine.prompt_tokens", prompt_tokens)
+    RECORDER.count("engine.padded_tokens", padded)
 
 
 class Engine:
@@ -407,7 +416,7 @@ class Engine:
         buffer) with stop detection on the device: a lane that samples a
         stop id or exhausts ``rem`` is parked (its cache length frozen,
         -1 tokens after), and the loop ends once every lane is parked.
-        Returns ``(toks (k, B), tokens, live, rem)``."""
+        Returns ``(toks (k, B), tokens, live, rem, steps run)``."""
         bsz = self.max_slots
         tenant_ids = self._t(self.tenant_ids, torch.int64)
         temps = self._t(self.temps, torch.float32)
@@ -422,30 +431,34 @@ class Engine:
         vmask = (torch.arange(self._vocab, device=self.device)[None]
                  < self.stack.vocab_sizes[tenant_ids][:, None])
         probe = None
+        ran = 0
         with torch.no_grad():
             for i in range(steps):
                 if self._parked(live, probe):
                     break
-                old_len = self.cache.length
-                logits, cache = self._step(tokens.to(torch.int64),
-                                           tenant_ids)
-                logits = torch.where(vmask, logits,
-                                     torch.full_like(logits, NEG_INF))
-                nxt = sample_tokens(self._gen, logits, temps, top_ks, top_ps)
-                # Parked / inactive lanes don't advance.
-                self.cache = cache._replace(length=torch.where(
-                    live[self._rows], cache.length, old_len))
-                toks[i] = torch.where(live, nxt, torch.full_like(nxt, -1))
-                rem = torch.where(live, rem - 1, rem)
-                hit_stop = (nxt[:, None] == stop_ids).any(dim=1)
-                live = live & ~hit_stop & (rem > 0)
-                tokens = torch.where(live[:, None], nxt[:, None], tokens)
-                if self.device.type == "cuda":
-                    flag = live.any().to("cpu", non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record()
-                    probe = (flag, ev)
-        return toks, tokens, live, rem
+                with RECORDER.span("engine.decode_step"):
+                    old_len = self.cache.length
+                    logits, cache = self._step(tokens.to(torch.int64),
+                                               tenant_ids)
+                    logits = torch.where(vmask, logits,
+                                         torch.full_like(logits, NEG_INF))
+                    nxt = sample_tokens(self._gen, logits, temps, top_ks,
+                                        top_ps)
+                    # Parked / inactive lanes don't advance.
+                    self.cache = cache._replace(length=torch.where(
+                        live[self._rows], cache.length, old_len))
+                    toks[i] = torch.where(live, nxt, torch.full_like(nxt, -1))
+                    rem = torch.where(live, rem - 1, rem)
+                    hit_stop = (nxt[:, None] == stop_ids).any(dim=1)
+                    live = live & ~hit_stop & (rem > 0)
+                    tokens = torch.where(live[:, None], nxt[:, None], tokens)
+                    if self.device.type == "cuda":
+                        flag = live.any().to("cpu", non_blocking=True)
+                        ev = torch.cuda.Event()
+                        ev.record()
+                        probe = (flag, ev)
+                ran += 1
+        return toks, tokens, live, rem, ran
 
     # ------------------------------------------------------------------
     # Warmup
@@ -533,25 +546,30 @@ class Engine:
         """Admit a request: prefill its prompt into a free slot. Returns
         the slot. Raises EngineFullError when full. The prefill runs
         outside the engine lock; only the cache insert takes it."""
-        self._validate(req)
-        with self._lock:
-            free = self.free_slots()
-            if not free:
-                raise EngineFullError("engine full")
-            slot = self._pick_slot(free, req.tenant_id)
-            self.slots[slot].reserved = True
-            self.slots[slot].request = req
-        try:
-            self._admit(slot, req)
-        finally:
+        with RECORDER.span("engine.submit", request_id=req.request_id,
+                           prompt_tokens=len(req.prompt_ids)) as span:
+            self._validate(req)
             with self._lock:
-                st = self.slots[slot]
-                st.reserved = False
-                if not st.active and st.request is req:
-                    st.request = None
-                    if req.request_id is not None:
-                        self._cancelled.discard(req.request_id)
-        return slot
+                free = self.free_slots()
+                if not free:
+                    raise EngineFullError("engine full")
+                slot = self._pick_slot(free, req.tenant_id)
+                self.slots[slot].reserved = True
+                self.slots[slot].request = req
+            bucket = self._bucket(len(req.prompt_ids))
+            span.set(bucket=bucket)
+            _count_admissions(1, len(req.prompt_ids), bucket)
+            try:
+                self._admit(slot, req, bucket)
+            finally:
+                with self._lock:
+                    st = self.slots[slot]
+                    st.reserved = False
+                    if not st.active and st.request is req:
+                        st.request = None
+                        if req.request_id is not None:
+                            self._cancelled.discard(req.request_id)
+            return slot
 
     def _validate(self, req: Request):
         if not (0 <= req.tenant_id < self.stack.num_tenants):
@@ -616,6 +634,9 @@ class Engine:
         temps = np.zeros((B,), np.float32)
         top_ks = np.zeros((B,), np.int32)
         top_ps = np.ones((B,), np.float32)
+        _count_admissions(len(batch),
+                          sum(len(r.prompt_ids) for _, r in batch),
+                          B * bucket)
         for slot, req in batch:
             ids = req.prompt_ids
             tokens[slot, :len(ids)] = ids
@@ -714,15 +735,16 @@ class Engine:
                 and self.slots[nb].tenant_id == tenant_id)
         return max(free, key=score)
 
-    def _admit(self, slot: int, req: Request):
+    def _admit(self, slot: int, req: Request, bucket: int):
         ids = list(req.prompt_ids)
-        tokens = np.zeros((1, self._bucket(len(ids))), np.int64)
+        tokens = np.zeros((1, bucket), np.int64)
         tokens[0, :len(ids)] = ids
-        first_dev, rowcache = self._prefill(
-            tokens, np.asarray([len(ids)], np.int32),
-            np.asarray([req.tenant_id], np.int32),
-            [req.temperature], [req.top_k], [req.top_p])
-        first = int(first_dev[0])              # the admission's host sync
+        with RECORDER.span("engine.prefill", request_id=req.request_id):
+            first_dev, rowcache = self._prefill(
+                tokens, np.asarray([len(ids)], np.int32),
+                np.asarray([req.tenant_id], np.int32),
+                [req.temperature], [req.top_k], [req.top_p])
+            first = int(first_dev[0])          # the admission's host sync
         req.first_token = first
         with self._lock:
             if (req.request_id is not None
@@ -764,6 +786,16 @@ class Engine:
         tokens back. Returns ``(ticket or None, pre_events)``. Lanes the
         host did not touch since the last dispatch continue from the
         device-carried (tokens, live, rem)."""
+        with RECORDER.span("engine.dispatch", cpu=True) as span:
+            ticket, pre_events = self._dispatch()
+            ran = ticket.ran if ticket is not None else 0
+            span.set(steps=ran, lanes=0 if ticket is None
+                     else int(ticket.active.sum()))
+        RECORDER.count("engine.steps", ran)
+        RECORDER.count("engine.rows", self.max_slots * ran)
+        return ticket, pre_events
+
+    def _dispatch(self):
         with self._lock:
             active = np.asarray([s.active for s in self.slots], bool)
             pre_events: List[StepEvent] = []
@@ -818,7 +850,7 @@ class Engine:
                 pend = self._t([s.pending_first for s in self.slots],
                                torch.bool)
                 set_tok = torch.where(pend, self._pending_firsts, set_tok)
-            toks, self._dev_tokens, self._dev_live, self._dev_rem = \
+            toks, self._dev_tokens, self._dev_live, self._dev_rem, ran = \
                 self._run_chunk(steps, self.decode_chunk, carry_tok,
                                 carry_live, carry_rem,
                                 self._t(set_mask, torch.bool), set_tok,
@@ -831,17 +863,25 @@ class Engine:
                 ready = torch.cuda.Event()
                 ready.record()
             return _ChunkTicket(toks=toks, ready=ready, active=active,
-                                epochs=epochs, steps=steps), pre_events
+                                epochs=epochs, steps=steps,
+                                ran=ran), pre_events
 
     def _consume_chunk(self, ticket: _ChunkTicket) -> List[StepEvent]:
         """Read back one chunk's tokens (the only host sync) and apply
         them to host state. Returns per-slot events in generation order."""
-        t0 = time.perf_counter()
+        if ticket.ready is not None:
+            with RECORDER.span("engine.readback"):
+                ticket.ready.synchronize()
+        with RECORDER.span("engine.consume") as span:
+            events = self._apply_chunk(ticket)
+            span.set(tokens=ticket.produced)
+        RECORDER.count("engine.tokens", ticket.produced)
+        return events
+
+    def _apply_chunk(self, ticket: _ChunkTicket) -> List[StepEvent]:
         # Deferred admission firsts precede this chunk's tokens.
         self._flush_pending_firsts()
         events: List[StepEvent] = self._drain_flush_events()
-        if ticket.ready is not None:
-            ticket.ready.synchronize()
         toks = ticket.toks.numpy()             # (k, B)
         produced = 0
         with self._lock:
@@ -868,8 +908,17 @@ class Engine:
                         st.active = False
                         self._dirty[i] = True
                         break  # tokens past the stop are discarded
-        self.timer.add(time.perf_counter() - t0, produced)
+        ticket.produced = produced
         return events
+
+    def _time_pump(self, t0: float, read: List[_ChunkTicket]) -> None:
+        """Feed ``timer`` a pump (or step) begun at monotonic ``t0`` that
+        read back the chunks ``read``: its wall time, their tokens and
+        their steps."""
+        if read:
+            self.timer.add(time.monotonic() - t0,
+                           sum(t.produced for t in read),
+                           steps=sum(t.ran for t in read))
 
     def _idle_flush(self) -> List[StepEvent]:
         """With no chunk to run or read, resolve deferred firsts anyway:
@@ -885,16 +934,21 @@ class Engine:
     def step(self) -> List[StepEvent]:
         """One chunk for all active slots, read back at once. In-flight
         chunks left by :meth:`pump` are drained first."""
-        with self._step_mutex:
+        with self._step_mutex, RECORDER.span("engine.pump"):
+            t0 = time.monotonic()
             events: List[StepEvent] = self._drain_flush_events()
+            read = []
             while self._inflight:
-                events += self._consume_chunk(self._inflight.pop(0))
+                read.append(self._inflight.pop(0))
+                events += self._consume_chunk(read[-1])
             ticket, pre = self._dispatch_chunk()
             events += pre
             if ticket is not None:
+                read.append(ticket)
                 events += self._consume_chunk(ticket)
             else:
                 events += self._idle_flush()
+            self._time_pump(t0, read)
             return events
 
     @_replicated
@@ -902,17 +956,20 @@ class Engine:
         """Pipelined :meth:`step`: run the NEXT chunk before reading the
         previous one back, so the readback overlaps device work. The
         first call typically returns no events."""
-        with self._step_mutex:
+        with self._step_mutex, RECORDER.span("engine.pump"):
+            t0 = time.monotonic()
             ticket, events = self._dispatch_chunk()
             events = self._drain_flush_events() + events
             if ticket is not None:
                 self._inflight.append(ticket)
+            read = []
             if self._inflight and (ticket is None
                                    or len(self._inflight) > 1):
-                events = events + self._consume_chunk(
-                    self._inflight.pop(0))
+                read.append(self._inflight.pop(0))
+                events = events + self._consume_chunk(read[0])
             elif ticket is None:
                 events = events + self._idle_flush()
+            self._time_pump(t0, read)
             return events
 
     @_replicated

@@ -3,7 +3,8 @@
 
   GET  /          -> browser page (serving/frontend.py)
   GET  /models    -> {"models": [tenant names]}
-  GET  /stats     -> engine slots, memory and decode rate
+  GET  /stats     -> engine slots, memory, decode rate and the span
+                     recorder's totals
   POST /generate  -> NDJSON stream; body:
        {"prompt": str | "messages": [{role, content}, ...],
         "tenant": name-or-index | omitted = broadcast to ALL tenants,
@@ -25,6 +26,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Sequence
 
+from ..utils.profiling import RECORDER
 from .engine import Engine, EngineFullError, Request, StepEvent
 
 log = logging.getLogger(__name__)
@@ -125,7 +127,8 @@ class ServingApp:
                         s.active = False
                 self._wake.clear()
                 continue
-            with self._mu:
+            with RECORDER.span("server.route", events=len(events)), \
+                    self._mu:
                 finished_any = False
                 for ev in events:
                     finished_any |= ev.finished
@@ -170,6 +173,25 @@ class ServingApp:
             raise ValueError("need 'prompt' or 'messages'")
         return list(tenant.tokenizer.encode(text))
 
+    def _submit_when_free(self, r: Request, deadline: float) -> None:
+        """Submit ``r``, which the engine refused for want of a slot, as
+        soon as a slot frees, or raise once ``deadline`` (monotonic) has
+        passed. The whole wait is one ``server.slot_wait`` span."""
+        RECORDER.count("server.slot_waits")
+        with RECORDER.span("server.slot_wait", request_id=r.request_id):
+            while True:
+                with self._mu:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise RuntimeError("engine full (timed out waiting "
+                                           "for a free slot)")
+                    self._slot_free.wait(timeout=min(0.25, remaining))
+                try:
+                    self.engine.submit(r)
+                    return
+                except EngineFullError:
+                    pass
+
     def generate_stream(self, body: dict):
         """Yields NDJSON lines. Without 'tenant' every tenant answers the
         same conversation (broadcast)."""
@@ -207,19 +229,10 @@ class ServingApp:
                 with self._mu:
                     self._queues[r.request_id] = q
                     rid_to_i[r.request_id] = i
-                while True:
-                    try:
-                        eng.submit(r)
-                        break
-                    except EngineFullError:
-                        with self._mu:
-                            remaining = deadline - time.monotonic()
-                            if remaining <= 0:
-                                raise RuntimeError(
-                                    "engine full (timed out waiting for "
-                                    "a free slot)")
-                            self._slot_free.wait(
-                                timeout=min(0.25, remaining))
+                try:
+                    eng.submit(r)
+                except EngineFullError:
+                    self._submit_when_free(r, deadline)
                 self._wake.set()
                 first = r.first_token
                 if first not in metas[i].stop_token_ids:
@@ -296,6 +309,7 @@ def make_http_server(app: ServingApp, host: str = "0.0.0.0",
                     "memory_bytes": stack_nbytes(eng.stack),
                     "decode": eng.timer.summary(),
                     "decode_chunk": eng.decode_chunk,
+                    "totals": dict(RECORDER.totals),
                 }).encode())
             else:
                 self.send_error(404)

@@ -54,6 +54,7 @@ from ..parallel.collectives import (axis_index, axis_size, psum,
                                     reduce_from_model)
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..parallel.sharding import delta_specs, local_config
+from ..utils.profiling import RECORDER
 
 KERNELS = ("auto", "cuda", "torch")
 
@@ -138,6 +139,10 @@ def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
         sharded = [n for n in packed if MODEL_AXIS in specs[n].packed]
 
     def step(batch: torch.Tensor) -> torch.Tensor:
+        with RECORDER.span("distill.step", tokens=batch.numel()):
+            return phases(batch)
+
+    def phases(batch: torch.Tensor) -> torch.Tensor:
         lr = cosine_lr(dcfg.lr, dcfg.num_steps, _adam_step(optimizer))
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -147,28 +152,32 @@ def make_distill_step(cfg: ModelConfig, dcfg: DistillConfig, base_params,
                              f"axis ({dp})")
         rows = b // dp
         batch = batch[axis_index(mesh, DATA_AXIS) * rows:][:rows]
-        with torch.no_grad():
+        with RECORDER.span("distill.teacher"), torch.no_grad():
             teacher = model.forward(run_cfg, finetuned_params, batch,
                                     compute_dtype=compute_dtype,
                                     kernel="torch", tp_group=mesh)
-        deltas = {name: BinaryDelta(packed=packed[name], scale=scales[name])
-                  for name in packed}
-        student = model.forward(run_cfg, s_params, batch, deltas=deltas,
-                                compute_dtype=compute_dtype, kernel=kernel,
-                                tp_group=mesh)
-        diff = (teacher - student).to(torch.float32)
-        if mesh is None:
-            loss = torch.mean(diff * diff)
-        else:
-            whole = b * s * diff.shape[-1] * axis_size(mesh, MODEL_AXIS)
-            loss = reduce_from_model((diff * diff).sum() / whole, mesh)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            _sum_grads(scales, sharded, mesh, MODEL_AXIS)
-            _sum_grads(scales, list(scales), mesh, DATA_AXIS)
-            loss = psum(loss.detach(), mesh, DATA_AXIS)
-        optimizer.step()
+        with RECORDER.span("distill.student"):
+            deltas = {name: BinaryDelta(packed=packed[name],
+                                        scale=scales[name])
+                      for name in packed}
+            student = model.forward(run_cfg, s_params, batch, deltas=deltas,
+                                    compute_dtype=compute_dtype,
+                                    kernel=kernel, tp_group=mesh)
+            diff = (teacher - student).to(torch.float32)
+            if mesh is None:
+                loss = torch.mean(diff * diff)
+            else:
+                whole = b * s * diff.shape[-1] * axis_size(mesh, MODEL_AXIS)
+                loss = reduce_from_model((diff * diff).sum() / whole, mesh)
+        with RECORDER.span("distill.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                _sum_grads(scales, sharded, mesh, MODEL_AXIS)
+                _sum_grads(scales, list(scales), mesh, DATA_AXIS)
+                loss = psum(loss.detach(), mesh, DATA_AXIS)
+        with RECORDER.span("distill.optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -249,7 +258,9 @@ def distill_scales(cfg: ModelConfig, base_params, finetuned_params,
         if i < start:
             continue
         tokens = torch.as_tensor(np.asarray(batch), device=device).long()
-        losses.append(float(step(tokens)))
+        loss = step(tokens)
+        with RECORDER.span("distill.readback"):
+            losses.append(float(loss))
         if progress and i % 10 == 0:
             print(f"[distill] step {i}: loss {losses[-1]:.6f}", flush=True)
         if (checkpoint_path and checkpoint_every and writer

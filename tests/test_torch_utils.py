@@ -106,9 +106,15 @@ def test_step_timer_and_memory_stats():
     s = timer.summary()
     assert s["steps_measured"] == 2 and timer.tokens == [9, 17]
     assert s["tokens_per_sec"] > 0 and s["mean_step_time_s"] >= 0
-    # The engine's decode meter is this timer, fed through ``add``.
-    timer.add(0.5, 3)
+    # The engine's decode meter is this timer, fed through ``add`` once a
+    # pump: its wall time, its chunk's tokens and the chunk's steps.
+    timer.add(0.5, 3, steps=4)
     assert timer.tokens == [17, 3] and timer.times[-1] == 0.5
+    assert timer.steps == [1, 4]
+    s = timer.summary()
+    assert s["steps_measured"] == 5
+    assert s["mean_step_time_s"] == pytest.approx(sum(timer.times) / 5)
+    assert s["tokens_per_sec"] == pytest.approx(20 / sum(timer.times))
     from bitdelta_torch.serving import engine
     assert engine.StepTimer is StepTimer
     if not torch.cuda.is_available():
